@@ -1,0 +1,128 @@
+"""Build, load and launch support for the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use every
+source is compiled by its own ``nvcc`` process (all started together) for
+``sm_90a`` into a shared library under ``build/kernels/`` at the
+repository root, and loaded with ``ctypes``. A library's file name carries
+a hash of its source and flags, so an edited source is rebuilt and a
+finished build is reused. Nothing here runs at import time: a module that
+holds a kernel imports this one and builds only when it first launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# per-source build record of this process: seconds and nvcc's ptxas report
+BUILD_LOG: dict[str, dict] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, dict]:
+    """Compile every source not yet built, one ``nvcc`` per source, all
+    started together; raises with the compiler's output if any fails.
+    Returns ``BUILD_LOG`` (seconds and ptxas report per source built)."""
+    with _LOCK:
+        todo = [(src, _target(src)) for src in sorted(CSRC.glob("*.cu"))]
+        todo = [(src, out) for src, out in todo if not out.exists()]
+        if not todo:
+            return BUILD_LOG
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for src, out in todo:
+            tmp = out.with_name(f"tmp-{os.getpid()}-{out.name}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((src, out, tmp, time.perf_counter(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        failed = []
+        for src, out, tmp, t0, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                failed.append(f"{src.name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+            BUILD_LOG[src.stem] = {"seconds": time.perf_counter() - t0,
+                                   "ptxas": log}
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return BUILD_LOG
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built on first
+    use), with ``argtypes``/``restype`` set from ``signatures``:
+    {function: (restype, [argtypes])}."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _LIBS[name] = lib
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, kernel: str, rc: int) -> None:
+    """Raise when a C launcher returned a CUDA error code."""
+    if rc:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} (cuda error {rc})")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as a pointer-sized int."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_operand(name: str, t: torch.Tensor, shape: tuple,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous int32 tensor of ``shape`` on
+    ``device`` (what every kernel in this package takes)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
