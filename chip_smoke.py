@@ -4,22 +4,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
-   ``sm_90a`` (build time and ptxas register/spill summary);
+   ``sm_90a``, one process per source, all started together (build time and
+   ptxas register/spill summary);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
    bit for bit: K1 (A2 single-slot) and K2 (A1 bounded-list) at edge shapes
-   (N = 2..8, LCAP = 1, 2, 4, 8, M not a multiple of 128, tie-heavy events,
-   state carried over two chunks);
-3. the main path — the streaming two-pass miner (``StreamingMiner``,
-   ``engine="ptpe"``, ``per_window``) on the card: Sym26 (26 neurons, 300 s)
-   and Sym26 with 64 channels (60 s), 10-s windows, interval (5, 10] ms,
-   θ = 30, ``max_level=5``, list capacity LCAP = 8 (``DEFAULT_LCAP``). The
-   launch counts are zeroed just before each
-   stream and read just after; the first 3 windows of each are held against
-   the port's CPU plain path; the planted chains [0, 1, 2] and
-   [7, 8, 9, 10, 11] must be found;
-4. each kernel timed with CUDA events at the main path's own shapes (and at
-   those shapes held against its plain version again), beside the plain
-   version's time and the least time the card could take (its bound);
+   (N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, M not a multiple of 128, tie-heavy
+   events, state carried over two chunks); K3 (A2 MapConcatenate) and K4
+   (A1 MapConcatenate, with and without its fold) at N = 2, 3, 5, 8,
+   LCAP = 1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy events, an occurrence
+   ending exactly at τ+W on a segment boundary and a stitch that goes
+   unmatched — all of (a, c, b, f, ovf) compared;
+3. the main paths on the card, each with the launch counts zeroed just
+   before it and read just after; 10-s windows, interval (5, 10] ms,
+   θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
+   [7, 8, 9, 10, 11] must be found:
+   - the streaming two-pass miner (``StreamingMiner``, ``per_window``,
+     LCAP = 8) with ``engine="ptpe"`` on Sym26 (26 neurons, 300 s) and on
+     Sym26 with 64 channels (60 s) — the first 3 (64 channels: 2) windows
+     held against the port's CPU plain path;
+   - path A, the same miner with the reference's default
+     ``engine="hybrid"`` on Sym26 300 s: how many counters resolved to each
+     engine at each level; K1 and K4 must launch; the first 3 windows held
+     against the CPU plain path;
+   - path B, the restart-per-window miner (``mine_partitions(carry=False,
+     engine="mapconcat_kernel")``) over the first 6 Sym26 windows with the
+     launcher's overlap: K3 and K4 must launch; window 0 held against the
+     CPU plain path; the exact recounts of flagged episodes counted;
+   then the device busy share of one profiled steady window of each
+   streaming run;
+4. each kernel timed at the main paths' own largest shapes (and at those
+   shapes held against its plain version again): its device time, the mean
+   over back-to-back calls of the kernel durations the profiler records on
+   the card, beside the wrapper's wall time per call (CUDA events, host
+   enqueue included), the plain version's time and the least time the card
+   could take (its bound);
 5. a JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
    device line ``{"ok": true, "device": {...}}``.
 
@@ -30,6 +48,7 @@ Usage (from the root of a checkout, on a machine with one CUDA card):
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import statistics
@@ -61,8 +80,30 @@ MAX_LEVEL = 5
 # shows the other case).
 DEFAULT_LCAP = 8
 PLANTED = ([0, 1, 2], [7, 8, 9, 10, 11])
-STREAMS = (("sym26", 26, 300), ("sym26-64ch", 64, 60))
-CHECK_WINDOWS = 3
+# (name, channels, seconds, engine, windows held against the CPU plain path)
+STREAMS = (("sym26", 26, 300, "ptpe", 3), ("sym26-64ch", 64, 60, "ptpe", 2),
+           ("sym26-hybrid", 26, 300, "hybrid", 3))
+# kernels each streaming engine's path must launch
+REQUIRED = {"ptpe": ("a2_count_state", "a1_count_state"),
+            "hybrid": ("a2_count_state", "a1_mapconcat")}
+RESTART_WINDOWS = 6
+RESTART_ENGINE = "mapconcat_kernel"
+KERNELS = ("a2_count_state", "a1_count_state", "a2_mapconcat",
+           "a1_mapconcat")
+SOURCES = {
+    "a2_count_state": ("src/repro_torch/kernels/csrc/a2_count.cu",
+                       "src/repro/kernels/a2_count.py:169"),
+    "a1_count_state": ("src/repro_torch/kernels/csrc/a1_count.cu",
+                       "src/repro/kernels/a1_count.py:152"),
+    "a2_mapconcat": ("src/repro_torch/kernels/csrc/a2_mapconcat.cu",
+                     "src/repro/kernels/a2_count.py:328"),
+    "a1_mapconcat": ("src/repro_torch/kernels/csrc/a1_mapconcat.cu",
+                     "src/repro/kernels/a1_count.py:298")}
+# the CUDA kernels (``__global__`` names) each wrapper launches
+DEVICE_KERNELS = {"a2_count_state": ("a2_state_kernel",),
+                  "a1_count_state": ("a1_state_kernel",),
+                  "a2_mapconcat": ("a2_map_kernel", "fold_kernel"),
+                  "a1_mapconcat": ("a1_map_kernel", "fold_kernel")}
 TIMED_LAUNCHES = 21
 PLAIN_RUNS = 3
 
@@ -167,6 +208,68 @@ def edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
               f"lcap 1/2/4/8, {types.size} events in 2 chunks")
 
 
+def compare_mapc(torch, ops, k_a1, k_a2, eps, segs, lcaps, errs, what):
+    """K3 (A2) and K4 (A1, folded and Map only) against their plain
+    versions on the same CUDA tensors; every output compared."""
+    lay2 = ops.mapconcat_layout(eps.relaxed(), True, "cuda")
+    lay1 = ops.mapconcat_layout(eps, False, "cuda")
+    pairs = [("a2_mapconcat", k_a2.a2_mapconcat_kernel(*lay2, segs),
+              k_a2.a2_mapconcat_plain(*lay2, segs))]
+    for lcap in lcaps:
+        for fold in (True, False) if lcap == lcaps[-1] else (True,):
+            pairs.append(("a1_mapconcat",
+                          k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap,
+                                                   fold=fold),
+                          k_a1.a1_mapconcat_plain(*lay1, segs, lcap=lcap,
+                                                  fold=fold)))
+    torch.cuda.synchronize()
+    for k, got, want in pairs:
+        d = max_abs_diff(torch, got, want)
+        errs[k] = max(errs[k], d)
+        if d:
+            fail(f"{k} differs from its plain version ({what}): {d}")
+    return pairs
+
+
+def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
+                     errs):
+    from repro_torch.core import make_segments
+    types, times = tie_stream(np, 2, 1500, 4)
+    stream = EventStream(types, times, 4)
+    for n in (2, 3, 5, 8):
+        eps = random_batch(np, EpisodeBatch, 10 + n, 130 + n, n, 4)
+        for p in (1, 2, 8):
+            tau, wt, wtt = make_segments(stream, p, int(eps.max_span.max()))
+            segs = ops.segment_bricks(wt, wtt, tau, "cuda")
+            compare_mapc(torch, ops, k_a1, k_a2, eps, segs, (1, 2, 4, 8),
+                         errs, f"N={n}, P={p}")
+        print(f"[smoke] K3/K4 == plain at N={n}, M={eps.M}, P 1/2/8, lcap "
+              f"1/2/4/8 (K4 also Map only), {types.size} events")
+    # an occurrence from exactly τ=50 to exactly τ+W, a tie group on the
+    # boundary (the reference suite's straddler), and a doctored boundary
+    # row whose stitch goes unmatched
+    eps = EpisodeBatch(np.int32([[0, 1]]), np.int32([[0]]), np.int32([[10]]))
+    st = EventStream(np.int32([2, 0, 1, 2, 3, 0, 2, 2, 1, 0, 1, 2, 3]),
+                     np.int32([1, 5, 20, 33, 47, 50, 50, 50, 60, 61, 75, 88,
+                               99]), 4)
+    tau, wt, wtt = make_segments(st, 2, 10)
+    if int(tau[1]) != 50:
+        fail("the straddler fixture left the τ=50 boundary")
+    compare_mapc(torch, ops, k_a1, k_a2, eps,
+                 ops.segment_bricks(wt, wtt, tau, "cuda"), (4,), errs,
+                 "τ+W straddler")
+    eps = random_batch(np, EpisodeBatch, 3, 130, 3, 4)
+    tau, wt, wtt = make_segments(stream, 2, int(eps.max_span.max()))
+    segs = ops.segment_bricks(wt, wtt, tau, "cuda")
+    segs[0, 4, :] = int(tau[-1]) + 10 * int(eps.max_span.max())
+    pairs = compare_mapc(torch, ops, k_a1, k_a2, eps, segs, (4,), errs,
+                         "unmatched stitch")
+    if not all(bool(got[3][0].any()) for _, got, _ in pairs[:2]):
+        fail("the doctored boundary raised no unmatched flag")
+    print("[smoke] K3/K4 == plain on the τ+W straddler and on an unmatched "
+          "stitch (flag raised)")
+
+
 # ----------------------------------------------------------------- phase 3
 
 
@@ -198,7 +301,30 @@ def check_result(np, res, w) -> None:
         fail("level-1 counts differ from the event histogram")
 
 
-def main_path(np, torch, tally, name, num_types, seconds, lcap):
+def engine_table(miner) -> dict:
+    """{level: Counter(engine of each exact counter)} of a streaming miner,
+    plus its A2 counters (always K1) under "a2"."""
+    table: dict[int, collections.Counter] = {}
+    for _, frags in miner._exact.values():
+        for f in frags:
+            table.setdefault(f.eps.N, collections.Counter())[f.engine] += 1
+    for c in miner._a2.values():
+        table.setdefault(c.eps.N, collections.Counter())["a2"] += 1
+    return table
+
+
+def span_totals(TRACER) -> dict[str, tuple[float, int, int]]:
+    """{span name: (seconds, spans, episodes)} over the buffered spans."""
+    out: dict[str, tuple[float, int, int]] = {}
+    for e in TRACER.events():
+        sec, n, eps = out.get(e.name, (0.0, 0, 0))
+        out[e.name] = (sec + e.dur, n + 1,
+                       eps + int((e.args or {}).get("episodes", 0)))
+    return out
+
+
+def main_path(np, torch, tally, name, num_types, seconds, lcap, engine,
+              check_windows):
     from repro_torch.core import StreamingMiner
     from repro_torch.data import partition_windows, sym26
     from repro_torch.obs import TRACER
@@ -207,7 +333,7 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap):
     stream, _ = sym26(seconds=seconds, seed=0, num_types=num_types)
     windows = list(partition_windows(stream, WINDOW_MS))
     miner = StreamingMiner([INTERVAL], THETA, max_level=MAX_LEVEL,
-                           mode="per_window", engine="ptpe", lcap=lcap,
+                           mode="per_window", engine=engine, lcap=lcap,
                            device="cuda")
     meter = ThroughputMeter(label=name)
     results, found = [], set()
@@ -239,9 +365,7 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap):
           f"{s['steady_events_per_sec']:.1f} ev/s, window latency p50 "
           f"{s['p50_latency_s'] * 1e3:.1f} ms p99 "
           f"{s['p99_latency_s'] * 1e3:.1f} ms")
-    spans: dict[str, float] = {}
-    for e in TRACER.events():
-        spans[e.name] = spans.get(e.name, 0.0) + e.dur
+    spans = span_totals(TRACER)
     level_s = {}
     for res in results:
         for st in res.stats:
@@ -249,8 +373,14 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap):
     print(f"[smoke] {name} host clock: windows {meter.seconds:.3f} s; by "
           f"level " + ", ".join(f"L{k} {v:.3f} s" for k, v in
                                 sorted(level_s.items()))
-          + "; spans " + ", ".join(f"{k} {v:.3f} s" for k, v in
+          + "; spans " + ", ".join(f"{k} {v[0]:.3f} s" for k, v in
                                    sorted(spans.items())))
+    rc = spans.get("stream.recount", (0.0, 0, 0))
+    print(f"[smoke] {name} exact recounts of flagged episodes: {rc[1]} "
+          f"calls, {rc[2]} episodes, {rc[0]:.3f} s")
+    print(f"[smoke] {name} engines per level: " + "; ".join(
+        f"L{lvl} " + ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+        for lvl, c in sorted(engine_table(miner).items())))
     for lvl in sorted(levels):
         rows = levels[lvl]
         print(f"[smoke] {name} L{lvl}: candidates max "
@@ -261,7 +391,7 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap):
     print(f"[smoke] {name} launches: {launches} "
           f"({ {k: round(v / len(windows), 1) for k, v in launches.items()} }"
           f" per window)")
-    for k in ("a2_count_state", "a1_count_state"):
+    for k in REQUIRED[engine]:
         if launches.get(k, 0) <= 0:
             fail(f"{name}: the main path launched no {k}")
     for chain in PLANTED:
@@ -272,25 +402,82 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap):
     # the first windows against the port's CPU plain path
     t0 = time.perf_counter()
     cpu = StreamingMiner([INTERVAL], THETA, max_level=MAX_LEVEL,
-                         mode="per_window", engine="ptpe", lcap=lcap,
+                         mode="per_window", engine=engine, lcap=lcap,
                          device="cpu")
-    for i, w in enumerate(windows[:CHECK_WINDOWS]):
+    for i, w in enumerate(windows[:check_windows]):
         res = cpu.update(w, final=i == len(windows) - 1)
         if not same_result(res, results[i]):
             fail(f"{name} window {i}: CUDA path differs from CPU plain path")
-    print(f"[smoke] {name}: first {CHECK_WINDOWS} windows equal the CPU "
+    print(f"[smoke] {name}: first {check_windows} windows equal the CPU "
           f"plain path ({time.perf_counter() - t0:.1f} s)")
     return miner, windows, launches, s
 
 
-def device_busy(torch, windows, lcap, n_warm=3):
+def restart_path(np, torch, tally):
+    """Path B: ``mine_partitions(carry=False, engine="mapconcat_kernel")``
+    over the first Sym26 windows, cut with the launcher's overlap
+    (thi x max_level). Returns (results, windows, launches)."""
+    from repro_torch.core import mine, mine_partitions
+    from repro_torch.data import partition_windows, sym26
+    from repro_torch.obs import TRACER
+
+    stream, _ = sym26(seconds=300, seed=0, num_types=26)
+    windows = list(partition_windows(
+        stream, WINDOW_MS, overlap_ms=INTERVAL[1] * MAX_LEVEL))
+    windows = windows[:RESTART_WINDOWS]
+    name = f"restart-{RESTART_ENGINE}"
+    torch.cuda.synchronize()
+    TRACER.clear()
+    tally.reset_counts()
+    results, found, wall = [], set(), []
+    t0 = time.perf_counter()
+    for i, res in mine_partitions(windows, [INTERVAL], THETA,
+                                  max_level=MAX_LEVEL, carry=False,
+                                  engine=RESTART_ENGINE, device="cuda"):
+        wall.append(time.perf_counter() - t0)
+        check_result(np, res, windows[i])
+        results.append(res)
+        for fb in res.frequent:
+            found |= {tuple(e) for e in fb.etypes.tolist()}
+        print(f"[smoke] {name} window {i}: {len(windows[i])} events, "
+              f"{wall[-1] * 1e3:.1f} ms, "
+              + "  ".join(f"L{s.level}:{s.num_candidates}→"
+                          f"{s.num_survived_a2}→{s.num_frequent}"
+                          for s in res.stats[1:]))
+        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    launches = tally.launch_counts()
+    spans = span_totals(TRACER)
+    rc = spans.get("mapc.recount", (0.0, 0, 0))
+    print(f"[smoke] {name}: {len(windows)} windows in {sum(wall):.3f} s; "
+          f"launches {launches} "
+          f"({ {k: round(v / len(windows), 1) for k, v in launches.items()} }"
+          f" per window); exact recounts of flagged episodes: {rc[1]} "
+          f"calls, {rc[2]} episodes, {rc[0]:.3f} s")
+    for k in ("a2_mapconcat", "a1_mapconcat"):
+        if launches.get(k, 0) <= 0:
+            fail(f"{name}: the path launched no {k}")
+    for chain in PLANTED:
+        if tuple(chain) not in found:
+            fail(f"{name}: planted chain {chain} not found")
+    print(f"[smoke] {name}: planted chains {list(PLANTED)} found")
+    t0 = time.perf_counter()
+    cpu = mine(windows[0], [INTERVAL], THETA, max_level=MAX_LEVEL,
+               engine=RESTART_ENGINE, device="cpu")
+    if not same_result(cpu, results[0]):
+        fail(f"{name} window 0: CUDA path differs from CPU plain path")
+    print(f"[smoke] {name}: window 0 equals the CPU plain path "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return results, windows, launches
+
+
+def device_busy(torch, windows, lcap, engine, n_warm=3):
     """Device busy share of one steady window: a fresh miner takes
     ``n_warm`` windows, then the next one runs under ``torch.profiler``;
-    busy = summed CUDA kernel time over the window's host wall time.
-    Returns None when the profiler records no device time."""
+    busy = summed CUDA kernel time over the window's host wall time."""
     from repro_torch.core import StreamingMiner
     miner = StreamingMiner([INTERVAL], THETA, max_level=MAX_LEVEL,
-                           mode="per_window", engine="ptpe", lcap=lcap,
+                           mode="per_window", engine=engine, lcap=lcap,
                            device="cuda")
     for w in windows[:n_warm]:
         miner.update(w)
@@ -305,7 +492,7 @@ def device_busy(torch, windows, lcap, n_warm=3):
     busy_us = sum(getattr(e, "self_device_time_total", 0.0)
                   for e in prof.key_averages())
     if busy_us <= 0:
-        return None
+        fail("the profiler recorded no device time")
     return busy_us / 1e3, wall * 1e3
 
 
@@ -313,7 +500,8 @@ def device_busy(torch, windows, lcap, n_warm=3):
 
 
 def cuda_median_ms(torch, fn, n) -> float:
-    """Median over ``n`` single launches, each between two CUDA events."""
+    """Median over ``n`` single calls, each between two CUDA events: the
+    wall time of a call as its caller sees it, host enqueue included."""
     times = []
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
@@ -324,6 +512,36 @@ def cuda_median_ms(torch, fn, n) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, n, kernel_names) -> tuple[float, int]:
+    """Device time of one call of ``fn``, from ``n`` calls made back to
+    back: for each CUDA kernel the call launches (one per name in
+    ``kernel_names``), its mean duration as the profiler records it on the
+    card, summed over the kernels. The host's enqueue time between launches
+    is not counted. The mean is over the launches the profiler recorded:
+    CUPTI may drop a few records of a trace (19 of 21 have been seen), so
+    fewer than all are accepted, down to half. Returns (ms, the fewest
+    launches recorded of any of the kernels)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    stats = prof.key_averages()
+    total_us, fewest = 0.0, n
+    for name in kernel_names:
+        rows = [e for e in stats if name in e.key]
+        seen = sum(e.count for e in rows)
+        if seen < (n + 1) // 2 or seen > n:
+            timed = [e.key for e in stats if e.self_device_time_total > 0]
+            fail(f"the profiler recorded {seen} of {n} launches of {name}; "
+                 f"device events: {timed[:8]}")
+        total_us += sum(e.self_device_time_total for e in rows) / seen
+        fewest = min(fewest, seen)
+    return total_us / 1e3, fewest
 
 
 def bound(n_events, m, n, lcap, kind):
@@ -341,6 +559,89 @@ def bound(n_events, m, n, lcap, kind):
     t_ops = ops / PEAK_INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", 4 * words, ops)
+
+
+def mapc_bound(p, lw, m, n, lcap):
+    """``bound`` extended by the factor P·K (K = N phases) for K3/K4 over
+    P segments of LW (padded) events: inputs et/tlo/thi/cum, w and the
+    [P, 5, LW] segment bricks read once, outputs a/c/b/f and ovf written
+    once; P·K·LW·M machine steps of N + 2(N-1)·LCAP compares (LCAP = 1
+    for K3)."""
+    words = 4 * n * m + m + 5 * p * lw + 4 * n * m + m
+    ops = p * n * lw * m * (n + 2 * (n - 1) * lcap)
+    t_bytes = 4 * words / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", 4 * words, ops)
+
+
+def time_mapc_call(torch, kernel, plain, args, kw, what, errs, name):
+    """Hold one segmented kernel against its plain version at ``args``,
+    then time both; returns (device ms of the Map and fold launches,
+    launches the profiler recorded, wrapper ms, plain ms)."""
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    d = max_abs_diff(torch, got, want)
+    errs[name] = max(errs[name], d)
+    if d:
+        fail(f"{name} differs from its plain version at {what}: {d}")
+    kernel(*args, **kw)  # warm
+    ms, seen = device_ms(torch, lambda: kernel(*args, **kw),
+                         TIMED_LAUNCHES, DEVICE_KERNELS[name])
+    wrapper_ms = cuda_median_ms(torch, lambda: kernel(*args, **kw),
+                                TIMED_LAUNCHES)
+    plain_ms = cuda_median_ms(torch, lambda: plain(*args, **kw), PLAIN_RUNS)
+    return ms, seen, wrapper_ms, plain_ms
+
+
+def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
+              restart_results, restart_windows, lcap, errs):
+    """K3 at path B's largest level-3 A2 batch; K4 at path A's largest
+    mapconcatenate counter (one commit over its last window, 8 segments)
+    and at path B's level-3 survivor batch. Returns {kernel: row} with the
+    larger K4 shape kept."""
+    from repro_torch.core import candidates, count_a2
+    from repro_torch.core.count_a1 import DEFAULT_LCAP
+    i = max(range(len(restart_results)),
+            key=lambda j: restart_results[j].stats[2].num_candidates)
+    cand3 = candidates.join_next_level(restart_results[i].frequent[1])
+    w_b = restart_windows[i]
+    rows = {}
+    args = ops.mapc_inputs(w_b, cand3.relaxed(), 8, True, "cuda")
+    ms, seen, wrapper_ms, plain_ms = time_mapc_call(
+        torch, k_a2.a2_mapconcat_kernel, k_a2.a2_mapconcat_plain, args, {},
+        "path B's level-3 A2 batch", errs, "a2_mapconcat")
+    p, _, lw = args[-1].shape
+    rows["a2_mapconcat"] = (ms, seen, wrapper_ms, plain_ms,
+                            mapc_bound(p, lw, cand3.M, 3, 1),
+                            f"path B window {i} level-3 A2 batch N=3 "
+                            f"M={cand3.M} P={p} LW={lw}")
+
+    frag = max((f for _, frags in hybrid._exact.values() for f in frags
+                if f.engine == "mapconcatenate"),
+               key=lambda f: (f.eps.M, f.eps.N))
+    a2 = count_a2(w_b, cand3, segments=8, device="cuda")
+    surv = cand3.select(np.nonzero(a2 >= THETA)[0])
+    shapes = [("path A largest mapconcatenate counter", frag.eps,
+               hybrid_window, lcap)]
+    if surv.M:
+        shapes.append((f"path B window {i} level-3 survivors", surv, w_b,
+                       DEFAULT_LCAP))
+    k4 = []
+    for what, eps, w, cap in shapes:
+        args = ops.mapc_inputs(w, eps, 8, False, "cuda")
+        ms, seen, wrapper_ms, plain_ms = time_mapc_call(
+            torch, k_a1.a1_mapconcat_kernel, k_a1.a1_mapconcat_plain, args,
+            {"lcap": cap}, what, errs, "a1_mapconcat")
+        p, _, lw = args[-1].shape
+        row = (ms, seen, wrapper_ms, plain_ms,
+               mapc_bound(p, lw, eps.M, eps.N, cap),
+               f"{what} N={eps.N} M={eps.M} LCAP={cap} P={p} LW={lw}")
+        print(f"[smoke] a1_mapconcat at {row[-1]}: device {ms:.5f} ms, "
+              f"wrapper {wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms)")
+        k4.append((eps.M, row))
+    rows["a1_mapconcat"] = max(k4, key=lambda x: x[0])[1]
+    return rows
 
 
 def main_path_shapes(miner, window):
@@ -367,14 +668,20 @@ def time_kernels(np, torch, ops, k_a1, k_a2, miner, window, lcap, errs):
                                  compare_k1(torch, ops, k_a2, a2_eps, ev, n))
     if errs["a2_count_state"]:
         fail("K1 differs from its plain version at the main-path shape")
-    states = [[x.clone() for x in fresh2] for _ in range(TIMED_LAUNCHES + 1)]
+    # fresh machines for every timed launch (the kernels advance in place)
+    states = [[x.clone() for x in fresh2]
+              for _ in range(2 * TIMED_LAUNCHES + 1)]
     it = iter(states)
     k_a2.a2_count_state(*lay2, ev, *next(it), n_events=n)  # warm
-    ms = cuda_median_ms(torch, lambda: k_a2.a2_count_state(
+    ms, seen = device_ms(torch, lambda: k_a2.a2_count_state(
+        *lay2, ev, *next(it), n_events=n), TIMED_LAUNCHES,
+        DEVICE_KERNELS["a2_count_state"])
+    wrapper_ms = cuda_median_ms(torch, lambda: k_a2.a2_count_state(
         *lay2, ev, *next(it), n_events=n), TIMED_LAUNCHES)
     plain_ms = cuda_median_ms(torch, lambda: k_a2.a2_count_state_plain(
         *lay2, ev, *[x.clone() for x in fresh2], n), PLAIN_RUNS)
-    rows["a2_count_state"] = (ms, plain_ms, n, a2_eps.M, a2_eps.N, 1)
+    rows["a2_count_state"] = (ms, seen, wrapper_ms, plain_ms, n, a2_eps.M,
+                              a2_eps.N, 1)
 
     lay1 = ops.episode_layout(a1_eps, False, "cuda")
     fresh1 = ops.a1_state_layout(init_a1_state(a1_eps, lcap, "cuda"),
@@ -384,14 +691,19 @@ def time_kernels(np, torch, ops, k_a1, k_a2, miner, window, lcap, errs):
         compare_k2(torch, ops, k_a1, a1_eps, lcap, ev, [0, n]))
     if errs["a1_count_state"]:
         fail("K2 differs from its plain version at the main-path shape")
-    states = [[x.clone() for x in fresh1] for _ in range(TIMED_LAUNCHES + 1)]
+    states = [[x.clone() for x in fresh1]
+              for _ in range(2 * TIMED_LAUNCHES + 1)]
     it = iter(states)
     k_a1.a1_count_state(*lay1, ev, *next(it), n_events=n)  # warm
-    ms = cuda_median_ms(torch, lambda: k_a1.a1_count_state(
+    ms, seen = device_ms(torch, lambda: k_a1.a1_count_state(
+        *lay1, ev, *next(it), n_events=n), TIMED_LAUNCHES,
+        DEVICE_KERNELS["a1_count_state"])
+    wrapper_ms = cuda_median_ms(torch, lambda: k_a1.a1_count_state(
         *lay1, ev, *next(it), n_events=n), TIMED_LAUNCHES)
     plain_ms = cuda_median_ms(torch, lambda: k_a1.a1_count_state_plain(
         *lay1, ev, *[x.clone() for x in fresh1], n), PLAIN_RUNS)
-    rows["a1_count_state"] = (ms, plain_ms, n, a1_eps.M, a1_eps.N, lcap)
+    rows["a1_count_state"] = (ms, seen, wrapper_ms, plain_ms, n, a1_eps.M,
+                              a1_eps.N, lcap)
     return rows
 
 
@@ -415,7 +727,7 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs an NVIDIA card",
               file=sys.stderr)
         return 1
-    from repro_torch.core import EpisodeBatch
+    from repro_torch.core import EpisodeBatch, EventStream
     from repro_torch.kernels import a1_count as k_a1
     from repro_torch.kernels import a2_count as k_a2
     from repro_torch.kernels import cuda, ops, tally
@@ -432,51 +744,68 @@ def main() -> int:
         print(f"[smoke]   {src}.cu: nvcc {rec['seconds']:.1f} s; "
               f"{ptxas_summary(rec['ptxas'])}")
 
-    errs = {"a2_count_state": 0, "a1_count_state": 0}
+    errs = {k: 0 for k in KERNELS}
+    t0 = time.perf_counter()
     edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
+    mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
+                     errs)
+    print(f"[smoke] phase 2 (kernels against plain versions): "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    launches = {"a2_count_state": 0, "a1_count_state": 0}
+    launches = {k: 0 for k in KERNELS}
     main_runs = {}
-    for name, num_types, seconds in STREAMS:
-        miner, windows, got, summary = main_path(np, torch, tally, name,
-                                                 num_types, seconds,
-                                                 args.lcap)
+    for name, num_types, seconds, engine, check in STREAMS:
+        t0 = time.perf_counter()
+        miner, windows, got, summary = main_path(
+            np, torch, tally, name, num_types, seconds, args.lcap, engine,
+            check)
         for k in launches:
             launches[k] += got.get(k, 0)
-        main_runs[name] = (miner, windows, summary)
+        main_runs[name] = (miner, windows, engine)
+        print(f"[smoke] phase 3 {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    restart_results, restart_windows, got = restart_path(np, torch, tally)
+    for k in launches:
+        launches[k] += got.get(k, 0)
+    print(f"[smoke] phase 3 restart-{RESTART_ENGINE}: "
+          f"{time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    for name, (_, wins, engine) in main_runs.items():
+        busy, wall = device_busy(torch, wins, args.lcap, engine)
+        print(f"[smoke] {name} device busy share, window 3: "
+              f"{busy:.3f} ms of device time in {wall:.1f} ms wall = "
+              f"{busy / wall:.4f} (idle {1 - busy / wall:.4f})")
+    print(f"[smoke] busy shares: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     miner, windows, _ = main_runs["sym26"]
-    for name, (_, wins, _) in main_runs.items():
-        try:
-            got = device_busy(torch, wins, args.lcap)
-        except Exception as exc:  # noqa: BLE001 — optional measurement:
-            # a profiler failure is reported, not fatal to the smoke run
-            got, why = None, f"{type(exc).__name__}: {exc}".splitlines()[0]
-        else:
-            why = "no device time recorded"
-        if got is None:
-            print(f"[smoke] {name} device busy share: not measured ({why})")
-        else:
-            print(f"[smoke] {name} device busy share, window 3: "
-                  f"{got[0]:.3f} ms of device time in {got[1]:.1f} ms wall = "
-                  f"{got[0] / got[1]:.4f} (idle {1 - got[0] / got[1]:.4f})")
-    rows = time_kernels(np, torch, ops, k_a1, k_a2, miner, windows[-1],
-                        args.lcap, errs)
-    sources = {"a2_count_state": ("src/repro_torch/kernels/csrc/a2_count.cu",
-                                  "src/repro/kernels/a2_count.py:169"),
-               "a1_count_state": ("src/repro_torch/kernels/csrc/a1_count.cu",
-                                  "src/repro/kernels/a1_count.py:152")}
+    rows = {}
+    for k, (ms, seen, wrapper_ms, plain_ms, n, m, nl, lcap) in time_kernels(
+            np, torch, ops, k_a1, k_a2, miner, windows[-1], args.lcap,
+            errs).items():
+        rows[k] = (ms, seen, wrapper_ms, plain_ms,
+                   bound(n, m, nl, lcap, k),
+                   f"main-path shape N={nl} M={m} LCAP={lcap} events={n}")
+    hybrid, hwins, _ = main_runs["sym26-hybrid"]
+    rows.update(time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hwins[-1],
+                          restart_results, restart_windows, args.lcap, errs))
     kernels = []
-    for k, (ms, plain_ms, n, m, nl, lcap) in rows.items():
-        b_ms, b_by, nbytes, nops = bound(n, m, nl, lcap, k)
-        print(f"[smoke] {k} at main-path shape N={nl} M={m} LCAP={lcap} "
-              f"events={n}: {ms:.4f} ms (plain {plain_ms:.1f} ms); bound "
-              f"{b_ms:.5f} ms by {b_by} ({nbytes} B, {nops} int32 ops)")
-        kernels.append({"name": k, "route": "cuda", "source": sources[k][0],
-                        "replaces": sources[k][1], "launches": launches[k],
+    for k in KERNELS:
+        (ms, seen, wrapper_ms, plain_ms, (b_ms, b_by, nbytes, nops),
+         what) = rows[k]
+        print(f"[smoke] {k} at {what}: device {ms:.5f} ms (mean of the "
+              f"{seen} launches the profiler recorded of {TIMED_LAUNCHES} "
+              f"back-to-back calls), wrapper "
+              f"{wrapper_ms:.4f} ms (median call, CUDA events), plain "
+              f"{plain_ms:.1f} ms; bound {b_ms:.5f} ms by {b_by} ({nbytes} "
+              f"B, {nops} int32 ops); launches {launches[k]}")
+        kernels.append({"name": k, "route": "cuda", "source": SOURCES[k][0],
+                        "replaces": SOURCES[k][1], "launches": launches[k],
                         "max_abs_err": errs[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
+    print(f"[smoke] phase 4 (timing): {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

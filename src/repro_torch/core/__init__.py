@@ -1,10 +1,12 @@
 """Frequent-episode mining engine — the paper's contribution, PyTorch port
-of ``repro.core`` (episode-parallel engines so far).
+of ``repro.core``.
 
 Public API:
   EventStream, EpisodeBatch — data containers
   count_a1 / count_a2       — exact / relaxed-upper-bound counting
   count_two_pass            — Algorithm 4 (A2 cull → A1 exact)
+  count_dispatch            — Hybrid dispatcher (Algorithm 2 / Eq. 2)
+  mapconcatenate(_kernel)   — segment-parallel MapConcatenate (§5.2.2)
   mine / mine_partitions    — level-wise miner, streaming windows
 """
 
@@ -14,7 +16,11 @@ from .count_a2 import A2State, count_a2, count_single_slot, init_a2_state
 from .episodes import EpisodeBatch
 from .events import (PAD_TYPE, TIME_NEG_INF, EventStream, count_level1,
                      type_histogram)
-from .hybrid import count_dispatch
+from .calibrate import DispatchChoice, DispatchPolicy, get_policy
+from .hybrid import count_dispatch, crossover, f_of_n
+from .mapconcat import (concatenate_tree, fold_pair, fold_pair_unrolled,
+                        make_segments, mapconcatenate, mapconcatenate_kernel,
+                        phase_cum, stitch_zones)
 from .miner import LevelStats, MiningResult, mine, mine_partitions
 from .ref import (count_a1_sequential, count_a2_sequential,
                   count_occurrences_naive)
@@ -29,7 +35,11 @@ __all__ = [
     "count_a1", "count_a1_vectorized", "count_a2", "count_single_slot",
     "A1State", "A2State", "init_a1_state", "init_a2_state",
     "count_two_pass", "count_one_pass", "TwoPassResult", "TwoPassState",
-    "count_dispatch",
+    "count_dispatch", "crossover", "f_of_n",
+    "DispatchChoice", "DispatchPolicy", "get_policy",
+    "mapconcatenate", "mapconcatenate_kernel", "make_segments",
+    "fold_pair", "fold_pair_unrolled", "concatenate_tree", "phase_cum",
+    "stitch_zones",
     "mine", "mine_partitions", "MiningResult", "LevelStats",
     "StreamingCounter", "StreamingA2Counter", "StreamingMiner",
     "StagedWindow", "bucket_size",

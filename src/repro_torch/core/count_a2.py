@@ -107,19 +107,46 @@ def count_single_slot(stream: EventStream, eps: EpisodeBatch,
 
 def count_a2(stream: EventStream, eps: EpisodeBatch,
              state: A2State | None = None, return_state: bool = False,
+             segments: int | None = None, sharded: bool = False,
              device=None):
     """Paper Algorithm 3: upper-bound counts of the relaxed episodes α'.
 
-    One-shot calls run the fresh-state kernel (``kernels.ops.a2_count``);
+    One-shot calls run the fresh-state kernel K1 (``kernels.ops.a2_count``);
     stateful calls (``state``/``return_state``) return
     ``(counts, A2State)`` with cumulative counts over everything the
-    carried machines have seen. The reference's ``segments=`` (the
-    segment-parallel MapConcatenate cull) is not ported yet.
+    carried machines have seen.
+
+    ``segments`` routes the one-shot count through the segment-parallel
+    kernel K3 (``kernels.ops.a2_mapconcat_count``). Episodes whose tuples
+    fail to stitch are recounted by the exact single-slot scan, so the
+    result is *the* A2 count and Theorem 5.1's cull stays sound. Ignored in
+    stateful mode (cross-chunk carry is a single sequential scan).
+    ``sharded`` (one segmented launch per device) needs the multi-GPU slice
+    and raises.
     """
+    from repro_torch.kernels import ops
+    from repro_torch.obs import span
+
+    if sharded:
+        raise NotImplementedError(
+            "sharded segmented A2 counting (kernel K5) belongs to the "
+            "multi-GPU slice of the PyTorch port (ROADMAP queue 1 item 11), "
+            "which is not ported yet")
     relaxed = eps.relaxed()
     if state is not None or return_state:
         return count_single_slot(stream, relaxed, inclusive_lower=True,
                                  state=state, return_state=True,
                                  device=device)
-    from repro_torch.kernels import ops
+    if segments is not None and eps.N > 1:
+        counts, bad = ops.a2_mapconcat_count(stream, relaxed,
+                                             num_segments=segments,
+                                             device=device)
+        if bad.any():
+            idx = np.nonzero(bad)[0]
+            counts = counts.copy()
+            with span("mapc.recount", episodes=idx.size, a2=True):
+                counts[idx] = count_single_slot(stream, relaxed.select(idx),
+                                                inclusive_lower=True,
+                                                device=device)
+        return counts
     return ops.a2_count(stream, relaxed, device=device)

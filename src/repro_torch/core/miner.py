@@ -2,8 +2,9 @@
 ``repro.core.miner``.
 
 Level-wise loop: generate candidates (host, cheap) → count with the two-pass
-GPU-paper pipeline (A2 cull on kernel K1 → A1 exact on kernel K2) → keep
-frequent → join to next level. ``mine_partitions`` processes a stream
+GPU-paper pipeline (A2 cull → A1 exact, mapping chosen by the Hybrid rule:
+kernels K1/K2 episode-parallel, K3/K4 segment-parallel) → keep frequent →
+join to next level. ``mine_partitions`` processes a stream
 window-by-window — the paper's "real-time responsiveness by processing
 partitions of the data stream in turn" (chip-on-chip loop).
 """
@@ -38,7 +39,7 @@ class MiningResult:
 
 
 def mine(stream: EventStream, intervals, theta: int, max_level: int = 4,
-         engine: str = "ptpe", two_pass: bool = True,
+         engine: str = "hybrid", two_pass: bool = True,
          device=None) -> MiningResult:
     """Mine all frequent serial episodes up to ``max_level`` nodes.
 

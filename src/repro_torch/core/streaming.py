@@ -6,13 +6,29 @@ concatenated stream**:
 
 ``StreamingCounter``
     Exact cumulative non-overlapped A1 counts for a fixed ``EpisodeBatch``
-    over incrementally arriving windows, with the episode-parallel
-    (``"ptpe"``) bounded-list machines: their (s, ptr, count, ovf) carry
-    stays resident on the device in kernel layout, and every window is one
-    launch of kernel K2 (``kernels.a1_count``). Bounded lists flag
-    possibly-live evictions (``ovf``); flagged episodes are recounted by
-    the exact one-shot engine over the retained concatenated history, so
-    ``counts()`` is always exact.
+    over incrementally arriving windows. Engines:
+
+    * ``"ptpe"`` — the bounded-list machines: their (s, ptr, count, ovf)
+      carry stays resident on the device in kernel layout, and every window
+      is one launch of kernel K2 (``kernels.a1_count``).
+    * ``"mapconcatenate"`` — segment-parallel streaming: each commit cuts
+      the committed span into stitch-safe segments and runs ONE launch of
+      kernel K4 (Map step and fold, ``kernels.ops.a1_mapconcat_tuples``),
+      whose stitched (a, count, b, flag) tuple folds onto the carried tuple
+      with ``fold_pair`` — the associative form of the paper's Concatenate
+      tree (Fig. 6). A segment's tuple needs ``W`` ticks of lookahead (its
+      crossing zone), so the commit frontier trails ingestion by ``W``;
+      ``finalize()`` flushes the tail. ``"mapconcat_kernel"`` is an alias,
+      and so is ``"mapconcat_sharded"`` while one device is all there is
+      (multi-GPU is not ported).
+    * ``"hybrid"`` — the Eq. 2 dispatcher (``calibrate.get_policy``),
+      applied once per counter: ptpe above ``hybrid.crossover(N)``
+      episodes, mapconcatenate at or below it.
+
+    Exactness containment: bounded lists flag possibly-live evictions
+    (``ovf``) and unstitchable tuples flag ``unmatched``; flagged episodes
+    are recounted by the exact one-shot engine over the retained
+    concatenated history, so ``counts()`` is always exact.
 
     Two boundary subtleties make the bit-exact claim real:
 
@@ -42,9 +58,8 @@ concatenated stream**:
     exact counting lazily; a promoted episode's machines catch up by
     replaying the retained window history.
 
-Not ported yet (they raise ``NotImplementedError``): the segment-parallel
-MapConcatenate engines (``hybrid``, ``mapconcatenate`` and aliases) and
-the bounded-history mode (``checkpoint_interval`` / ``history_limit``).
+Not ported yet (it raises ``NotImplementedError``): the bounded-history
+mode (``checkpoint_interval`` / ``history_limit``).
 ``state_dict`` keys and dtypes equal the reference's, so checkpoints move
 between the two packages in both directions.
 """
@@ -67,7 +82,7 @@ from .count_a1 import A1State, DEFAULT_LCAP, count_a1, init_a1_state
 from .count_a2 import A2State, init_a2_state
 from .episodes import EpisodeBatch
 from .events import PAD_TYPE, EventStream, count_level1, type_histogram
-from .hybrid import check_engine
+from .mapconcat import cut_windows, fold_pair
 from .miner import LevelStats, MiningResult
 
 _EMPTY_I32 = np.empty(0, np.int32)
@@ -110,6 +125,23 @@ def _state_sub(d: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
 
 
+def _stream_engine(engine: str) -> str:
+    """Validate a streaming engine name and resolve its aliases: the
+    in-kernel MapConcatenate is the streaming ``mapconcatenate`` engine,
+    and so is the sharded one while ``hybrid.shard_devices()`` is 1 (one
+    device is all there is until multi-GPU is ported)."""
+    if engine == "mapconcat_sharded":
+        from . import hybrid
+        if hybrid.shard_devices() != 1:
+            raise hybrid.sharded_pending()
+        return "mapconcatenate"
+    if engine == "mapconcat_kernel":
+        return "mapconcatenate"
+    if engine not in ("ptpe", "mapconcatenate", "hybrid"):
+        raise ValueError(f"unknown engine {engine!r}")
+    return engine
+
+
 def _bounded_mode_pending(what: str):
     return NotImplementedError(
         f"{what}: bounded-history streaming is not ported to PyTorch yet")
@@ -124,7 +156,7 @@ class _Staged:
     """A window prepared for dispatch: holdback applied, history recorded,
     (ptpe) event brick padded and on the device."""
 
-    feed_types: object   # torch.Tensor brick (ptpe) or np.ndarray (level 1)
+    feed_types: object   # torch.Tensor brick (ptpe) or np.ndarray
     feed_times: object   # np.ndarray (level 1) or None
     n: int               # real fed events
     final: bool
@@ -135,20 +167,21 @@ class StreamingCounter:
 
     Feed successive non-overlapping, time-ordered windows with ``update``
     (or the prefetching ``run``); call ``finalize`` after the last window to
-    flush the holdback tail. ``counts()``/``update()`` return exact
+    flush the holdback/commit tail. ``counts()``/``update()`` return exact
     int64[M] cumulative counts — flagged episodes are restored against the
     retained history, exactly like the one-shot engines restore against the
     full stream.
     """
 
-    def __init__(self, eps: EpisodeBatch, engine: str = "ptpe",
-                 lcap: int = DEFAULT_LCAP,
+    def __init__(self, eps: EpisodeBatch, engine: str = "hybrid",
+                 lcap: int = DEFAULT_LCAP, num_segments: int = 8,
                  checkpoint_interval: int | None = None, device=None):
-        check_engine(engine)
+        engine = _stream_engine(engine)
         if checkpoint_interval is not None:
             raise _bounded_mode_pending("checkpoint_interval")
         self.eps = eps
         self.lcap = lcap
+        self.num_segments = num_segments
         self.device = resolve_device(device)
         self.snapshots: list[np.ndarray] = []
         self.windows_seen = 0
@@ -163,13 +196,30 @@ class StreamingCounter:
             self.engine = "level1"
             self._cum = np.zeros(eps.M, np.int64)
             return
+        if engine == "hybrid":
+            from .calibrate import get_policy
+            engine = get_policy().choose_stream(n_episode=eps.N,
+                                                m=eps.M).engine
         self.engine = engine
-        # the carried machines live on the device in kernel layout across
-        # windows — packed once here, never per window
-        self._ket, self._ktlo, self._kthi = kops.episode_layout(
-            eps, inclusive_lower=False, device=self.device)
-        self._kst = kops.a1_state_layout(
-            init_a1_state(eps, lcap, self.device), self.device)
+        if engine == "ptpe":
+            # the carried machines live on the device in kernel layout
+            # across windows — packed once here, never per window
+            self._ket, self._ktlo, self._kthi = kops.episode_layout(
+                eps, inclusive_lower=False, device=self.device)
+            self._kst = kops.a1_state_layout(
+                init_a1_state(eps, lcap, self.device), self.device)
+            return
+        # mapconcatenate: K4's episode operands packed once; the carried
+        # tuple (a, c, b, flag) [K, M] and the OR of every commit's ovf
+        # stay on the device
+        self._kmapc = kops.mapconcat_layout(eps, inclusive_lower=False,
+                                            device=self.device)
+        self._wmax = int(eps.max_span.max())
+        self._carry = None
+        self._ovf = torch.zeros(eps.M, dtype=torch.bool, device=self.device)
+        self._tau_c: int | None = None
+        self._buf_t = _EMPTY_I32  # committed lookback + pending events
+        self._buf_tt = _EMPTY_I32
 
     def _host_state(self) -> A1State:
         """The carried machines in canonical episode-major layout."""
@@ -232,6 +282,9 @@ class StreamingCounter:
 
     def _dispatch(self, staged: _Staged) -> None:
         self._consumed += staged.n
+        if self.engine == "mapconcatenate":
+            self._dispatch_mapc(staged)
+            return
         if not staged.n:
             return
         if self.engine == "level1":
@@ -245,13 +298,75 @@ class StreamingCounter:
                                staged.feed_types, s, ptr, c, ovf,
                                n_events=staged.n)
 
+    def _dispatch_mapc(self, staged: _Staged) -> None:
+        """Buffer the fed events and commit the span the lookahead allows:
+        one K4 launch over its stitch-safe segments, whose stitched tuple
+        folds onto the carry."""
+        if staged.n:
+            self._buf_t = np.concatenate([self._buf_t, staged.feed_types])
+            self._buf_tt = np.concatenate([self._buf_tt, staged.feed_times])
+        if self._buf_tt.size == 0:
+            return
+        if self._tau_c is None:
+            self._tau_c = int(self._buf_tt[0]) - 1
+        t_f = int(self._buf_tt[-1])
+        w = self._wmax
+        if staged.final:
+            tau_next = t_f
+            if tau_next <= self._tau_c:
+                return
+        else:
+            # a segment's tuple needs W ticks of lookahead (crossing zone),
+            # and segments shorter than W are not stitch-safe — commit only
+            # when the frontier has moved far enough past the last commit
+            tau_next = t_f - w
+            if tau_next - self._tau_c <= w:
+                return
+        with _obs_span("stream.commit"):
+            span = tau_next - self._tau_c
+            q = 1
+            safe = [1]  # stitch-safe power-of-two segment counts
+            while q * 2 <= self.num_segments and span // (q * 2) > w:
+                q *= 2
+                safe.append(q)
+            from .calibrate import get_policy
+            q = get_policy().choose_segments(safe[::-1])
+            tau = np.round(np.linspace(self._tau_c, tau_next,
+                                       q + 1)).astype(np.int64)
+            tau[0], tau[-1] = self._tau_c, tau_next
+            wt, wtt = cut_windows(self._buf_t, self._buf_tt, tau, w,
+                                  round_up=bucket_size)
+            segs = kops.segment_bricks(wt, wtt, tau, self.device,
+                                       length=wt.shape[1])
+            with _obs_span("stream.launch", kind="a1_mapconcat"):
+                a, c, b, f, ovf = kops.a1_mapconcat_tuples(
+                    *self._kmapc, segs, lcap=self.lcap)
+            self._ovf |= ovf != 0
+            tup = (a, c, b, f != 0)
+            self._carry = (tup if self._carry is None
+                           else fold_pair(self._carry, tup))
+            self._tau_c = tau_next
+            keep = self._buf_tt > tau_next - w  # next segment's lookback
+            self._buf_t = self._buf_t[keep]
+            self._buf_tt = self._buf_tt[keep]
+
     # ------------------------------------------------------------ reads
 
     def counts(self) -> np.ndarray:
-        """Exact cumulative counts over everything dispatched so far."""
+        """Exact cumulative counts over everything committed so far (for
+        mapconcatenate, the commit frontier trails ingestion by W until
+        ``finalize``)."""
         if self.engine == "level1":
             return self._cum.copy()
-        out = torch.stack([self._kst[2], self._kst[3]]).cpu().numpy()
+        if self.engine == "ptpe":
+            out = torch.stack([self._kst[2], self._kst[3]])
+        elif self._carry is None:
+            return np.zeros(self.eps.M, np.int64)
+        else:
+            out = torch.stack([self._carry[1][0],
+                               (self._carry[3][0] | self._ovf).to(
+                                   torch.int32)])
+        out = out.cpu().numpy()
         c = out[0].astype(np.int64)
         flagged = out[1] != 0
         if flagged.any():
@@ -263,16 +378,20 @@ class StreamingCounter:
         retained history (trimmed to what the machines have consumed)."""
         types = np.concatenate([t for t, _ in self._hist] or [_EMPTY_I32])
         times = np.concatenate([tt for _, tt in self._hist] or [_EMPTY_I32])
-        # dispatched events are always a prefix of the ingested history;
-        # count them explicitly — run() may already have *prepared* (and
-        # history-recorded) the next window while this one's counts are
-        # being read
-        n = self._consumed
+        if self.engine == "ptpe":
+            # dispatched events are always a prefix of the ingested
+            # history; count them explicitly — run() may already have
+            # *prepared* (and history-recorded) the next window while this
+            # one's counts are being read
+            n = self._consumed
+        else:
+            n = int(np.searchsorted(times, self._tau_c, side="right"))
         stream = EventStream(types[:n], times[:n], self._num_types)
         idx = np.nonzero(flagged)[0]
         c = c.copy()
-        c[idx] = count_a1(stream, self.eps.select(idx), lcap=self.lcap,
-                          device=self.device)
+        with _obs_span("stream.recount", episodes=idx.size):
+            c[idx] = count_a1(stream, self.eps.select(idx), lcap=self.lcap,
+                              device=self.device)
         return c
 
     def _snapshot(self) -> np.ndarray:
@@ -302,11 +421,20 @@ class StreamingCounter:
         if self.engine == "level1":
             d["cum"] = self._cum.copy()
             return d
-        st = self._host_state()
-        d["s"] = _to_numpy(st.s)
-        d["ptr"] = _to_numpy(st.ptr)
-        d["count"] = _to_numpy(st.count)
-        d["ovf"] = _to_numpy(st.ovf)
+        if self.engine == "ptpe":
+            st = self._host_state()
+            d["s"] = _to_numpy(st.s)
+            d["ptr"] = _to_numpy(st.ptr)
+            d["count"] = _to_numpy(st.count)
+            d["ovf"] = _to_numpy(st.ovf)
+        else:
+            d["mapc_ovf"] = _to_numpy(self._ovf)
+            d["tau_c"] = _opt_pack(self._tau_c)
+            d["buf_t"] = self._buf_t.copy()
+            d["buf_tt"] = self._buf_tt.copy()
+            if self._carry is not None:
+                for name, arr in zip(("a", "c", "b", "f"), self._carry):
+                    d[f"carry/{name}"] = _to_numpy(arr)
         for j, (t, tt) in enumerate(self._hist):
             d[f"hist/{j}/t"] = t.copy()
             d[f"hist/{j}/tt"] = tt.copy()
@@ -315,10 +443,8 @@ class StreamingCounter:
     def load_state_dict(self, d: dict) -> None:
         """Inverse of ``state_dict`` (configuration must match)."""
         d = {k: np.asarray(v) for k, v in d.items()}
-        if any(k.startswith(("base/", "suffix/", "escrow/", "mapc_ovf"))
-               for k in d):
-            raise _bounded_mode_pending(
-                "state of a bounded-history or MapConcatenate counter")
+        if any(k.startswith(("base/", "suffix/", "escrow/")) for k in d):
+            raise _bounded_mode_pending("state of a bounded-history counter")
         self.windows_seen = int(d["windows_seen"])
         self.finalized = bool(int(d["finalized"]))
         self._consumed = int(d["consumed"])
@@ -331,11 +457,23 @@ class StreamingCounter:
         if self.engine == "level1":
             self._cum = d["cum"].astype(np.int64)
             return
-        self._set_host_state(A1State(
-            s=torch.from_numpy(d["s"].astype(np.int32)),
-            ptr=torch.from_numpy(d["ptr"].astype(np.int32)),
-            count=torch.from_numpy(d["count"].astype(np.int32)),
-            ovf=torch.from_numpy(d["ovf"].astype(bool))))
+        if self.engine == "ptpe":
+            self._set_host_state(A1State(
+                s=torch.from_numpy(d["s"].astype(np.int32)),
+                ptr=torch.from_numpy(d["ptr"].astype(np.int32)),
+                count=torch.from_numpy(d["count"].astype(np.int32)),
+                ovf=torch.from_numpy(d["ovf"].astype(bool))))
+        else:
+            self._ovf = torch.from_numpy(d["mapc_ovf"].astype(bool)).to(
+                self.device)
+            self._tau_c = _opt_unpack(d["tau_c"])
+            self._buf_t = d["buf_t"].astype(np.int32)
+            self._buf_tt = d["buf_tt"].astype(np.int32)
+            self._carry = (tuple(
+                torch.from_numpy(d[f"carry/{name}"].astype(
+                    bool if name == "f" else np.int32)).to(self.device)
+                for name in ("a", "c", "b", "f"))
+                if "carry/a" in d else None)
         self._hist = []
         j = 0
         while f"hist/{j}/t" in d:
@@ -345,7 +483,7 @@ class StreamingCounter:
 
     def update(self, window: EventStream, final: bool = False) -> np.ndarray:
         """Ingest one window; returns exact cumulative counts. ``final``
-        additionally flushes the holdback tail (equivalent to calling
+        additionally flushes the holdback/commit tail (equivalent to calling
         ``finalize`` but folded into this window's snapshot)."""
         if self.finalized:
             raise RuntimeError("counter already finalized")
@@ -354,8 +492,9 @@ class StreamingCounter:
         return self._snapshot()
 
     def finalize(self) -> np.ndarray:
-        """Flush held-back events; the returned counts cover every event
-        ever ingested and equal one-shot counting on the concatenation."""
+        """Flush held-back events and commit the mapconcatenate tail; the
+        returned counts cover every event ever ingested and equal one-shot
+        counting on the concatenation."""
         if self.finalized:
             return self.snapshots[-1]
         self._dispatch(self._prepare(None, final=True))
@@ -475,8 +614,9 @@ class StreamingMiner:
     ``mode="per_window"`` its counts are per-window *deltas* of the exact
     cumulative counts — boundary-spanning occurrences included.
     Attribution can trail the ingest frontier slightly: the tie-group
-    holdback defers the last timestamp group, so an occurrence completing
-    on window p's final timestamp may land in window p+1's delta. The
+    holdback defers the last timestamp group, and the mapconcatenate
+    engine commits W ticks behind ingestion, so an occurrence completing
+    in window p's final W ticks may land in window p+1's delta. The
     deltas always sum to the exact total. In ``mode="cumulative"`` counts
     are totals over the stream so far, and the final window's report is
     bit-identical to one-shot ``mine`` on the concatenated stream.
@@ -489,12 +629,13 @@ class StreamingMiner:
     """
 
     def __init__(self, intervals, theta: int, max_level: int = 4,
-                 mode: str = "per_window", engine: str = "ptpe",
+                 mode: str = "per_window", engine: str = "hybrid",
                  two_pass: bool = True, lcap: int = DEFAULT_LCAP,
-                 history_limit: int | None = None, device=None):
+                 num_segments: int = 8, history_limit: int | None = None,
+                 device=None):
         if mode not in ("per_window", "cumulative"):
             raise ValueError(f"unknown mode {mode!r}")
-        check_engine(engine)
+        _stream_engine(engine)
         if history_limit is not None:
             raise _bounded_mode_pending("history_limit")
         self.intervals = intervals
@@ -504,6 +645,7 @@ class StreamingMiner:
         self.engine = engine
         self.two_pass = two_pass
         self.lcap = lcap
+        self.num_segments = num_segments
         self.device = resolve_device(device)
         self._history: list[EventStream] = []
         self._p = 0
@@ -523,6 +665,7 @@ class StreamingMiner:
 
     def _make_counter(self, eps: EpisodeBatch) -> StreamingCounter:
         return StreamingCounter(eps, engine=self.engine, lcap=self.lcap,
+                                num_segments=self.num_segments,
                                 device=self.device)
 
     def _make_a2_counter(self, eps: EpisodeBatch) -> StreamingA2Counter:

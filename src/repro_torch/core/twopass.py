@@ -2,9 +2,10 @@
 ``repro.core.twopass``.
 
 Pass 1 counts every candidate under the *relaxed* constraints with the cheap
-single-slot engine (A2, kernel K1). Theorem 5.1: ``count(α') >= count(α)``,
-so culling ``count(α') < θ`` never removes a truly frequent episode. Pass 2
-runs the exact A1 engine (kernel K2) only on survivors.
+single-slot engine (A2: kernel K1, or K3 segmented). Theorem 5.1:
+``count(α') >= count(α)``, so culling ``count(α') < θ`` never removes a truly
+frequent episode. Pass 2 runs the exact A1 engine (K2, or K4 segmented) only
+on survivors.
 
 Returns exact counts for survivors and the A2 upper bound (plus a culled
 mask) for the rest — enough for the level-wise miner to proceed.
@@ -44,11 +45,15 @@ class TwoPassState:
 
 
 def count_two_pass(stream: EventStream, eps: EpisodeBatch, theta: int,
-                   engine: str = "ptpe", lcap: int = DEFAULT_LCAP,
+                   engine: str = "hybrid", lcap: int = DEFAULT_LCAP,
+                   num_segments: int = 8,
                    state: TwoPassState | None = None,
                    return_state: bool = False, device=None):
-    """Algorithm 4. ``engine`` picks the pass-2 mapping (``"ptpe"`` only
-    so far; see ``hybrid.count_dispatch``).
+    """Algorithm 4. ``engine`` picks the pass-2 mapping (see
+    ``hybrid.count_dispatch``); with ``"mapconcat_kernel"`` the pass-1 A2
+    cull also runs its segmented kernel (K3), so both passes use the
+    (episode, phase, segment) grid. ``num_segments`` feeds the
+    segment-parallel mappings.
 
     Stateful mode (``state``/``return_state``) returns
     ``(TwoPassResult, TwoPassState)`` where counts are cumulative over
@@ -75,13 +80,16 @@ def count_two_pass(stream: EventStream, eps: EpisodeBatch, theta: int,
             a2_counts=a2,
             eliminated_frac=float(1.0 - survived.mean()) if eps.M else 0.0)
         return res, TwoPassState(a2=a2_new, a1=a1_new)
-    a2 = _count_a2(stream, eps, device=device)
+    a2 = _count_a2(stream, eps, device=device,
+                   segments=(num_segments if engine == "mapconcat_kernel"
+                             else None))
     survived = a2 >= theta
     counts = a2.copy()
     if survived.any():
         idx = np.nonzero(survived)[0]
         exact = _count_dispatch(stream, eps.select(idx), engine=engine,
-                                lcap=lcap, device=device)
+                                num_segments=num_segments, lcap=lcap,
+                                device=device)
         counts[idx] = exact
     frequent = survived & (counts >= theta)
     return TwoPassResult(
@@ -90,12 +98,12 @@ def count_two_pass(stream: EventStream, eps: EpisodeBatch, theta: int,
 
 
 def count_one_pass(stream: EventStream, eps: EpisodeBatch, theta: int,
-                   engine: str = "ptpe", lcap: int = DEFAULT_LCAP,
-                   device=None) -> TwoPassResult:
+                   engine: str = "hybrid", lcap: int = DEFAULT_LCAP,
+                   num_segments: int = 8, device=None) -> TwoPassResult:
     """Baseline: run the exact engine on every candidate (paper's "one-pass"
     comparison arm in Fig. 9)."""
     exact = _count_dispatch(stream, eps, engine=engine, lcap=lcap,
-                            device=device)
+                            num_segments=num_segments, device=device)
     frequent = exact >= theta
     return TwoPassResult(counts=exact, survived=np.ones(eps.M, bool),
                          frequent=frequent, a2_counts=exact,

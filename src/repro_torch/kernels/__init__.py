@@ -4,14 +4,23 @@ the plain PyTorch version of each beside it.
 Modules:
   a2_count — K1, the carried single-slot A2 counter (``a2_count_state``;
     fresh-state ``a2_count_kernel``), source ``csrc/a2_count.cu``; replaces
-    the Pallas ``repro.kernels.a2_count.a2_count_state_kernel``.
+    the Pallas ``repro.kernels.a2_count.a2_count_state_kernel``. And K3,
+    the segment-parallel single-slot MapConcatenate
+    (``a2_mapconcat_kernel``), source ``csrc/a2_mapconcat.cu``; replaces
+    ``repro.kernels.a2_count.a2_mapconcat_kernel``.
   a1_count — K2, the carried bounded-list A1 counter (``a1_count_state``;
     fresh-state ``a1_count_kernel``), source ``csrc/a1_count.cu``; replaces
-    ``repro.kernels.a1_count.a1_count_state_kernel``.
-  ops — host↔kernel layout contract and the one-shot/stateful wrappers.
+    ``repro.kernels.a1_count.a1_count_state_kernel``. And K4, the
+    segment-parallel bounded-list MapConcatenate (``a1_mapconcat_kernel``),
+    source ``csrc/a1_mapconcat.cu``; replaces
+    ``repro.kernels.a1_count.a1_mapconcat_kernel``. K3 and K4 share
+    ``csrc/mapc_common.cuh`` (stitch zones, segment staging, fold launch).
+  ops — host↔kernel layout contract and the one-shot, stateful and
+    segmented wrappers.
   cuda — nvcc build at first use (``build/kernels/``), ctypes loading,
     operand checks.
-  tally — launch counts per kernel.
+  tally — launch counts per kernel (``a2_count_state``, ``a1_count_state``,
+    ``a2_mapconcat``, ``a1_mapconcat``).
 
 A kernel wrapper runs the CUDA kernel for CUDA tensors and the plain
 version for CPU tensors; there is no other fallback. Nothing is compiled

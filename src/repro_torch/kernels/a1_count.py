@@ -32,6 +32,8 @@ from repro_torch.core.count_a1 import step_bounded_list
 from repro_torch.core.events import TIME_NEG_INF
 
 from . import cuda
+from .a2_count import (check_mapc_operands, mapc_fold_plain, mapc_launch,
+                       mapc_map_scan)
 from .tally import record_launch, record_plain
 
 KERNEL = "a1_count_state"
@@ -124,3 +126,97 @@ def a1_count_kernel(et, tlo, thi, ev, *, lcap: int = 4,
     ovf = torch.zeros(m, dtype=torch.int32, device=dev)
     a1_count_state(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events=n_events)
     return cnt, ovf
+
+
+# --------------------------------------------------------------------------
+# K4: segment-parallel MapConcatenate, bounded-list machines
+# --------------------------------------------------------------------------
+#
+# Port of ``repro/kernels/a1_count.py::a1_mapconcat_kernel`` (Pallas); the
+# CUDA source is ``csrc/a1_mapconcat.cu``. Operands as K3's
+# (``a2_count.check_mapc_operands``), with ``tlo`` unshifted (A1 keeps the
+# strict lower bound) and ``segs``' dup row live. ``ovf`` ORs the
+# live-eviction flags over every (segment, phase).
+
+MAPC_KERNEL = "a1_mapconcat"
+
+_MAPC_SIGNATURES = {"a1_mapconcat": (
+    _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+         _P, _I, _P])}
+
+
+def _a1_mapc_step(state, e, t, dup, et, tlo, thi):
+    """The raw bounded-list step on [Q, K, N, LCAP] state
+    (``_a1_mapc_body`` before gating; ``core.count_a1.step_bounded_list``
+    with a phase axis): every level reads the pre-event state, a
+    completion stores nothing and resets the lists."""
+    s, ptr, ovf = state
+    q, k, n, lcap = s.shape
+    neg = int(TIME_NEG_INF)
+    slots = torch.arange(lcap, dtype=torch.int32, device=s.device)
+    tb = t[:, None, None]
+    d = tb[..., None] - s[:, :, :-1]                         # [Q,K,N-1,L]
+    ok = ((d > tlo[:, None, :-1, None])
+          & (d <= thi[:, None, :-1, None])).any(dim=3)
+    match = (et == e[:, None])[:, None]                      # [Q, 1, N]
+    adv = torch.cat([match[:, :, :1].expand(q, k, 1), match[:, :, 1:] & ok],
+                    dim=2)
+    raw_complete = adv[:, :, -1]
+    store = torch.cat([adv[:, :, :-1], torch.zeros_like(adv[:, :, -1:])],
+                      dim=2) & ~raw_complete[:, :, None]
+    write = store[..., None] & (ptr[..., None] == slots)
+    v = torch.where(write, s, neg).amax(dim=3)               # [Q, K, N]
+    live = ((v > neg) & (tb - v <= thi[:, None])
+            & ((tlo[:, None] > 0) | dup[:, None, None]))
+    ovf2 = ovf | live.any(dim=2)
+    s2 = torch.where(write, tb[..., None], s)
+    ptr2 = torch.where(store, (ptr + 1) % lcap, ptr)
+    s2 = s2.masked_fill(raw_complete[:, :, None, None], neg)
+    ptr2 = ptr2.masked_fill(raw_complete[:, :, None], 0)
+    return [s2, ptr2, ovf2], raw_complete
+
+
+def a1_mapconcat_plain(et, tlo, thi, cum, w, segs, *, lcap: int,
+                       fold: bool = True):
+    """Plain PyTorch version of K4 (the Map step — the port of the
+    reference's ``_segment_scan`` over every segment — then the fold
+    unless ``fold`` is False); same contract and outputs as the kernel."""
+    p = segs.shape[0]
+    n, m = et.shape
+    dev = et.device
+    state = [torch.full((p * m, n, n, lcap), int(TIME_NEG_INF),
+                        dtype=torch.int32, device=dev),
+             torch.zeros((p * m, n, n), dtype=torch.int32, device=dev),
+             torch.zeros((p * m, n), dtype=torch.bool, device=dev)]
+    (_, _, ovf), a, c, b = mapc_map_scan(et, tlo, thi, cum, w, segs, state,
+                                         _a1_mapc_step)
+    ovf = ovf.view(p, m, n).transpose(1, 2).contiguous().to(torch.int32)
+    return mapc_fold_plain(a, c, b, ovf) if fold else (a, c, b, ovf)
+
+
+def a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, lcap: int = 4,
+                        fold: bool = True):
+    """K4: segment-parallel bounded-list MapConcatenate.
+
+    Returns, with ``fold``, the stitched (a, c, b, f) i32[N, M] — row 0 of
+    ``c`` is the count; an episode needs the exact recount iff
+    ``f[0] | ovf`` — and ovf i32[M]; without it, the per-segment
+    (a, c, b, ovf) i32[P, N, M] of the Map step (the ``mapconcatenate``
+    engine folds those with its Concatenate tree)."""
+    n, m, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    dev = et.device
+    if lcap < 1:
+        raise ValueError("lcap must be at least 1")
+    if dev.type == "cpu":
+        record_plain(MAPC_KERNEL)
+        return a1_mapconcat_plain(et, tlo, thi, cum, w, segs, lcap=lcap,
+                                  fold=fold)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 2 <= n <= MAX_LEVELS or lcap not in KERNEL_LCAPS:
+        raise ValueError(
+            f"the CUDA kernel takes 2..{MAX_LEVELS} levels and lcap in "
+            f"{KERNEL_LCAPS}, got N={n}, lcap={lcap}")
+    lib = cuda.library("a1_mapconcat", _MAPC_SIGNATURES)
+    return mapc_launch(lib, "a1_mapconcat", MAPC_KERNEL, et, tlo, thi, cum,
+                       w, segs, fold, lcap)

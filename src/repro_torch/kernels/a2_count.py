@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.core.count_a2 import step_single_slot
-from repro_torch.core.events import TIME_NEG_INF
+from repro_torch.core.events import PAD_TYPE, TIME_NEG_INF
 
 from . import cuda
 from .tally import record_launch, record_plain
@@ -109,3 +109,203 @@ def a2_count_kernel(et, tlo, thi, ev, *, n_events: int | None = None):
     cnt = torch.zeros(m, dtype=torch.int32, device=et.device)
     a2_count_state(et, tlo, thi, ev, s, cnt, n_events=n_events)
     return cnt
+
+
+# --------------------------------------------------------------------------
+# K3: segment-parallel MapConcatenate, single-slot machines
+# --------------------------------------------------------------------------
+#
+# Port of ``repro/kernels/a2_count.py::a2_mapconcat_kernel`` (Pallas); the
+# CUDA source is ``csrc/a2_mapconcat.cu`` (shared pieces in
+# ``csrc/mapc_common.cuh``). Layout (all int32, K = N phases):
+#   et/tlo/thi/cum (N, M)  episode bricks; cum row k = Σ_{i<k} thi (the
+#                          phase-k machine starts that far before τ_p)
+#   w              (M,)    per-episode max occurrence span W
+#   segs           (P, 5, LW) per-segment windows: types, times, dup,
+#                          τ_p, τ_{p+1} (boundary rows read at column 0)
+# The Map step emits (a, count, b, ovf) per (segment, phase, episode); the
+# fold stitches each phase's P tuples left to right (``fold_pair_unrolled``).
+
+MAPC_KERNEL = "a2_mapconcat"
+SEG_TYPE, SEG_TIME, SEG_DUP, SEG_TAU_LO, SEG_TAU_HI = range(5)
+SEG_ROWS = 5
+
+_MAPC_SIGNATURES = {"a2_mapconcat": (
+    _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+         _I, _P])}
+
+
+def check_mapc_operands(et, tlo, thi, cum, w, segs):
+    """Raise unless the segmented kernels' operands are contiguous int32
+    tensors of matching shapes on one device; returns (N, M, P, LW)."""
+    n, m = et.shape
+    p, rows, lw = segs.shape if segs.dim() == 3 else (-1, -1, -1)
+    dev = et.device
+    for name, t, shape in (("et", et, (n, m)), ("tlo", tlo, (n, m)),
+                           ("thi", thi, (n, m)), ("cum", cum, (n, m)),
+                           ("w", w, (m,)), ("segs", segs, (p, SEG_ROWS, lw))):
+        cuda.check_operand(name, t, shape, dev)
+    if p < 1 or lw < 1:
+        raise ValueError(f"segs must hold at least one segment and column, "
+                         f"got {tuple(segs.shape)}")
+    return n, m, p, lw
+
+
+def mapc_map_scan(et, tlo, thi, cum, w, segs, state, step):
+    """The plain Map step shared by K3's and K4's plain versions: walks the
+    P segment windows column by column with masked int32 ops, gated by the
+    stitch zones exactly as the Pallas bodies (``_a2_mapc_body`` /
+    ``_a1_mapc_body``) gate it.
+
+    Machines are held machine-major: row ``p * M + j`` of every state
+    tensor (``[P * M, K, ...]``) is episode j's K phases in segment p.
+    A machine whose episode holds none of the column's event type (a
+    padding event holds none) is left as it is by the step, so each column
+    steps only the rows whose episode holds their segment's event.
+    ``step(state, e, t, dup, et, tlo, thi)`` is the raw machine step on
+    those Q rows (e/t/dup [Q], episode bricks [Q, N]) returning
+    ``(state', raw_complete[Q, K])``. An event outside a machine's window
+    leaves its state as it was. Returns (state, a, count, b), the last
+    three [P, K, M]."""
+    from repro_torch.core.mapconcat import stitch_zones
+
+    n, m = et.shape
+    p = segs.shape[0]
+    dev = et.device
+    rows = torch.arange(p * m, device=dev)
+    seg_of, ep_of = rows // m, rows % m
+    tau_lo = segs[:, SEG_TAU_LO, 0][seg_of, None]              # [PM, 1]
+    tau_hi = segs[:, SEG_TAU_HI, 0][seg_of, None]
+    w_row = w[ep_of, None]
+    starts = tau_lo - cum.T[ep_of]                             # [PM, K]
+    cnt = torch.zeros((p * m, n), dtype=torch.int32, device=dev)
+    a = tau_lo.expand(p * m, n).clone()
+    b = tau_hi.expand(p * m, n).clone()
+    done = torch.zeros((p * m, n), dtype=torch.bool, device=dev)
+    a_set = torch.zeros_like(done)
+    et_t, tlo_t, thi_t = et.T, tlo.T, thi.T                    # [M, N]
+    pad = int(PAD_TYPE)
+    # a column whose events match no episode's type changes no machine
+    useful = torch.isin(segs[:, SEG_TYPE], et.unique()).any(dim=0)
+    for col in useful.nonzero().squeeze(1).tolist():
+        e, t, dup = segs[:, SEG_TYPE, col], segs[:, SEG_TIME, col], \
+            segs[:, SEG_DUP, col] != 0
+        hit = (et[None] == e[:, None, None]).any(dim=1) & (e != pad)[:, None]
+        q = hit.view(-1).nonzero().squeeze(1)                  # [Q] rows
+        qs, qe = seg_of[q], ep_of[q]
+        tb = t[qs, None]                                       # [Q, 1]
+        seg_z, a_z, live_z, cross_z = stitch_zones(tb, tau_lo[q], tau_hi[q],
+                                                   w_row[q])
+        in_window = (tb > starts[q]) & live_z & ~done[q]       # [Q, K]
+        old = [x[q] for x in state]
+        new, raw_complete = step(old, e[qs], t[qs], dup[qs], et_t[qe],
+                                 tlo_t[qe], thi_t[qe])
+        for x, u, v in zip(state, old, new):
+            x[q] = torch.where(in_window.view(*in_window.shape,
+                                              *[1] * (v.dim() - 2)), v, u)
+        complete = raw_complete & in_window
+        in_seg = complete & seg_z
+        cnt[q] += in_seg.to(torch.int32)
+        rec_a = in_seg & ~a_set[q] & a_z
+        a[q] = torch.where(rec_a, tb, a[q])
+        a_set[q] |= rec_a
+        crossing = complete & cross_z
+        b[q] = torch.where(crossing, tb, b[q])
+        done[q] |= crossing
+    return state, *(x.view(p, m, n).transpose(1, 2).contiguous()
+                    for x in (a, cnt, b))
+
+
+def _a2_mapc_step(state, e, t, dup, et, tlo, thi):
+    """The raw single-slot step on [Q, K, N] state (``_a2_mapc_body``
+    before gating): every level reads the pre-event state."""
+    (s,) = state
+    q, k, n = s.shape
+    tb = t[:, None, None]
+    d = tb - s[:, :, :-1]                                      # [Q, K, N-1]
+    match = (et == e[:, None])[:, None]                        # [Q, 1, N]
+    adv = torch.cat([match[:, :, :1].expand(q, k, 1),
+                     match[:, :, 1:] & (d > tlo[:, None, :-1])
+                     & (d <= thi[:, None, :-1])], dim=2)
+    raw_complete = adv[:, :, -1]
+    s2 = torch.cat([torch.where(adv[:, :, :-1], tb, s[:, :, :-1]),
+                    s[:, :, -1:]], dim=2)
+    s2 = s2.masked_fill(raw_complete[:, :, None], int(TIME_NEG_INF))
+    return [s2], raw_complete
+
+
+def mapc_fold_plain(a, c, b, ovf):
+    """The fold launch's plain version: stitch each phase's P segment
+    tuples ([P, K, M]) left to right with ``fold_pair_unrolled``. Returns
+    (a, c, b, f) i32[K, M] and ovf i32[M] (OR over segments and phases)."""
+    from repro_torch.core.mapconcat import fold_pair_unrolled
+
+    k = a.shape[1]
+    zf = torch.zeros_like(a[0], dtype=torch.bool)
+    carry = (a[0], c[0], b[0], zf)
+    for i in range(1, a.shape[0]):
+        carry = fold_pair_unrolled(carry, (a[i], c[i], b[i], zf), k)
+    ca, cc, cb, cf = carry
+    return (ca.clone(), cc.clone(), cb.clone(), cf.to(torch.int32),
+            (ovf != 0).any(dim=0).any(dim=0).to(torch.int32))
+
+
+def a2_mapconcat_plain(et, tlo, thi, cum, w, segs, *, fold: bool = True):
+    """Plain PyTorch version of K3 (Map step, then the fold unless
+    ``fold`` is False); same contract and outputs as the kernel."""
+    p = segs.shape[0]
+    n, m = et.shape
+    s0 = torch.full((p * m, n, n), int(TIME_NEG_INF), dtype=torch.int32,
+                    device=et.device)
+    _, a, c, b = mapc_map_scan(et, tlo, thi, cum, w, segs, [s0],
+                               _a2_mapc_step)
+    ovf = torch.zeros_like(a)
+    return mapc_fold_plain(a, c, b, ovf) if fold else (a, c, b, ovf)
+
+
+def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
+                fold: bool, *extra) -> tuple:
+    """Run one segmented CUDA launch (K3 or K4): allocate the [4, P, K, M]
+    Map scratch and, with ``fold``, the stitched outputs; ``extra`` are the
+    kernel-specific ints after ``n_levels``. Returns the outputs as the
+    plain versions do."""
+    n, m = et.shape
+    p, _, lw = segs.shape
+    dev = et.device
+    tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
+    outs = ([torch.empty((n, m), dtype=torch.int32, device=dev)
+             for _ in range(4)]
+            + [torch.empty(m, dtype=torch.int32, device=dev)]) if fold else []
+    rc = getattr(lib, fn)(
+        et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), cum.data_ptr(),
+        w.data_ptr(), segs.data_ptr(), p, lw, m, n, *extra, int(fold),
+        tuples.data_ptr(),
+        *((o.data_ptr() for o in outs) if fold else [None] * 5),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        cuda.stream_handle(dev))
+    cuda.check_launch(lib, kernel, rc)
+    record_launch(kernel)
+    return tuple(outs) if fold else tuple(tuples.unbind(0))
+
+
+def a2_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, fold: bool = True):
+    """K3: segment-parallel single-slot MapConcatenate. ``tlo`` holds the
+    inclusive lower bound (tlo - 1: A2 counts the relaxed batch).
+
+    Returns, with ``fold``, the stitched (a, c, b, f) i32[N, M] — row 0 of
+    ``c`` is the count, of ``f`` the unmatched flag — and ovf i32[M]
+    (zero: single slots cannot overflow); without it, the per-segment
+    (a, c, b, ovf) i32[P, N, M] of the Map step."""
+    n, m, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    dev = et.device
+    if dev.type == "cpu":
+        record_plain(MAPC_KERNEL)
+        return a2_mapconcat_plain(et, tlo, thi, cum, w, segs, fold=fold)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 2 <= n <= MAX_LEVELS:
+        raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
+                         f"got {n}")
+    lib = cuda.library("a2_mapconcat", _MAPC_SIGNATURES)
+    return mapc_launch(lib, "a2_mapconcat", MAPC_KERNEL, et, tlo, thi, cum,
+                       w, segs, fold)

@@ -1,0 +1,171 @@
+// Shared pieces of the segmented MapConcatenate kernels K3
+// (a2_mapconcat.cu) and K4 (a1_mapconcat.cu): the segment brick layout,
+// the stitch zones, and the fold launch that stitches the segments' tuples.
+//
+// Layout (all int32):
+//   segs   [P, 5, LW]  rows: types, times, dup, tau_p, tau_{p+1}; the two
+//                      boundary rows are read at column 0
+//   tuples [4, P, K, M] the Map launch's output: a, count, b, ovf
+//   a/c/b/f [K, M]     the stitched tuple; ovf [M] OR'd over (p, k)
+//
+// The fold replaces the Pallas kernels' revisited output blocks
+// (src/repro/kernels/a2_count.py::_mapc_fold_and_emit): on the TPU the grid
+// walks segments in order and folds each one onto the carried tuple; here
+// segments run concurrently, so the fold is a second launch, one thread per
+// episode, walking segments left to right with fold_pair_unrolled's rule.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace mapc {
+
+constexpr int kThreads = 128;
+constexpr int kChunk = 1024;          // events staged per chunk
+constexpr int kNegInf = -(1 << 30);   // TIME_NEG_INF
+constexpr int kPadType = -1;          // PAD_TYPE (event padding)
+constexpr int kPadRow = -2;           // type of a padded episode
+constexpr int kSegRows = 5;
+constexpr int kRowType = 0, kRowTime = 1, kRowDup = 2, kRowTauLo = 3,
+              kRowTauHi = 4;
+
+// t - s with two's-complement wraparound (signed overflow is undefined)
+__device__ __forceinline__ int delta(int t, int s) {
+  return static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(s));
+}
+
+// Machine (j, k, p) of a Map launch: episode j, phase k, segment p. Holds
+// what stitch_zones and the tuple bookkeeping need; the state machine itself
+// lives in the kernel that uses it.
+struct Zones {
+  int tau_lo, tau_hi, w, start;
+  int a, b, cnt;
+  bool done, a_set;
+
+  __device__ __forceinline__ void init(int lo, int hi, int span, int cum_k) {
+    tau_lo = lo;
+    tau_hi = hi;
+    w = span;
+    start = lo - cum_k;
+    a = lo;
+    b = hi;
+    cnt = 0;
+    done = false;
+    a_set = false;
+  }
+  // in_window of the Pallas bodies: the machine may consume event time t
+  __device__ __forceinline__ bool in_window(int t) const {
+    return t > start && t <= tau_hi + w && !done;
+  }
+  // a completion at t (already known to be in_window)
+  __device__ __forceinline__ void complete(int t) {
+    const bool in_seg = t > tau_lo && t <= tau_hi;
+    cnt += in_seg;
+    if (in_seg && !a_set && t <= tau_lo + w) {
+      a = t;
+      a_set = true;
+    }
+    if (t > tau_hi) {
+      b = t;
+      done = true;
+    }
+  }
+};
+
+// Stage one chunk of segment p's events into shared memory. Returns the
+// chunk length. The caller brackets it with __syncthreads.
+template <bool kDup>
+__device__ __forceinline__ int stage_chunk(const int* seg, int lw, int base,
+                                           int* sh_type, int* sh_time,
+                                           int* sh_dup) {
+  const int len = min(kChunk, lw - base);
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    sh_type[i] = seg[kRowType * lw + base + i];
+    sh_time[i] = seg[kRowTime * lw + base + i];
+    if constexpr (kDup) sh_dup[i] = seg[kRowDup * lw + base + i];
+  }
+  return len;
+}
+
+// Fold launch: thread j folds segments 0..P-1 of episode j left to right.
+// Left machine k's b is matched against the right segment's a values; the
+// lowest matching k' wins, an unmatched machine takes the k' = 0 entries and
+// sets its flag (fold_pair_unrolled, bit for bit). Segment tuples carry no
+// flag of their own, so only the carried flag and the match decide f.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const int* __restrict__ tuples, int p, int m, bool with_ovf,
+            int* __restrict__ out_a, int* __restrict__ out_c,
+            int* __restrict__ out_b, int* __restrict__ out_f,
+            int* __restrict__ out_ovf) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= m) return;
+  const size_t plane = static_cast<size_t>(p) * K * m;  // one field
+  const int* ta = tuples;
+  const int* tc = tuples + plane;
+  const int* tb = tuples + 2 * plane;
+  const int* to = tuples + 3 * plane;
+  int ca[K], cc[K], cb[K];
+  bool cf[K];
+  int o = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ca[k] = ta[k * m + j];
+    cc[k] = tc[k * m + j];
+    cb[k] = tb[k * m + j];
+    cf[k] = false;
+    if (with_ovf) o |= to[k * m + j];
+  }
+  for (int q = 1; q < p; ++q) {
+    const size_t off = static_cast<size_t>(q) * K * m + j;
+    int ra[K], rc[K], rb[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ra[k] = ta[off + k * m];
+      rc[k] = tc[off + k * m];
+      rb[k] = tb[off + k * m];
+      if (with_ovf) o |= to[off + k * m];
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      bool matched = false;
+      int gc = rc[0], gb = rb[0];
+#pragma unroll
+      for (int kp = K - 1; kp >= 0; --kp) {
+        if (cb[k] == ra[kp]) {
+          matched = true;
+          gc = rc[kp];
+          gb = rb[kp];
+        }
+      }
+      cc[k] += gc;
+      cb[k] = gb;
+      cf[k] = cf[k] || !matched;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    out_a[k * m + j] = ca[k];
+    out_c[k * m + j] = cc[k];
+    out_b[k * m + j] = cb[k];
+    out_f[k * m + j] = cf[k] ? 1 : 0;
+  }
+  out_ovf[j] = o != 0;
+}
+
+template <int K>
+cudaError_t launch_fold(const int* tuples, int p, int m, bool with_ovf,
+                        int* a, int* c, int* b, int* f, int* ovf,
+                        cudaStream_t st) {
+  const int blocks = (m + kThreads - 1) / kThreads;
+  fold_kernel<K><<<blocks, kThreads, 0, st>>>(tuples, p, m, with_ovf, a, c,
+                                              b, f, ovf);
+  return cudaGetLastError();
+}
+
+// Map launch geometry: x = episode tile, y = phase, z = segment.
+inline dim3 map_grid(int m, int k, int p) {
+  return dim3((m + kThreads - 1) / kThreads, k, p);
+}
+
+}  // namespace mapc

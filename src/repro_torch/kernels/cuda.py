@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. At first use every
 source is compiled by its own ``nvcc`` process (all started together) for
 ``sm_90a`` into a shared library under ``build/kernels/`` at the
 repository root, and loaded with ``ctypes``. A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a
-finished build is reused. Nothing here runs at import time: a module that
-holds a kernel imports this one and builds only when it first launches.
+a hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source or header is rebuilt and a finished build is reused.
+Nothing here runs at import time: a module that holds a kernel imports this
+one and builds only when it first launches.
 """
 
 from __future__ import annotations
@@ -45,7 +46,13 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``src``: its name hashes the source, every
+    shared header under ``csrc/`` and the flags, so an edited header
+    rebuilds every library."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

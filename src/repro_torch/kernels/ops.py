@@ -17,7 +17,12 @@ the carried (streaming) kernels, and result unpacking:
     no per-window repacking);
   * ``a1_count`` / ``a2_count`` (fresh machines) and ``a1_count_stateful``
     / ``a2_count_stateful`` (host layout in, host layout out) are the
-    one-shot conveniences ``core.count_a1`` / ``core.count_a2`` call.
+    one-shot conveniences ``core.count_a1`` / ``core.count_a2`` call;
+  * ``mapconcat_layout`` / ``segment_bricks`` pack the segmented kernels'
+    operands (phase-start offsets and spans, per-segment
+    types/times/dup/τ bricks), and ``a1_mapconcat_tuples`` /
+    ``a1_mapconcat_map`` / ``a2_mapconcat_tuples`` / ``a1_mapconcat_count``
+    / ``a2_mapconcat_count`` run the MapConcatenate kernels K4 and K3.
 
 There is no dispatch policy: the device of the tensors chooses the path
 inside each kernel wrapper (CUDA kernel, or the plain version on CPU).
@@ -36,8 +41,8 @@ from repro_torch.core.events import (PAD_TYPE, EventStream, count_level1)
 from repro_torch.device import resolve_device
 from repro_torch.obs import span
 
-from .a1_count import a1_count_kernel, a1_count_state
-from .a2_count import a2_count_kernel, a2_count_state
+from .a1_count import a1_count_kernel, a1_count_state, a1_mapconcat_kernel
+from .a2_count import a2_count_kernel, a2_count_state, a2_mapconcat_kernel
 
 
 def episode_layout(eps: EpisodeBatch, inclusive_lower: bool, device):
@@ -180,6 +185,129 @@ def a1_count_stateful(stream: EventStream, eps: EpisodeBatch,
     new_state = a1_state_unpack(s, ptr, cnt, ovf)
     out = torch.stack([cnt, ovf]).cpu().numpy()
     return out[0].astype(np.int64), out[1] != 0, new_state
+
+
+def _int32_tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+
+
+# --------------------------------------------------------------------------
+# Segment-parallel (MapConcatenate) dispatch: layout + traced kernel calls
+# --------------------------------------------------------------------------
+
+
+def mapconcat_layout(eps: EpisodeBatch, inclusive_lower: bool, device):
+    """Episode operands of the segmented kernels (K3, K4): the usual
+    level-major (et, tlo, thi) plus
+      cum  i32(N, M)  row k = Σ_{i<k} thi (``core.mapconcat.phase_cum``):
+                      the phase-k machine starts that far before τ_p
+      w    i32(M,)    per-episode max occurrence span W."""
+    from repro_torch.core.mapconcat import phase_cum
+
+    et, tlo, thi = episode_layout(eps, inclusive_lower, device)
+    cum = _int32_tensor(phase_cum(eps.thi).T, device)
+    w = _int32_tensor(eps.max_span, device)
+    return et, tlo, thi, cum, w
+
+
+def segment_bricks(wt, wtt, tau, device, length: int | None = None):
+    """Per-segment event windows → i32[P, 5, LW] segment bricks.
+
+    Rows: (types, times, dup, τ_p, τ_{p+1}); the boundary rows are
+    broadcast along the window (the kernels read them at column 0).
+    ``dup`` marks a same-timestamp real successor *within the window*, as
+    ``core.count_a1.dup_flags`` does for a chunk. ``length`` pads LW (the
+    streaming commits pass their shape buckets). The CUDA kernels stage a
+    segment's events through shared memory in chunks, so they take any LW:
+    there is no admission bound like the reference's ``MAX_SEG_BRICK_LW``,
+    which is a TPU VMEM budget."""
+    wt = np.asarray(wt, np.int32)
+    wtt = np.asarray(wtt, np.int32)
+    p, lw = wt.shape
+    lwp = max(lw, 1) if length is None else length
+    ev = np.zeros((p, 5, lwp), np.int32)
+    ev[:, 0, :] = PAD_TYPE
+    ev[:, 0, :lw] = wt
+    ev[:, 1, :lw] = wtt
+    if lw > 1:
+        ev[:, 2, : lw - 1] = ((wtt[:, 1:] == wtt[:, :-1])
+                              & (wt[:, 1:] != PAD_TYPE))
+    tau = np.asarray(tau, np.int64)
+    ev[:, 3, :] = tau[:-1, None]
+    ev[:, 4, :] = tau[1:, None]
+    return _int32_tensor(ev, device)
+
+
+def a1_mapconcat_tuples(et, tlo, thi, cum, w, segs, *, lcap: int):
+    """One K4 launch (Map + fold) in kernel layout (traced). Returns the
+    stitched (a, c, b, f) i32[N, M] and ovf i32[M]."""
+    with span("kernel.a1_mapconcat"):
+        return a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, lcap=lcap)
+
+
+def a1_mapconcat_map(et, tlo, thi, cum, w, segs, *, lcap: int):
+    """K4's Map launch alone (traced): per-segment (a, c, b, ovf)
+    i32[P, N, M] for the caller's Concatenate tree."""
+    with span("kernel.a1_mapconcat", fold=False):
+        return a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, lcap=lcap,
+                                   fold=False)
+
+
+def a2_mapconcat_tuples(et, tlo, thi, cum, w, segs):
+    """One K3 launch (Map + fold) in kernel layout (traced)."""
+    with span("kernel.a2_mapconcat"):
+        return a2_mapconcat_kernel(et, tlo, thi, cum, w, segs)
+
+
+def mapc_inputs(stream: EventStream, eps: EpisodeBatch, num_segments: int,
+                inclusive_lower: bool, device):
+    """Host side of a one-shot segmented launch: segment the stream
+    (``core.mapconcat.make_segments``) and pack the operands
+    (et, tlo, thi, cum, w, segs) on ``device``."""
+    from repro_torch.core.mapconcat import make_segments
+
+    w_max = int(eps.max_span.max())
+    tau, wt, wtt = make_segments(stream, num_segments, w_max)
+    return mapconcat_layout(eps, inclusive_lower, device) + (
+        segment_bricks(wt, wtt, tau, device),)
+
+
+def a1_mapconcat_count(stream: EventStream, eps: EpisodeBatch,
+                       num_segments: int = 8, lcap: int = DEFAULT_LCAP,
+                       device=None):
+    """Kernel-backed MapConcatenate (K4 Map + fold). Returns
+    (counts int64[M], bad bool[M]); ``bad`` marks episodes needing the
+    caller's exact recount (unmatched stitch or possibly-live eviction)."""
+    dev = resolve_device(device)
+    if eps.N == 1:
+        return (count_level1(stream, eps.etypes[:, 0]),
+                np.zeros(eps.M, dtype=bool))
+    if len(stream) == 0:
+        return np.zeros(eps.M, np.int64), np.zeros(eps.M, dtype=bool)
+    args = mapc_inputs(stream, eps, num_segments, inclusive_lower=False,
+                       device=dev)
+    _, c, _, f, ovf = a1_mapconcat_tuples(*args, lcap=lcap)
+    out = torch.stack([c[0], f[0] | ovf]).cpu().numpy()
+    return out[0].astype(np.int64), out[1] != 0
+
+
+def a2_mapconcat_count(stream: EventStream, eps: EpisodeBatch,
+                       num_segments: int = 8, device=None):
+    """Kernel-backed segmented A2 counting (K3 Map + fold) of ``eps`` under
+    its own bounds with the inclusive lower bound (callers pass the relaxed
+    batch). Returns (counts int64[M], bad bool[M]); ``bad`` is the
+    stitch's unmatched flag (single-slot machines cannot overflow)."""
+    dev = resolve_device(device)
+    if eps.N == 1:
+        return (count_level1(stream, eps.etypes[:, 0]),
+                np.zeros(eps.M, dtype=bool))
+    if len(stream) == 0:
+        return np.zeros(eps.M, np.int64), np.zeros(eps.M, dtype=bool)
+    args = mapc_inputs(stream, eps, num_segments, inclusive_lower=True,
+                       device=dev)
+    _, c, _, f, _ = a2_mapconcat_tuples(*args)
+    out = torch.stack([c[0], f[0]]).cpu().numpy()
+    return out[0].astype(np.int64), out[1] != 0
 
 
 def a2_count_stateful(stream: EventStream, eps: EpisodeBatch,

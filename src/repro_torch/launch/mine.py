@@ -18,12 +18,17 @@ Two modes:
 * ``--restart`` — the restart-per-window loop (machines rebuilt at every
   boundary; overlap windows paper over the boundary loss).
 
-``--engine`` offers ``ptpe`` only: the MapConcatenate engines and the
-``hybrid`` rule are not ported yet.
+``--engine`` takes the reference's choices: ``hybrid`` (default; the
+Eq. 2 rule, per streaming counter or per one-shot batch), ``ptpe`` (kernels
+K1/K2), ``mapconcatenate`` and ``mapconcat_kernel`` (the segment-parallel
+kernels K4, and with ``--restart`` K3 for the A2 cull). ``mapconcat_sharded``
+is the multi-GPU form and raises until that slice is ported.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.mine --seconds 30 --theta 40 \
-      --max-level 3 --window-ms 10000 --engine ptpe
+      --max-level 3 --window-ms 10000
+  PYTHONPATH=src python -m repro_torch.launch.mine --restart \
+      --engine mapconcat_kernel --device cpu
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import argparse
 import numpy as np
 
 from repro_torch.core import mine_partitions
+from repro_torch.core.hybrid import sharded_pending
 from repro_torch.core.streaming import StreamingMiner
 from repro_torch.data import partition_windows, sym26
 from repro_torch.telemetry import ThroughputMeter
@@ -62,9 +68,9 @@ def main(argv=None):
     ap.add_argument("--window-ms", type=int, default=10_000)
     ap.add_argument("--interval", type=int, nargs=2, default=(5, 10),
                     metavar=("TLO", "THI"))
-    ap.add_argument("--engine", default="ptpe", choices=["ptpe"],
-                    help="pass-2 mapping (the MapConcatenate engines are "
-                         "not ported yet)")
+    ap.add_argument("--engine", default="hybrid",
+                    choices=["hybrid", "ptpe", "mapconcatenate",
+                             "mapconcat_kernel", "mapconcat_sharded"])
     ap.add_argument("--device", default="cuda",
                     help="where the counting kernels run (cuda or cpu)")
     ap.add_argument("--seed", type=int, default=0)
@@ -77,6 +83,8 @@ def main(argv=None):
                     choices=["window", "cumulative"],
                     help="apply θ to per-window deltas or cumulative counts")
     args = ap.parse_args(argv)
+    if args.engine == "mapconcat_sharded":
+        raise sharded_pending()
 
     stream, truth = sym26(seconds=args.seconds, seed=args.seed)
     print(f"[mine] {len(stream)} events over {args.seconds}s on "

@@ -3,9 +3,10 @@ one). This file imports only the port, so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1 and K2 are held bit for bit against their plain PyTorch versions on the
-same CUDA tensors, and the streaming miner on the card against the same
-miner on the CPU.
+K1–K4 are held bit for bit (exact equality) against their plain PyTorch
+versions on the same CUDA tensors, and the streaming miner on the card
+against the same miner on the CPU, with the ``ptpe`` and the default
+``hybrid`` engine.
 """
 
 import numpy as np
@@ -105,3 +106,68 @@ def test_streaming_miner_on_card_equals_cpu(card):
             np.testing.assert_array_equal(ca, cb)
     launches = tally.launch_counts()
     assert launches[k_a1.KERNEL] > 0 and launches[k_a2.KERNEL] > 0
+
+
+def mapc_case(card, seed, n_levels, m, num_segments, n_events=2400):
+    """Operands of one segmented launch on the card: a tie-heavy stream
+    cut into ``num_segments`` segments, ``m`` random episodes."""
+    from repro_torch.core import make_segments
+    types, times = tie_stream(seed, n=n_events)
+    eps = random_batch(seed, m=m, n=n_levels)
+    tau, wt, wtt = make_segments(EventStream(types, times, NUM_TYPES),
+                                 num_segments, int(eps.max_span.max()))
+    return eps, ops.segment_bricks(wt, wtt, tau, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_segments", [1, 2, 8])
+def test_cuda_mapconcat_kernels_match_plain(card, num_segments):
+    """K3 and K4 (Map + fold, and the Map launch alone) against their
+    plain versions on the same CUDA tensors, bit for bit, at N = 2, 3, 5,
+    8, LCAP = 1, 2, 4, 8 and M not a multiple of 128."""
+    tally.reset_counts()
+    calls = 0
+    for n in (2, 3, 5, 8):
+        eps, segs = mapc_case(card, n, n, 130 + n, num_segments)
+        lay2 = ops.mapconcat_layout(eps.relaxed(), True, card)
+        got = k_a2.a2_mapconcat_kernel(*lay2, segs)
+        want = k_a2.a2_mapconcat_plain(*lay2, segs)
+        calls += 1
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), ("K3", n, num_segments)
+        lay1 = ops.mapconcat_layout(eps, False, card)
+        for lcap in (1, 2, 4, 8):
+            for fold in (True, False):
+                got = k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap,
+                                               fold=fold)
+                want = k_a1.a1_mapconcat_plain(*lay1, segs, lcap=lcap,
+                                               fold=fold)
+                calls += 1
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), ("K4", n, lcap, fold)
+    torch.cuda.synchronize()
+    launches = tally.launch_counts()
+    assert launches[k_a2.MAPC_KERNEL] == 4
+    assert launches[k_a1.MAPC_KERNEL] == calls - 4
+
+
+@pytest.mark.cuda
+def test_streaming_hybrid_on_card_equals_cpu(card):
+    """The default ``hybrid`` miner on the card launches K1, K4 (and K2 for
+    batches above the crossover) and equals the same miner on the CPU."""
+    stream, _ = sym26(seconds=12, seed=1)
+    wins = list(partition_windows(stream, 3000))
+    miners = [StreamingMiner([(5, 10)], 10, max_level=4, engine="hybrid",
+                             device=d) for d in (card, "cpu")]
+    tally.reset_counts()
+    for i, w in enumerate(wins):
+        final = i == len(wins) - 1
+        got, want = (m.update(EventStream(w.types, w.times, w.num_types),
+                              final=final) for m in miners)
+        assert len(got.frequent) == len(want.frequent)
+        for fa, fb, ca, cb in zip(got.frequent, want.frequent, got.counts,
+                                  want.counts):
+            np.testing.assert_array_equal(fa.etypes, fb.etypes)
+            np.testing.assert_array_equal(ca, cb)
+    launches = tally.launch_counts()
+    assert launches[k_a2.KERNEL] > 0 and launches[k_a1.MAPC_KERNEL] > 0

@@ -19,6 +19,10 @@ from repro_torch.core import EpisodeBatch, EventStream, count_a1
 from repro_torch.kernels import a1_count as k_a1
 from repro_torch.kernels import ops, tally
 
+# The plain versions step small tensors, one event at a time: intra-op
+# threads only contend with the other test processes.
+torch.set_num_threads(1)
+
 NUM_TYPES = 4
 CPU = "cpu"
 

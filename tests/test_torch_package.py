@@ -1,8 +1,10 @@
 """Package-level contract of the PyTorch port: it imports neither ``jax``
 nor ``repro``; its entry points default to the CUDA card and raise
-without one; engines it does not have raise instead of answering under
-another engine's name; its launcher runs end to end on the CPU; and its
-data generators and candidate joins equal the reference's."""
+without one; engines and policy tables it does not have raise instead of
+answering under another name; its launcher runs end to end on the CPU with
+the default ``hybrid`` engine and with ``--restart --engine
+mapconcat_kernel``; and its data generators and candidate joins equal the
+reference's."""
 
 import ast
 import os
@@ -24,6 +26,11 @@ from repro_torch.core import (EpisodeBatch, EventStream, StreamingCounter,
 from repro_torch.data import random_stream, sym26
 from repro_torch.kernels import a2_count as k_a2
 from repro_torch.kernels import ops, tally
+from repro_torch.launch.mine import main as launch_main
+
+# The plain versions step small tensors, one event at a time: intra-op
+# threads only contend with the other test processes.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -75,16 +82,44 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     assert count_a1(stream, eps, device="cpu").tolist() == [2]
 
 
-@pytest.mark.parametrize("engine", ["hybrid", "mapconcatenate",
-                                    "mapconcat_kernel", "mapconcat_sharded"])
+@pytest.mark.parametrize("engine", ["mapconcat_sharded"])
 def test_pending_engines_raise(engine):
+    """The multi-GPU MapConcatenate is not ported: the one-shot paths
+    raise; a streaming counter, with one device all there is, takes it as
+    the single-device segment-parallel engine."""
     stream, eps = _tiny()
     with pytest.raises(NotImplementedError, match="MapConcatenate"):
         count_dispatch(stream, eps, engine=engine, device="cpu")
     with pytest.raises(NotImplementedError, match="MapConcatenate"):
-        StreamingMiner([(1, 5)], 1, engine=engine, device="cpu")
+        count_two_pass(stream, eps, 1, engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError, match="MapConcatenate"):
+        launch_main(["--device", "cpu", "--engine", engine])
+    assert StreamingCounter(eps, engine=engine,
+                            device="cpu").engine == "mapconcatenate"
     with pytest.raises(ValueError):
         count_dispatch(stream, eps, engine="bogus", device="cpu")
+
+
+def test_streaming_sharded_alias_needs_one_device(monkeypatch):
+    """The streaming alias of the sharded engine to the single-device one
+    holds only while one device is all there is; beyond that it raises
+    rather than quietly run on one device."""
+    from repro_torch.core import hybrid
+    _, eps = _tiny()
+    monkeypatch.setattr(hybrid, "shard_devices", lambda: 2)
+    with pytest.raises(NotImplementedError, match="MapConcatenate"):
+        StreamingCounter(eps, engine="mapconcat_sharded", device="cpu")
+    assert StreamingCounter(eps, engine="mapconcat_kernel",
+                            device="cpu").engine == "mapconcatenate"
+
+
+def test_policy_tables_raise(monkeypatch):
+    """A calibration table asked for through the environment raises (the
+    calibration slice is not ported) instead of being ignored."""
+    stream, eps = _tiny()
+    monkeypatch.setenv("REPRO_POLICY_TABLE", "/nonexistent/table.json")
+    with pytest.raises(NotImplementedError, match="calibration"):
+        count_dispatch(stream, eps, engine="hybrid", device="cpu")
 
 
 def test_bounded_history_raises():
@@ -110,6 +145,21 @@ def test_launcher_runs_on_cpu():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "sustained" in out.stdout
+
+
+@pytest.mark.parametrize("argv", [[], ["--restart", "--engine",
+                                       "mapconcat_kernel"]])
+def test_launcher_segment_engines_on_cpu(argv, capsys):
+    """The launcher's default (streaming ``hybrid``) and the restart loop
+    on the segmented kernels, on the plain versions."""
+    tally.reset_counts()
+    launch_main(["--device", "cpu", "--seconds", "4", "--window-ms", "2000",
+                 "--max-level", "2", *argv])
+    assert "[mine] window   1" in capsys.readouterr().out
+    plain = tally.plain_counts()
+    assert plain.get("a1_mapconcat", 0) > 0
+    if argv:
+        assert plain.get("a2_mapconcat", 0) > 0
 
 
 @pytest.mark.parametrize("num_types", [26, 64])
