@@ -13,31 +13,50 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (A1 MapConcatenate, with and without its fold) at N = 2, 3, 5, 8,
    LCAP = 1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy events, an occurrence
    ending exactly at τ+W on a segment boundary and a stitch that goes
-   unmatched — all of (a, c, b, f, ovf) compared;
+   unmatched — all of (a, c, b, f, ovf) compared; the fused multi-session
+   kernels K6a, K6b and K6c (one launch for many counters' lanes) on lanes
+   of unequal M (1, 127, 128, 129, 5000) and event counts (0, 1, 1024,
+   1025, 5600) at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8, against
+   the same lanes launched one by one through K1, K2 and K4 and against
+   their plain versions (the per-lane loops);
 3. the main paths on the card, each with the launch counts zeroed just
    before it and read just after; 10-s windows, interval (5, 10] ms,
    θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
    [7, 8, 9, 10, 11] must be found:
    - the streaming two-pass miner (``StreamingMiner``, ``per_window``,
-     LCAP = 8) with ``engine="ptpe"`` on Sym26 (26 neurons, 300 s) and on
-     Sym26 with 64 channels (60 s) — the first 3 (64 channels: 2) windows
-     held against the port's CPU plain path;
+     LCAP = 8) with ``engine="ptpe"`` on Sym26 (26 neurons, 150 s) and on
+     Sym26 with 64 channels (60 s) — the first 2 windows held against the
+     port's CPU plain path;
    - path A, the same miner with the reference's default
-     ``engine="hybrid"`` on Sym26 300 s: how many counters resolved to each
-     engine at each level; K1 and K4 must launch; the first 3 windows held
+     ``engine="hybrid"`` on Sym26 150 s: how many counters resolved to each
+     engine at each level; K1 and K4 must launch; the first 2 windows held
      against the CPU plain path;
    - path B, the restart-per-window miner (``mine_partitions(carry=False,
      engine="mapconcat_kernel")``) over the first 6 Sym26 windows with the
      launcher's overlap: K3 and K4 must launch; window 0 held against the
      CPU plain path; the exact recounts of flagged episodes counted;
+   - path C, the multi-tenant service (``repro_torch.service.
+     MiningService``): 8 Sym26 sessions of 120 s and 4 64-channel sessions
+     of 60 s, seeds 0-11, ``hybrid``, two-pass, ``history_limit`` = 8,
+     LCAP 8, every multi-lane group fused (gate off): K6a, K6b and K6c must
+     launch; every session equals a standalone miner on the card, the
+     first 2 windows of sessions 0 and 1 the CPU plain path; ev/s, window
+     latency, lanes per fused launch, gate decisions, retained windows;
+   - path C′, the 8 Sym26 sessions for 60 s under the default fusion
+     gate, then with the gate off, measured beside each other and path C,
+     every session held against a standalone miner on the card;
+   - path D, bounded history at the reference's default LCAP = 4: one
+     Sym26 session, ``history_limit`` = 2, its 6 windows: per-window
+     latency and the checkpoint and recount spans;
    then the device busy share of one profiled steady window of each
-   streaming run;
+   streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
    shapes held against its plain version again): its device time, the mean
    over back-to-back calls of the kernel durations the profiler records on
    the card, beside the wrapper's wall time per call (CUDA events, host
    enqueue included), the plain version's time and the least time the card
-   could take (its bound);
+   could take (its bound); the fused kernels at path C's largest group of
+   each, beside the device time of the same lanes launched one by one;
 5. a JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
    device line ``{"ok": true, "device": {...}}``.
 
@@ -80,16 +99,26 @@ MAX_LEVEL = 5
 # shows the other case).
 DEFAULT_LCAP = 8
 PLANTED = ([0, 1, 2], [7, 8, 9, 10, 11])
-# (name, channels, seconds, engine, windows held against the CPU plain path)
-STREAMS = (("sym26", 26, 300, "ptpe", 3), ("sym26-64ch", 64, 60, "ptpe", 2),
-           ("sym26-hybrid", 26, 300, "hybrid", 3))
+# (name, channels, seconds, engine, windows held against the CPU plain path);
+# the two 26-channel streams were 300 s and 3 checked windows before the
+# service paths joined the run
+STREAMS = (("sym26", 26, 150, "ptpe", 2), ("sym26-64ch", 64, 60, "ptpe", 2),
+           ("sym26-hybrid", 26, 150, "hybrid", 2))
 # kernels each streaming engine's path must launch
 REQUIRED = {"ptpe": ("a2_count_state", "a1_count_state"),
             "hybrid": ("a2_count_state", "a1_mapconcat")}
 RESTART_WINDOWS = 6
 RESTART_ENGINE = "mapconcat_kernel"
+# path C, the service fleet: (channels, seconds, sessions), seeds counting
+# up from 0; the 64-channel sessions are cut from 120 s to 60 s
+FLEET = ((26, 120, 8), (64, 60, 4))
+FLEET_GATED = ((26, 60, 8),)           # path C′: the default fusion gate
+FLEET_CPU_SESSIONS = 2                 # sessions held against the CPU path
+FLEET_CPU_WINDOWS = 2                  # ... over their first windows
+BOUNDED = (26, 60, 2, 4)               # path D: channels, seconds, K, LCAP
+FUSED = ("a2_state_vmapped", "a1_state_vmapped", "a1_mapc_vmapped")
 KERNELS = ("a2_count_state", "a1_count_state", "a2_mapconcat",
-           "a1_mapconcat")
+           "a1_mapconcat") + FUSED
 SOURCES = {
     "a2_count_state": ("src/repro_torch/kernels/csrc/a2_count.cu",
                        "src/repro/kernels/a2_count.py:169"),
@@ -98,14 +127,32 @@ SOURCES = {
     "a2_mapconcat": ("src/repro_torch/kernels/csrc/a2_mapconcat.cu",
                      "src/repro/kernels/a2_count.py:328"),
     "a1_mapconcat": ("src/repro_torch/kernels/csrc/a1_mapconcat.cu",
-                     "src/repro/kernels/a1_count.py:298")}
+                     "src/repro/kernels/a1_count.py:298"),
+    "a2_state_vmapped": ("src/repro_torch/kernels/csrc/a2_count.cu",
+                         "src/repro/kernels/ops.py:619"),
+    "a1_state_vmapped": ("src/repro_torch/kernels/csrc/a1_count.cu",
+                         "src/repro/kernels/ops.py:609"),
+    "a1_mapc_vmapped": ("src/repro_torch/kernels/csrc/a1_mapconcat.cu",
+                        "src/repro/kernels/ops.py:600")}
 # the CUDA kernels (``__global__`` names) each wrapper launches
 DEVICE_KERNELS = {"a2_count_state": ("a2_state_kernel",),
                   "a1_count_state": ("a1_state_kernel",),
                   "a2_mapconcat": ("a2_map_kernel", "fold_kernel"),
-                  "a1_mapconcat": ("a1_map_kernel", "fold_kernel")}
+                  "a1_mapconcat": ("a1_map_kernel", "fold_kernel"),
+                  "a2_state_vmapped": ("a2_lanes_kernel",),
+                  "a1_state_vmapped": ("a1_lanes_kernel",),
+                  "a1_mapc_vmapped": ("a1_map_lanes_kernel",
+                                      "fold_lanes_kernel")}
+# the single kernel whose per-lane launches a fused kernel replaces
+SINGLE_OF = {"a2_state_vmapped": "a2_count_state",
+             "a1_state_vmapped": "a1_count_state",
+             "a1_mapc_vmapped": "a1_mapconcat"}
 TIMED_LAUNCHES = 21
+PROFILE_ATTEMPTS = 3
 PLAIN_RUNS = 3
+# fused-kernel edge lanes: unequal episode and event counts
+LANE_M = (1, 127, 128, 129, 5000)
+LANE_EVENTS = (0, 1, 1024, 1025, 5600)
 
 
 def fail(msg: str) -> None:
@@ -268,6 +315,111 @@ def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
         fail("the doctored boundary raised no unmatched flag")
     print("[smoke] K3/K4 == plain on the τ+W straddler and on an unmatched "
           "stitch (flag raised)")
+
+
+def clone_lanes(lanes, n_state):
+    """Copies of K1/K2 lanes ``((operands...), n_events)`` whose last
+    ``n_state`` operands (the carried state) are fresh clones."""
+    return [((*args[:-n_state], *(x.clone() for x in args[-n_state:])), k)
+            for args, k in lanes]
+
+
+def lanes_err(torch, a, b) -> int:
+    return max(max_abs_diff(torch, x, y) for (x, _), (y, _) in zip(a, b))
+
+
+def mapc_lane(np, ops, types, times, eps, p):
+    """K4 operands of one lane: the events cut into ``p`` equal segments
+    (whatever their length, so every lane has P segments)."""
+    from repro_torch.core.mapconcat import cut_windows
+    w = int(eps.max_span.max())
+    t0, t1 = int(times[0]), int(times[-1])
+    tau = np.round(np.linspace(t0 - 1, t1, p + 1)).astype(np.int64)
+    wt, wtt = cut_windows(types, times, tau, w)
+    return (*ops.mapconcat_layout(eps, False, "cuda"),
+            ops.segment_bricks(wt, wtt, tau, "cuda"))
+
+
+def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
+    """K6a, K6b and K6c on lanes of unequal M (1, 127, 128, 129, 5000) and
+    event counts (0, 1, 1024, 1025, 5600), tie-heavy: each against the
+    same lanes launched one by one through K1, K2 or K4 (at every N, LCAP
+    and P) and against its plain version, the per-lane loop (at a subset,
+    as the plain versions take seconds at these sizes: the single launches
+    are held against the plain versions above)."""
+    from repro_torch.core import init_a1_state, init_a2_state
+    types, times = tie_stream(np, 3, max(LANE_EVENTS), 4)
+    plain_k1, plain_k2 = {3, 8}, {(2, 1), (3, 8)}
+    for n in (2, 3, 5, 8):
+        a2, a1 = [], {lcap: [] for lcap in (1, 2, 4, 8)}
+        for i, (m, k) in enumerate(zip(LANE_M, LANE_EVENTS)):
+            eps = random_batch(np, EpisodeBatch, 100 * n + i, m, n, 4)
+            ev = ops.event_brick(types[:k], times[:k], with_dup=True,
+                                 device="cuda", length=k + 64)
+            st = ops.a2_state_layout(init_a2_state(eps.relaxed(), "cuda"),
+                                     "cuda")
+            a2.append(((*ops.episode_layout(eps.relaxed(), True, "cuda"),
+                        ev, *st), k))
+            lay1 = ops.episode_layout(eps, False, "cuda")
+            for lcap, lanes in a1.items():
+                st = ops.a1_state_layout(init_a1_state(eps, lcap, "cuda"),
+                                         "cuda")
+                lanes.append(((*lay1, ev, *st), k))
+        groups = [("a2_state_vmapped", 1, a2, n in plain_k1)] + [
+            ("a1_state_vmapped", lcap, lanes, (n, lcap) in plain_k2)
+            for lcap, lanes in a1.items()]
+        for name, lcap, lanes, with_plain in groups:
+            kern = getattr(ops, name)
+            n_state, one, plain = (
+                (2, k_a2.a2_count_state, k_a2.a2_count_state_plain)
+                if name == "a2_state_vmapped" else
+                (4, k_a1.a1_count_state, k_a1.a1_count_state_plain))
+            singles = clone_lanes(lanes, n_state)
+            plains = clone_lanes(lanes, n_state)
+            kern(lanes)
+            for args, k in singles:
+                one(*args, n_events=k)
+            if with_plain:
+                for args, k in plains:
+                    plain(*args, k)
+            torch.cuda.synchronize()
+            d = lanes_err(torch, lanes, singles)
+            if with_plain:
+                d = max(d, lanes_err(torch, lanes, plains))
+            errs[name] = max(errs[name], d)
+            if d:
+                fail(f"{name} differs from its lanes' single launches or "
+                     f"plain versions at N={n}, lcap={lcap}: {d}")
+        # K6c: segmented lanes (P uniform), windows of unequal length
+        for p in (1, 2, 8):
+            lanes = []
+            for i, (m, k) in enumerate(zip(LANE_M, (17, 1, 1024, 1025,
+                                                    5600))):
+                eps = random_batch(np, EpisodeBatch, 200 * n + i, m, n, 4)
+                lanes.append(mapc_lane(np, ops, types[:k], times[:k], eps,
+                                       p))
+            for lcap in (1, 2, 4, 8):
+                got = ops.a1_mapc_vmapped(lanes, lcap=lcap)
+                want = [k_a1.a1_mapconcat_kernel(*a, lcap=lcap)
+                        for a in lanes]
+                if n == 3 and lcap == 4:
+                    want_plain = k_a1.a1_mapconcat_lanes_plain(lanes,
+                                                               lcap=lcap)
+                else:
+                    want_plain = want
+                torch.cuda.synchronize()
+                d = max(max(max_abs_diff(torch, g, w),
+                            max_abs_diff(torch, g, q))
+                        for g, w, q in zip(got, want, want_plain))
+                errs["a1_mapc_vmapped"] = max(errs["a1_mapc_vmapped"], d)
+                if d:
+                    fail(f"a1_mapc_vmapped differs at N={n}, P={p}, "
+                         f"lcap={lcap}: {d}")
+        print(f"[smoke] K6a/K6b/K6c == per-lane K1/K2/K4 at N={n}, lanes M "
+              f"{LANE_M}, events {LANE_EVENTS}, lcap 1/2/4/8, P 1/2/8 "
+              f"(plain versions: K6a at N {sorted(plain_k1)}; K6b at "
+              f"(N, lcap) {sorted(plain_k2)}; "
+              f"K6c at N=3, lcap 4)")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -471,6 +623,304 @@ def restart_path(np, torch, tally):
     return results, windows, launches
 
 
+def fleet_config(SessionConfig, history_limit, lcap):
+    """The service paths' sessions: the streaming cells' mining settings
+    at the service defaults (``hybrid``, two-pass, bounded history)."""
+    return SessionConfig(intervals=(INTERVAL,), theta=THETA,
+                         theta_mode="per_window", max_level=MAX_LEVEL,
+                         window_ms=WINDOW_MS, engine="hybrid", two_pass=True,
+                         history_limit=history_limit, lcap=lcap)
+
+
+def fleet_tenants(fleet, prefix):
+    """[(session id, channels, windows)] of a fleet spec: Sym26 streams of
+    ``channels`` neurons, seeds counting up from 0, cut into 10-s
+    windows."""
+    from repro_torch.data import partition_windows, sym26
+    out, seed = [], 0
+    for channels, seconds, count in fleet:
+        for _ in range(count):
+            stream, _ = sym26(seconds=seconds, seed=seed, num_types=channels)
+            out.append((f"{prefix}-{seed}", channels,
+                        list(partition_windows(stream, WINDOW_MS))))
+            seed += 1
+    return out
+
+
+class GroupRecorder:
+    """While active, notes for each fused kernel the size (lanes, then
+    episodes) of the largest group the service launched through it: a
+    tuple per launch, no device work, so a timed run can carry it. With
+    ``capture``, it also keeps a copy of that group, for phase 4 to time at
+    its shape: the lanes' operands with their carried state cloned just
+    before the launch, on the flushing thread, ahead of the launch it
+    precedes on the stream (so only an untimed replay captures). The
+    launch itself and its count are the wrapper's own."""
+
+    N_STATE = {"a2_state_vmapped": 2, "a1_state_vmapped": 4,
+               "a1_mapc_vmapped": 0}
+
+    def __init__(self, ops, capture=False):
+        import threading
+        self.ops = ops
+        self.capture = capture
+        self.sizes: dict = {}
+        self.best: dict = {}
+        self._orig: dict = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        for name, n_state in self.N_STATE.items():
+            self._orig[name] = orig = getattr(self.ops, name)
+            setattr(self.ops, name, self._wrap(name, orig, n_state))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.ops, name, orig)
+
+    def reached(self, targets) -> bool:
+        return all(self.sizes.get(k, (0, 0)) >= v for k, v in targets.items())
+
+    def _wrap(self, name, orig, n_state):
+        def call(lanes, **kw):
+            ets = [lane[0][0] if n_state else lane[0] for lane in lanes]
+            size = (len(lanes), sum(et.shape[1] for et in ets))
+            with self._lock:
+                if size > self.sizes.get(name, (0, 0)):
+                    self.sizes[name] = size
+                    if self.capture:
+                        self.best[name] = (
+                            size, clone_lanes(lanes, n_state) if n_state
+                            else list(lanes), kw)
+            return orig(lanes, **kw)
+        return call
+
+
+def service_path(np, torch, tally, name, fleet, gate, history_limit, lcap,
+                 recorder=None, cpu_sessions=FLEET_CPU_SESSIONS):
+    """Drive a fleet of sessions through ``MiningService`` on the card
+    (every window ingested up front, then ``pump``), the launch counts
+    zeroed just before and read just after; then hold every session's
+    deltas against a standalone streaming miner on the card over the same
+    windows, and the first ``cpu_sessions`` sessions' first windows
+    against the CPU plain path. Returns (launches, fleet summary, batcher
+    stats, tenants)."""
+    import contextlib
+    from repro_torch.obs import TRACER
+    from repro_torch.service import (MiningService, SchedulerPolicy,
+                                     SessionConfig)
+    cfg = fleet_config(SessionConfig, history_limit, lcap)
+    tenants = fleet_tenants(fleet, name)
+    svc = MiningService(policy=SchedulerPolicy(
+        max_sessions=len(tenants),
+        max_pending_windows=max(len(w) for _, _, w in tenants),
+        fusion_gate=gate), device="cuda")
+    for sid, _, wins in tenants:
+        svc.create_session(sid, cfg)
+        for j, w in enumerate(wins):
+            svc.ingest(sid, w, final=j == len(wins) - 1)
+    torch.cuda.synchronize()
+    TRACER.clear()
+    tally.reset_counts()
+    t0 = time.perf_counter()
+    with recorder or contextlib.nullcontext():
+        steps = svc.pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, lanes = tally.launch_counts(), tally.lane_counts()
+    stats = svc.stats()
+    spans = span_totals(TRACER)
+    retries = svc.scheduler.watchdog.retries
+    agg, b = stats["aggregate"], stats["batcher"]
+    print(f"[smoke] {name}: {len(tenants)} sessions, {agg['events']} "
+          f"events, {steps} steps in {wall:.3f} s; aggregate "
+          f"{agg['events_per_sec']:.1f} ev/s (over the union of the "
+          f"sessions' busy spans), window latency p50 "
+          f"{agg['p50_latency_s'] * 1e3:.1f} ms p99 "
+          f"{agg['p99_latency_s'] * 1e3:.1f} ms")
+    for sid, st in stats["sessions"].items():
+        print(f"[smoke]   {sid}: {st['windows']} windows, "
+              f"{st['events_per_sec']:.1f} ev/s, p50 "
+              f"{st['p50_latency_s'] * 1e3:.1f} ms, p99 "
+              f"{st['p99_latency_s'] * 1e3:.1f} ms, retained windows "
+              f"{svc.session(sid).miner.retained_windows}")
+    print(f"[smoke] {name} batcher: {b['batches']} fused launches of "
+          f"{b['fused_requests']} lanes, lanes per launch "
+          f"{dict(sorted(b['lanes_per_launch'].items()))}; gate decisions "
+          f"{b['fusion_gate']}; {b['flush_groups']} group flushes, "
+          f"{b['deadline_flushes']} by deadline, {b['split_groups']} "
+          f"splits; pipeline overlap "
+          f"{stats['scheduler']['pipeline_overlap_s']:.3f} s; watchdog "
+          f"retries {retries}")
+    if retries:
+        fail(f"{name}: the scheduler's watchdog retried {retries} steps")
+    print(f"[smoke] {name} launches: {launches}; fused lanes {lanes}")
+    print(f"[smoke] {name} host clock by span: " + ", ".join(
+        f"{k} {v[0]:.3f} s ({v[1]})" for k, v in sorted(spans.items())
+        if k.startswith(("stream.", "batch.", "schedule."))))
+    if not gate:
+        for k in FUSED:
+            if launches.get(k, 0) <= 0:
+                fail(f"{name}: the service launched no {k}")
+    results = {}
+    for sid, channels, wins in tenants:
+        deltas = svc.poll(sid)
+        if [d.window_idx for d in deltas] != list(range(len(wins))):
+            fail(f"{name} {sid}: windows {[d.window_idx for d in deltas]}")
+        found = set()
+        for d, w in zip(deltas, wins):
+            check_result(np, d.result, w)
+            for fb in d.result.frequent:
+                found |= {tuple(e) for e in fb.etypes.tolist()}
+        if channels == 26:
+            for chain in PLANTED:
+                if tuple(chain) not in found:
+                    fail(f"{name} {sid}: planted chain {chain} not found")
+        results[sid] = deltas
+    t0 = time.perf_counter()
+    for sid, _, wins in tenants:
+        alone = cfg.make_miner(device="cuda")
+        for j, (d, w) in enumerate(zip(results[sid], wins)):
+            if not same_result(d.result, alone.update(
+                    w, final=j == len(wins) - 1)):
+                fail(f"{name} {sid} window {j}: the service differs from "
+                     f"a standalone miner on the card")
+    print(f"[smoke] {name}: every session equals a standalone miner on the "
+          f"card, planted chains found in every 26-channel session "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not cpu_sessions:
+        return launches, agg, b, tenants
+    t0 = time.perf_counter()
+    for sid, _, wins in tenants[:cpu_sessions]:
+        cpu = cfg.make_miner(device="cpu")
+        for j, w in enumerate(wins[:FLEET_CPU_WINDOWS]):
+            if not same_result(results[sid][j].result, cpu.update(w)):
+                fail(f"{name} {sid} window {j}: the service on the card "
+                     f"differs from the CPU plain path")
+    print(f"[smoke] {name}: sessions 0-{cpu_sessions - 1}, first "
+          f"{FLEET_CPU_WINDOWS} windows equal the CPU plain path "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches, agg, b, tenants
+
+
+def capture_groups(torch, ops, tenants, targets, history_limit, lcap):
+    """Replay ``tenants`` of path C's fleet, untimed, one step at a time,
+    until each fused kernel has launched a group as large as the timed
+    run's largest (``targets``: {kernel: (lanes, episodes)}) or the
+    windows run out; returns the recorder holding a copy of the replay's
+    largest group of each kernel. The replay's groups form as the timed
+    run's did, since every session's windows and miner are the same; only
+    which lanes park together may differ with thread timing."""
+    from repro_torch.service import (MiningService, SchedulerPolicy,
+                                     SessionConfig)
+    cfg = fleet_config(SessionConfig, history_limit, lcap)
+    svc = MiningService(policy=SchedulerPolicy(
+        max_sessions=len(tenants),
+        max_pending_windows=max(len(w) for _, _, w in tenants),
+        fusion_gate=False), device="cuda")
+    for sid, _, wins in tenants:
+        svc.create_session(sid, cfg)
+        for j, w in enumerate(wins):
+            svc.ingest(sid, w, final=j == len(wins) - 1)
+    steps = 0
+    with GroupRecorder(ops, capture=True) as rec:
+        while svc.scheduler.pending_windows and not rec.reached(targets):
+            steps += svc.pump(max_steps=1)
+    torch.cuda.synchronize()
+    if svc.scheduler.watchdog.retries:
+        fail(f"path C replay: the scheduler's watchdog retried "
+             f"{svc.scheduler.watchdog.retries} steps")
+    print(f"[smoke] path C replay (untimed) for phase 4's operands: {steps} "
+          f"steps; largest groups (lanes, episodes) {rec.sizes}, timed run's "
+          f"{targets}")
+    return rec
+
+
+def bounded_path(np, torch, tally):
+    """Path D: one Sym26 session through the service at the reference's
+    default LCAP = 4 with ``history_limit`` = 2, for its 6 windows: the
+    per-window latency and the checkpoint/recount spans (in the unbounded
+    mode window 2 of this stream took seconds and grew with the stream)."""
+    from repro_torch.obs import TRACER
+    from repro_torch.service import MiningService, SessionConfig
+    channels, seconds, k, lcap = BOUNDED
+    cfg = fleet_config(SessionConfig, k, lcap)
+    ((sid, _, wins),) = fleet_tenants(((channels, seconds, 1),), "bounded")
+    svc = MiningService(device="cuda")
+    svc.create_session(sid, cfg)
+    for j, w in enumerate(wins):
+        svc.ingest(sid, w, final=j == len(wins) - 1)
+    torch.cuda.synchronize()
+    TRACER.clear()
+    tally.reset_counts()
+    svc.pump()
+    torch.cuda.synchronize()
+    launches = tally.launch_counts()
+    sess = svc.session(sid)
+    if svc.scheduler.watchdog.retries:
+        fail(f"path D: the scheduler's watchdog retried "
+             f"{svc.scheduler.watchdog.retries} steps")
+    spans = span_totals(TRACER)
+    lat = [dt * 1e3 for _, dt in sess.meter.rows]
+    print(f"[smoke] path D (LCAP {lcap}, history_limit {k}): window "
+          f"latency " + ", ".join(f"{x:.1f}" for x in lat) + " ms; "
+          + "; ".join(f"{key} {spans.get(key, (0.0, 0, 0))[0]:.3f} s in "
+                      f"{spans.get(key, (0.0, 0, 0))[1]} spans"
+                      + (f", {spans.get(key, (0.0, 0, 0))[2]} episodes"
+                         if key == "stream.recount" else "")
+                      for key in ("stream.checkpoint", "stream.recount"))
+          + f"; retained windows {sess.miner.retained_windows}; launches "
+          f"{launches}")
+    deltas = svc.poll(sid)
+    alone = cfg.make_miner(device="cuda")
+    found = set()
+    for j, (d, w) in enumerate(zip(deltas, wins)):
+        check_result(np, d.result, w)
+        for fb in d.result.frequent:
+            found |= {tuple(e) for e in fb.etypes.tolist()}
+        if not same_result(d.result, alone.update(
+                w, final=j == len(wins) - 1)):
+            fail(f"path D window {j}: differs from a standalone miner")
+    for chain in PLANTED:
+        if tuple(chain) not in found:
+            fail(f"path D: planted chain {chain} not found")
+    print("[smoke] path D: every window equals a standalone miner on the "
+          "card; planted chains found")
+    return launches, lat
+
+
+def service_busy(torch, tenants, n_warm=3):
+    """Device busy share of one steady step of the path-C service: the
+    26-channel sessions take ``n_warm`` windows each, then one more step
+    (one window of every session) runs under ``torch.profiler``."""
+    from repro_torch.service import (MiningService, SchedulerPolicy,
+                                     SessionConfig)
+    cfg = fleet_config(SessionConfig, 8, DEFAULT_LCAP)
+    tenants = [t for t in tenants if t[1] == 26]
+    svc = MiningService(policy=SchedulerPolicy(
+        max_sessions=len(tenants), fusion_gate=False), device="cuda")
+    for sid, _, wins in tenants:
+        svc.create_session(sid, cfg)
+        for w in wins[:n_warm + 1]:
+            svc.ingest(sid, w)
+    for _ in range(n_warm):
+        svc.scheduler.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        svc.scheduler.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages())
+    if busy_us <= 0:
+        fail("the profiler recorded no device time in the service step")
+    return busy_us / 1e3, wall * 1e3, len(tenants)
+
+
 def device_busy(torch, windows, lcap, engine, n_warm=3):
     """Device busy share of one steady window: a fresh miner takes
     ``n_warm`` windows, then the next one runs under ``torch.profiler``;
@@ -514,34 +964,41 @@ def cuda_median_ms(torch, fn, n) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, n, kernel_names) -> tuple[float, int]:
+def device_ms(torch, fn, n, kernel_names, per_call=1) -> tuple[float, int]:
     """Device time of one call of ``fn``, from ``n`` calls made back to
-    back: for each CUDA kernel the call launches (one per name in
-    ``kernel_names``), its mean duration as the profiler records it on the
-    card, summed over the kernels. The host's enqueue time between launches
-    is not counted. The mean is over the launches the profiler recorded:
-    CUPTI may drop a few records of a trace (19 of 21 have been seen), so
-    fewer than all are accepted, down to half. Returns (ms, the fewest
-    launches recorded of any of the kernels)."""
-    torch.cuda.synchronize()
+    back: for each CUDA kernel the call launches (``per_call`` times each
+    name in ``kernel_names``), its mean duration as the profiler records
+    it on the card times ``per_call``, summed over the kernels. The host's
+    enqueue time between launches is not counted. The mean is over the
+    launches the profiler recorded: CUPTI may drop records of a trace (19
+    of 21 have been seen, and once 3 of 21), so fewer than all are
+    accepted, down to half, and a trace that kept fewer is taken again, up
+    to ``PROFILE_ATTEMPTS`` times. Returns (ms, the fewest launches
+    recorded of any of the kernels)."""
+    expect = n * per_call
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    stats = prof.key_averages()
-    total_us, fewest = 0.0, n
-    for name in kernel_names:
-        rows = [e for e in stats if name in e.key]
-        seen = sum(e.count for e in rows)
-        if seen < (n + 1) // 2 or seen > n:
-            timed = [e.key for e in stats if e.self_device_time_total > 0]
-            fail(f"the profiler recorded {seen} of {n} launches of {name}; "
-                 f"device events: {timed[:8]}")
-        total_us += sum(e.self_device_time_total for e in rows) / seen
-        fewest = min(fewest, seen)
-    return total_us / 1e3, fewest
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        stats = prof.key_averages()
+        rows = {name: [e for e in stats if name in e.key]
+                for name in kernel_names}
+        seen = {name: sum(e.count for e in r) for name, r in rows.items()}
+        if all((expect + 1) // 2 <= k <= expect for k in seen.values()):
+            break
+        print(f"[smoke] the profiler recorded {seen} of {expect} launches; "
+              f"tracing again")
+    else:
+        timed = [e.key for e in stats if e.self_device_time_total > 0]
+        fail(f"the profiler recorded {seen} of {expect} launches in each of "
+             f"{PROFILE_ATTEMPTS} traces; device events: {timed[:8]}")
+    total_us = sum(sum(e.self_device_time_total for e in rows[name])
+                   / seen[name] * per_call for name in kernel_names)
+    return total_us / 1e3, min(seen.values())
 
 
 def bound(n_events, m, n, lcap, kind):
@@ -644,6 +1101,121 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
     return rows
 
 
+def summed_bound(parts):
+    """The bound of one launch doing the work of several lanes: their
+    bytes and their operations summed, each over its peak rate. (Every
+    lane here is bound by operations, so this is the sum of the lanes'
+    own bounds.) ``parts``: ``bound``/``mapc_bound`` tuples."""
+    nbytes = sum(x[2] for x in parts)
+    nops = sum(x[3] for x in parts)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = nops / PEAK_INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", nbytes, nops)
+
+
+def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
+    """K6a, K6b and K6c at path C's largest fused group of each (as the
+    untimed replay captured it): held against the same lanes launched one
+    by one (K1, K2, K4) and against the plain per-lane loop, and timed —
+    the fused call's device time (profiler) and wrapper time, the device
+    time of the one-by-one launches, and the plain loop's time. Returns
+    {kernel: row}."""
+    rows = {}
+    for name in FUSED:
+        if name not in recorder.best:
+            fail(f"path C's replay captured no fused group of {name}")
+        (n_lanes, m_tot), lanes, kw = recorder.best[name]
+        single = SINGLE_OF[name]
+        if name == "a1_mapc_vmapped":
+            lcap = kw["lcap"]
+            n, p = lanes[0][0].shape[0], lanes[0][5].shape[0]
+
+            def fused():
+                return ops.a1_mapc_vmapped(lanes, lcap=lcap)
+
+            def one_by_one():
+                return [k_a1.a1_mapconcat_kernel(*a, lcap=lcap)
+                        for a in lanes]
+
+            def plain():
+                return k_a1.a1_mapconcat_lanes_plain(lanes, lcap=lcap)
+
+            def diff(a, b):
+                return max(max_abs_diff(torch, g, w) for g, w in zip(a, b))
+            got, want = fused(), one_by_one()
+            torch.cuda.synchronize()
+            d = diff(got, want)
+            parts = [mapc_bound(p, a[5].shape[2], a[0].shape[1], n, lcap)
+                     for a in lanes]
+            what = (f"N={n} LCAP={lcap} P={p}, M "
+                    f"{[a[0].shape[1] for a in lanes]}, LW "
+                    f"{[a[5].shape[2] for a in lanes]}")
+        else:
+            # in-place kernels: every call advances fresh copies of the
+            # recorded state
+            n_state = GroupRecorder.N_STATE[name]
+            kern = getattr(ops, name)
+            one, plain_one = ((k_a2.a2_count_state, k_a2.a2_count_state_plain)
+                              if n_state == 2 else
+                              (k_a1.a1_count_state, k_a1.a1_count_state_plain))
+            n = lanes[0][0][0].shape[0]
+            lcap = 1 if n_state == 2 else lanes[0][0][4].shape[1]
+            fresh = iter([clone_lanes(lanes, n_state)
+                          for _ in range(3 * TIMED_LAUNCHES + 4)])
+
+            def fused():
+                out = next(fresh)
+                kern(out)
+                return out
+
+            def one_by_one():
+                out = next(fresh)
+                for args, k in out:
+                    one(*args, n_events=k)
+                return out
+
+            def plain():
+                out = clone_lanes(lanes, n_state)
+                for args, k in out:
+                    plain_one(*args, k)
+                return out
+
+            def diff(a, b):
+                return lanes_err(torch, a, b)
+            got, want = fused(), one_by_one()
+            torch.cuda.synchronize()
+            d = diff(got, want)
+            parts = [bound(k, args[0].shape[1], n, lcap, single)
+                     for args, k in lanes]
+            what = (f"N={n} LCAP={lcap}, M "
+                    f"{[args[0].shape[1] for args, _ in lanes]}, events "
+                    f"{[k for _, k in lanes]}")
+        errs[name] = max(errs[name], d)
+        if d:
+            fail(f"{name} differs from its lanes' single launches at path "
+                 f"C's largest group: {d}")
+        ms, seen = device_ms(torch, fused, TIMED_LAUNCHES,
+                             DEVICE_KERNELS[name])
+        wrapper_ms = cuda_median_ms(torch, fused, TIMED_LAUNCHES)
+        single_ms, _ = device_ms(torch, one_by_one, TIMED_LAUNCHES,
+                                 DEVICE_KERNELS[single], per_call=len(lanes))
+        plain_out = []
+        plain_ms = cuda_median_ms(torch, lambda: plain_out.append(plain()), 1)
+        d = diff(got, plain_out[0])
+        errs[name] = max(errs[name], d)
+        if d:
+            fail(f"{name} differs from its plain version (the per-lane loop) "
+                 f"at path C's largest group: {d}")
+        rows[name] = (ms, seen, wrapper_ms, plain_ms, summed_bound(parts),
+                      f"path C's largest group, {n_lanes} lanes, {what}")
+        print(f"[smoke] {name}: {n_lanes} lanes ({m_tot} episodes): device "
+              f"{ms:.5f} ms fused against {single_ms:.5f} ms for the same "
+              f"lanes launched one by one through {single}; wrapper "
+              f"{wrapper_ms:.4f} ms; plain per-lane loop {plain_ms:.1f} ms")
+    return rows
+
+
 def main_path_shapes(miner, window):
     """The largest level-3 A2 batch and the largest level-3 A1 batch the
     main path carried, with its last window's events."""
@@ -732,6 +1304,7 @@ def main() -> int:
     from repro_torch.kernels import a2_count as k_a2
     from repro_torch.kernels import cuda, ops, tally
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     print(f"[smoke] card: {smi}")
     print(f"[smoke] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -749,26 +1322,62 @@ def main() -> int:
     edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
     mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
                      errs)
+    fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
     print(f"[smoke] phase 2 (kernels against plain versions): "
           f"{time.perf_counter() - t0:.1f} s")
 
     launches = {k: 0 for k in KERNELS}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
     main_runs = {}
     for name, num_types, seconds, engine, check in STREAMS:
         t0 = time.perf_counter()
         miner, windows, got, summary = main_path(
             np, torch, tally, name, num_types, seconds, args.lcap, engine,
             check)
-        for k in launches:
-            launches[k] += got.get(k, 0)
+        add(got)
         main_runs[name] = (miner, windows, engine)
         print(f"[smoke] phase 3 {name}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     restart_results, restart_windows, got = restart_path(np, torch, tally)
-    for k in launches:
-        launches[k] += got.get(k, 0)
+    add(got)
     print(f"[smoke] phase 3 restart-{RESTART_ENGINE}: "
           f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    recorder = GroupRecorder(ops)
+    got, fleet_c, batch_c, tenants = service_path(
+        np, torch, tally, "path-C", FLEET, False, 8, args.lcap, recorder)
+    add(got)
+    # path C's largest groups have been of 8 Sym26 lanes: replaying only
+    # those sessions keeps the 64-channel ones' host work out of the
+    # replay (one that falls short runs to its end and prints both sizes)
+    recorder = capture_groups(torch, ops, [t for t in tenants if t[1] == 26],
+                              recorder.sizes, 8, args.lcap)
+    print(f"[smoke] phase 3 path C: {time.perf_counter() - t0:.1f} s")
+    # path C': the gate on, then (for a comparison on one fleet) off
+    t0 = time.perf_counter()
+    runs = {}
+    for label, gate in (("path-C'", True), ("path-C'-off", False)):
+        got, fleet, batch, _ = service_path(
+            np, torch, tally, label, FLEET_GATED, gate, 8, args.lcap,
+            cpu_sessions=0)
+        add(got)
+        runs[label] = (fleet, batch)
+    runs["path-C"] = (fleet_c, batch_c)
+    print("[smoke] fusion gate: " + "; ".join(
+        f"{label} {fleet['events_per_sec']:.1f} ev/s, p50 "
+        f"{fleet['p50_latency_s'] * 1e3:.1f} ms, p99 "
+        f"{fleet['p99_latency_s'] * 1e3:.1f} ms, gate "
+        f"{batch['fusion_gate']}" for label, (fleet, batch) in runs.items()))
+    print(f"[smoke] phase 3 path C': {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    got, _ = bounded_path(np, torch, tally)
+    add(got)
+    print(f"[smoke] phase 3 path D: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():
@@ -776,6 +1385,10 @@ def main() -> int:
         print(f"[smoke] {name} device busy share, window 3: "
               f"{busy:.3f} ms of device time in {wall:.1f} ms wall = "
               f"{busy / wall:.4f} (idle {1 - busy / wall:.4f})")
+    busy, wall, n = service_busy(torch, tenants)
+    print(f"[smoke] path-C device busy share, step 4 ({n} sessions, one "
+          f"window each): {busy:.3f} ms of device time in {wall:.1f} ms "
+          f"wall = {busy / wall:.4f} (idle {1 - busy / wall:.4f})")
     print(f"[smoke] busy shares: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -790,6 +1403,7 @@ def main() -> int:
     hybrid, hwins, _ = main_runs["sym26-hybrid"]
     rows.update(time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hwins[-1],
                           restart_results, restart_windows, args.lcap, errs))
+    rows.update(time_fused(np, torch, ops, k_a1, k_a2, recorder, errs))
     kernels = []
     for k in KERNELS:
         (ms, seen, wrapper_ms, plain_ms, (b_ms, b_by, nbytes, nops),
@@ -806,6 +1420,7 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
     print(f"[smoke] phase 4 (timing): {time.perf_counter() - t0:.1f} s")
+    print(f"[smoke] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,5 @@
+"""Atomic on-disk checkpoints of the port (``repro.checkpoint``'s format)."""
+
+from .ckpt import config_fingerprint, latest_step, restore, save
+
+__all__ = ["save", "restore", "latest_step", "config_fingerprint"]

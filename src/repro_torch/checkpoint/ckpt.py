@@ -1,0 +1,110 @@
+"""Atomic checkpoint save/restore of flat ``{key: array}`` dicts, in the
+on-disk format of ``repro.checkpoint.ckpt`` — a checkpoint written by
+either package restores in the other.
+
+Two-phase protocol: leaves are written into ``step_N.tmp/`` (one .npy per
+leaf, named by its key path and this process's index), fsynced, a
+manifest (step, config hash, leaf index, tree structure) is written LAST,
+and the directory is atomically renamed to ``step_N/``. A crash at any
+point leaves either a complete checkpoint or an ignorable ``.tmp`` — the
+restore path only ever sees manifests of complete checkpoints, and boots
+from the newest one.
+
+A state dict's keys are its leaves' key paths, in sorted order, as
+``jax.tree_util`` flattens a dict. One process writes every leaf: its
+index is 0 (the reference's ``jax.process_index()`` on a single host).
+The reference's ``read_leaf`` and ``prune`` serve its daemon and come with
+that slice.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+from pathlib import Path
+
+import numpy as np
+
+PROCESS_INDEX = 0
+
+
+def _treedef(keys) -> str:
+    """The dict's structure in ``jax.tree_util``'s repr, so a manifest reads
+    the same whichever package wrote it."""
+    return "PyTreeDef({" + ", ".join(f"{k!r}: *" for k in keys) + "})"
+
+
+def config_fingerprint(obj) -> str:
+    return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
+
+
+def save(root: str | os.PathLike, step: int, tree: dict,
+         config_hash: str = "") -> Path:
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    final = root / f"step_{step:08d}"
+    tmp = root / f"step_{step:08d}.tmp"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+    index = []
+    keys = sorted(tree)
+    for key in keys:
+        fname = f"{key.replace('/', '.')}.p{PROCESS_INDEX}.npy"
+        arr = np.asarray(tree[key])
+        with open(tmp / fname, "wb") as f:
+            np.save(f, arr)
+            f.flush()
+            os.fsync(f.fileno())
+        index.append({"key": key, "file": fname, "shape": list(arr.shape),
+                      "dtype": str(arr.dtype)})
+    manifest = {"step": step, "config_hash": config_hash,
+                "process_index": PROCESS_INDEX, "leaves": index,
+                "treedef": _treedef(keys)}
+    mpath = tmp / "MANIFEST.json"
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    if final.exists():
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomic publish
+    return final
+
+
+def latest_step(root: str | os.PathLike) -> int | None:
+    root = Path(root)
+    if not root.exists():
+        return None
+    steps = []
+    for d in root.iterdir():
+        if d.is_dir() and d.name.startswith("step_") \
+                and not d.name.endswith(".tmp") \
+                and (d / "MANIFEST.json").exists():
+            steps.append(int(d.name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def restore(root: str | os.PathLike, keys, step: int | None = None,
+            config_hash: str = "") -> tuple[dict, int]:
+    """Load the leaves named by ``keys`` from the newest (or given) complete
+    checkpoint. Returns (``{key: array}``, step). Raises FileNotFoundError
+    if there is no complete checkpoint."""
+    root = Path(root)
+    if step is None:
+        step = latest_step(root)
+    if step is None:
+        raise FileNotFoundError(f"no complete checkpoint under {root}")
+    d = root / f"step_{step:08d}"
+    manifest = json.loads((d / "MANIFEST.json").read_text())
+    if config_hash and manifest["config_hash"] \
+            and manifest["config_hash"] != config_hash:
+        raise ValueError(
+            f"checkpoint config hash {manifest['config_hash']} != "
+            f"{config_hash} — refusing to restore a different model")
+    by_key = {e["key"]: e for e in manifest["leaves"]}
+    return {key: np.load(d / by_key[key]["file"].replace(
+        f".p{manifest['process_index']}", f".p{PROCESS_INDEX}"))
+        for key in keys}, step

@@ -58,14 +58,27 @@ concatenated stream**:
     exact counting lazily; a promoted episode's machines catch up by
     replaying the retained window history.
 
-Not ported yet (it raises ``NotImplementedError``): the bounded-history
-mode (``checkpoint_interval`` / ``history_limit``).
-``state_dict`` keys and dtypes equal the reference's, so checkpoints move
-between the two packages in both directions.
+Bounded history (``StreamingCounter(checkpoint_interval=K)``,
+``StreamingMiner(history_limit=K)``): every K windows a counter resolves
+its flagged episodes exactly against a machine-state checkpoint (the
+base) plus the fed suffix since it, through a stateful sequential oracle
+(``_OracleA1``), folds the resolved machines back into the carried state,
+keeps the few whose live lists overflow ``lcap`` in an oracle escrow, and
+drops the suffix. Retained history is O(K) windows, and so is the cost of
+a recount, however long the stream.
+
+``executor`` (``service.batcher.CrossSessionBatcher``) is the seam through
+which the multi-tenant service fuses the counters' kernel launches across
+sessions: with one, every K1, K2 and K4 launch of a counter becomes a
+request to it (``a2_kernel_scan``, ``a1_kernel_scan``,
+``mapc_kernel_scan``); without one, the counter launches its kernels
+itself. ``state_dict`` keys and dtypes equal the reference's, so
+checkpoints move between the two packages in both directions.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import time
@@ -81,7 +94,8 @@ from . import candidates as _cand
 from .count_a1 import A1State, DEFAULT_LCAP, count_a1, init_a1_state
 from .count_a2 import A2State, init_a2_state
 from .episodes import EpisodeBatch
-from .events import PAD_TYPE, EventStream, count_level1, type_histogram
+from .events import (PAD_TYPE, TIME_NEG_INF, EventStream, count_level1,
+                     type_histogram)
 from .mapconcat import cut_windows, fold_pair
 from .miner import LevelStats, MiningResult
 
@@ -142,13 +156,108 @@ def _stream_engine(engine: str) -> str:
     return engine
 
 
-def _bounded_mode_pending(what: str):
-    return NotImplementedError(
-        f"{what}: bounded-history streaming is not ported to PyTorch yet")
-
-
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().copy()
+
+
+class _OracleA1:
+    """Exact Algorithm-1 machine for ONE episode with explicit carried state
+    (``ref.count_a1_sequential``, stateful form).
+
+    Bounded-memory recovery rests on this: a flagged episode's count is
+    restored by replaying only the retained suffix from its known-exact
+    state at the suffix base, instead of re-scanning the whole stream from
+    genesis. ``lists[i]`` holds the level-``i`` partial-occurrence
+    timestamps in chronological order (the oracle walks them newest-first).
+    """
+
+    __slots__ = ("et", "tlo", "thi", "n", "lists", "count")
+
+    def __init__(self, etypes, tlo, thi, lists=None, count: int = 0):
+        self.et = [int(x) for x in np.asarray(etypes).reshape(-1)]
+        self.tlo = [int(x) for x in np.asarray(tlo).reshape(-1)]
+        self.thi = [int(x) for x in np.asarray(thi).reshape(-1)]
+        self.n = len(self.et)
+        self.lists = ([list(lst) for lst in lists] if lists is not None
+                      else [[] for _ in range(self.n)])
+        self.count = int(count)
+
+    def copy(self) -> "_OracleA1":
+        return _OracleA1(self.et, self.tlo, self.thi, self.lists, self.count)
+
+    def feed(self, types: np.ndarray, times: np.ndarray) -> int:
+        """Scan a chunk of events; returns the cumulative exact count."""
+        n, et, tlo, thi = self.n, self.et, self.tlo, self.thi
+        s, count = self.lists, self.count
+        for e, t in zip(np.asarray(types).tolist(),
+                        np.asarray(times).tolist()):
+            if e < 0:  # PAD_TYPE
+                continue
+            completed = False
+            for i in range(n - 1, -1, -1):  # top-down over levels
+                if e != et[i]:
+                    continue
+                if i == 0:
+                    s[0].append(t)
+                    continue
+                for t_prev in reversed(s[i - 1]):
+                    if tlo[i - 1] < t - t_prev <= thi[i - 1]:
+                        if i == n - 1:
+                            count += 1
+                            s = [[] for _ in range(n)]
+                            completed = True
+                        else:
+                            s[i].append(t)
+                        break
+                if completed:
+                    break
+        self.lists, self.count = s, count
+        return count
+
+    def pruned(self, t_frontier: int) -> list[list[int]]:
+        """Live entries only: a level-``i`` entry ``v`` is dead once
+        ``t - v > thi[i]`` for every future ``t >= t_frontier`` (its sole
+        consumer is level i+1 within ``thi[i]``)."""
+        out = []
+        for i in range(self.n):
+            if i >= self.n - 1:
+                out.append([])  # the top level never stores
+            else:
+                out.append([v for v in self.lists[i]
+                            if t_frontier - v <= self.thi[i]])
+        return out
+
+
+def _lists_from_slots(s_row: np.ndarray, ptr_row: np.ndarray):
+    """Bounded circular buffers → oracle lists (chronological order).
+
+    Valid as an *exact* oracle seed only for an unflagged episode: with
+    ``ovf`` clear every eviction so far was provably dead, so the surviving
+    entries are behaviorally complete state. Slot ``ptr`` is the next write
+    slot, hence slots ptr, ptr+1, … (mod cap) run oldest→newest."""
+    n, cap = s_row.shape
+    lists = []
+    for lvl in range(n):
+        p = int(ptr_row[lvl])
+        vals = [int(s_row[lvl, (p + k) % cap]) for k in range(cap)]
+        lists.append([v for v in vals if v > int(TIME_NEG_INF)])
+    return lists
+
+
+def _slots_from_lists(lists, lcap: int):
+    """Oracle lists → bounded circular buffers, or None if any level's live
+    entries overflow ``lcap`` (the episode then stays in the oracle
+    escrow)."""
+    n = len(lists)
+    s = np.full((n, lcap), TIME_NEG_INF, np.int32)
+    ptr = np.zeros(n, np.int32)
+    for lvl, vals in enumerate(lists):
+        if len(vals) > lcap:
+            return None
+        for k, v in enumerate(vals):
+            s[lvl, k] = v
+        ptr[lvl] = len(vals) % lcap
+    return s, ptr
 
 
 @dataclasses.dataclass
@@ -175,15 +284,21 @@ class StreamingCounter:
 
     def __init__(self, eps: EpisodeBatch, engine: str = "hybrid",
                  lcap: int = DEFAULT_LCAP, num_segments: int = 8,
-                 checkpoint_interval: int | None = None, device=None):
+                 executor=None, checkpoint_interval: int | None = None,
+                 device=None):
         engine = _stream_engine(engine)
-        if checkpoint_interval is not None:
-            raise _bounded_mode_pending("checkpoint_interval")
+        if checkpoint_interval is not None and checkpoint_interval < 1:
+            raise ValueError("checkpoint_interval must be >= 1")
         self.eps = eps
         self.lcap = lcap
         self.num_segments = num_segments
+        self.executor = executor
+        self.ckpt_interval = checkpoint_interval
+        self.bounded = checkpoint_interval is not None
         self.device = resolve_device(device)
-        self.snapshots: list[np.ndarray] = []
+        # exact cum counts per window (bounded mode caps the tail retained)
+        self.snapshots = (collections.deque(maxlen=8) if self.bounded
+                          else [])
         self.windows_seen = 0
         self.finalized = False
         self._num_types: int | None = None
@@ -208,18 +323,33 @@ class StreamingCounter:
                 eps, inclusive_lower=False, device=self.device)
             self._kst = kops.a1_state_layout(
                 init_a1_state(eps, lcap, self.device), self.device)
-            return
-        # mapconcatenate: K4's episode operands packed once; the carried
-        # tuple (a, c, b, flag) [K, M] and the OR of every commit's ovf
-        # stay on the device
-        self._kmapc = kops.mapconcat_layout(eps, inclusive_lower=False,
-                                            device=self.device)
-        self._wmax = int(eps.max_span.max())
-        self._carry = None
-        self._ovf = torch.zeros(eps.M, dtype=torch.bool, device=self.device)
-        self._tau_c: int | None = None
-        self._buf_t = _EMPTY_I32  # committed lookback + pending events
-        self._buf_tt = _EMPTY_I32
+        else:
+            # mapconcatenate: K4's episode operands packed once; the
+            # carried tuple (a, c, b, flag) [K, M] and the OR of every
+            # commit's ovf stay on the device
+            self._kmapc = kops.mapconcat_layout(eps, inclusive_lower=False,
+                                                device=self.device)
+            self._wmax = int(eps.max_span.max())
+            self._carry = None
+            self._ovf = torch.zeros(eps.M, dtype=torch.bool,
+                                    device=self.device)
+            self._tau_c: int | None = None
+            self._buf_t = _EMPTY_I32  # committed lookback + pending events
+            self._buf_tt = _EMPTY_I32
+        if self.bounded:
+            # suffix-only retention: fed chunks since the last machine-state
+            # checkpoint, the checkpointed state itself (canonical
+            # episode-major numpy), and the oracle escrow for episodes whose
+            # exact lists overflow lcap
+            self._suffix: list[tuple[np.ndarray, np.ndarray]] = []
+            self._escrow: dict[int, _OracleA1] = {}
+            self._base_consumed = 0
+            self._wsb = 0  # fed windows since the last base advance
+            self._bstate = {
+                "s": np.full((eps.M, eps.N, lcap), TIME_NEG_INF, np.int32),
+                "ptr": np.zeros((eps.M, eps.N), np.int32),
+                "count": np.zeros(eps.M, np.int32),
+                "ovf": np.zeros(eps.M, bool)}
 
     def _host_state(self) -> A1State:
         """The carried machines in canonical episode-major layout."""
@@ -259,7 +389,8 @@ class StreamingCounter:
                     f"(window starts at {int(tt[0])} < frontier "
                     f"{self._t_last}); dedup overlapping windows first")
             self._t_last = int(tt[-1])
-            self._hist.append((t, tt))
+            if not self.bounded:
+                self._hist.append((t, tt))
         chunk_t = np.concatenate([self._held_t, t])
         chunk_tt = np.concatenate([self._held_tt, tt])
         if final:
@@ -268,6 +399,11 @@ class StreamingCounter:
             feed, held = _split_tie_tail(chunk_t, chunk_tt)
         self._held_t, self._held_tt = held
         n = feed[0].size
+        if self.bounded and self.engine != "level1" and n:
+            # fed (post-holdback) chunks: exactly what the machines consume,
+            # so a suffix replay from the base state reproduces the scans
+            self._suffix.append((np.asarray(feed[0], np.int32).copy(),
+                                 np.asarray(feed[1], np.int32).copy()))
         if self.engine == "ptpe" and n:
             # event brick (types; times; dup) — the per-chunk dup flags are
             # exact because the tie-group holdback above guarantees the
@@ -282,21 +418,26 @@ class StreamingCounter:
 
     def _dispatch(self, staged: _Staged) -> None:
         self._consumed += staged.n
+        if self.engine == "level1":
+            if staged.n:
+                sub = EventStream(staged.feed_types, staged.feed_times,
+                                  self._num_types)
+                self._cum += count_level1(sub, self.eps.etypes[:, 0])
+            return
         if self.engine == "mapconcatenate":
             self._dispatch_mapc(staged)
-            return
-        if not staged.n:
-            return
-        if self.engine == "level1":
-            sub = EventStream(staged.feed_types, staged.feed_times,
-                              self._num_types)
-            self._cum += count_level1(sub, self.eps.etypes[:, 0])
-            return
-        s, ptr, c, ovf = self._kst
-        with _obs_span("stream.launch", kind="a1_state"):
-            kops.a1_state_call(self._ket, self._ktlo, self._kthi,
-                               staged.feed_types, s, ptr, c, ovf,
-                               n_events=staged.n)
+        elif staged.n:
+            args = (self._ket, self._ktlo, self._kthi, staged.feed_types,
+                    *self._kst)
+            if self.executor is not None:
+                self.executor.a1_kernel_scan(args, staged.n)
+            else:
+                with _obs_span("stream.launch", kind="a1_state"):
+                    kops.a1_state_call(*args, n_events=staged.n)
+        if self.bounded:
+            self._wsb += 1
+            if staged.final or self._wsb >= self.ckpt_interval:
+                self._advance_base()
 
     def _dispatch_mapc(self, staged: _Staged) -> None:
         """Buffer the fed events and commit the span the lookahead allows:
@@ -338,9 +479,14 @@ class StreamingCounter:
                                   round_up=bucket_size)
             segs = kops.segment_bricks(wt, wtt, tau, self.device,
                                        length=wt.shape[1])
-            with _obs_span("stream.launch", kind="a1_mapconcat"):
-                a, c, b, f, ovf = kops.a1_mapconcat_tuples(
-                    *self._kmapc, segs, lcap=self.lcap)
+            kargs = (*self._kmapc, segs)
+            if self.executor is not None:
+                a, c, b, f, ovf = self.executor.mapc_kernel_scan(kargs,
+                                                                 self.lcap)
+            else:
+                with _obs_span("stream.launch", kind="a1_mapconcat"):
+                    a, c, b, f, ovf = kops.a1_mapconcat_tuples(
+                        *kargs, lcap=self.lcap)
             self._ovf |= ovf != 0
             tup = (a, c, b, f != 0)
             self._carry = (tup if self._carry is None
@@ -370,7 +516,10 @@ class StreamingCounter:
         c = out[0].astype(np.int64)
         flagged = out[1] != 0
         if flagged.any():
-            c = self._restore_exact(c, flagged)
+            if self.bounded:
+                c = self._restore_exact_bounded(c.copy(), flagged)
+            else:
+                c = self._restore_exact(c, flagged)
         return c
 
     def _restore_exact(self, c: np.ndarray, flagged: np.ndarray):
@@ -394,6 +543,138 @@ class StreamingCounter:
                               device=self.device)
         return c
 
+    # ------------------------------------------------- bounded memory
+
+    def _suffix_concat(self) -> tuple[np.ndarray, np.ndarray]:
+        if not self._suffix:
+            return _EMPTY_I32, _EMPTY_I32
+        return (np.concatenate([t for t, _ in self._suffix]),
+                np.concatenate([tt for _, tt in self._suffix]))
+
+    def _suffix_take(self, tt_all: np.ndarray) -> int:
+        """How many retained-suffix events the recovery replay must cover:
+        everything the machines consumed since the base (ptpe), or the
+        committed prefix up to the commit frontier τ_c (mapconcatenate) —
+        never the events ``run()`` has merely prefetched."""
+        if self.engine == "ptpe":
+            return self._consumed - self._base_consumed
+        if self._tau_c is None:
+            return 0
+        return int(np.searchsorted(tt_all, self._tau_c, side="right"))
+
+    def _base_oracle(self, i: int) -> _OracleA1:
+        """Episode ``i``'s exact machine at the base: its escrowed oracle,
+        else one seeded from the checkpointed (unflagged, hence complete)
+        bounded lists. The escrow entry itself is returned, not a copy."""
+        orc = self._escrow.get(i)
+        if orc is not None:
+            return orc
+        return _OracleA1(self.eps.etypes[i], self.eps.tlo[i],
+                         self.eps.thi[i],
+                         _lists_from_slots(self._bstate["s"][i],
+                                           self._bstate["ptr"][i]),
+                         int(self._bstate["count"][i]))
+
+    def _restore_exact_bounded(self, c: np.ndarray, flagged: np.ndarray):
+        """Recount flagged episodes by replaying only the retained suffix
+        from their known-exact base state (checkpointed machine state for
+        episodes unflagged at the base, oracle escrow otherwise)."""
+        t_all, tt_all = self._suffix_concat()
+        take = self._suffix_take(tt_all)
+        idx = np.nonzero(flagged)[0]
+        with _obs_span("stream.recount", episodes=idx.size):
+            for i in idx.tolist():
+                # counts() is a read: never advance the escrow itself
+                orc = self._base_oracle(i).copy()
+                c[i] = orc.feed(t_all[:take], tt_all[:take])
+        return c
+
+    def _shadow_scan(self, feed_t: np.ndarray, feed_tt: np.ndarray):
+        """Advance the mapconcatenate engine's base shadow (a bounded-list
+        A1 state) over the consumed suffix with one K2 launch on a copy of
+        the base state — the per-interval machine-state checkpoint the
+        exact recovery replays from. Returns numpy (s, ptr, count, ovf) in
+        the canonical layout."""
+        b = self._bstate
+        if feed_t.size == 0:
+            return (b["s"].copy(), b["ptr"].copy(), b["count"].copy(),
+                    b["ovf"].copy())
+        st = kops.a1_state_layout(A1State(
+            s=torch.from_numpy(b["s"]), ptr=torch.from_numpy(b["ptr"]),
+            count=torch.from_numpy(b["count"]),
+            ovf=torch.from_numpy(b["ovf"])), self.device)
+        ev = kops.event_brick(feed_t, feed_tt, with_dup=True,
+                              device=self.device,
+                              length=bucket_size(feed_t.size))
+        kops.a1_state_call(*self._kmapc[:3], ev, *st, n_events=feed_t.size)
+        out = kops.a1_state_unpack(*st)
+        return (_to_numpy(out.s), _to_numpy(out.ptr), _to_numpy(out.count),
+                _to_numpy(out.ovf))
+
+    def _advance_base(self) -> None:
+        """Per-interval machine-state checkpoint (bounded mode).
+
+        Resolves every flagged episode exactly — replaying the retained
+        suffix from the base state through its oracle — then folds resolved
+        machines back into the carried state (flags cleared), keeps
+        unresolvable ones in the oracle escrow, and drops the consumed
+        suffix. Retained history is thereby O(checkpoint interval) windows
+        regardless of stream length, and flags no longer accumulate into
+        ever-growing genesis recounts. The carried state belongs to the one
+        thread that steps this counter, so the read-modify-write below
+        races no other launch."""
+        with _obs_span("stream.checkpoint", engine=self.engine):
+            self._advance_base_impl()
+
+    def _advance_base_impl(self) -> None:
+        self._wsb = 0
+        t_all, tt_all = self._suffix_concat()
+        take = self._suffix_take(tt_all)
+        feed_t, feed_tt = t_all[:take], tt_all[:take]
+        if self.engine == "ptpe":
+            st = self._host_state()
+            s, ptr, cnt, ovf = (_to_numpy(st.s), _to_numpy(st.ptr),
+                                _to_numpy(st.count), _to_numpy(st.ovf))
+        else:
+            s, ptr, cnt, ovf = self._shadow_scan(feed_t, feed_tt)
+        pend = sorted(set(np.nonzero(ovf)[0].tolist()) | set(self._escrow))
+        if pend:
+            t_f = int(feed_tt[-1]) if take else None
+            escrow: dict[int, _OracleA1] = {}
+            for i in pend:
+                orc = self._base_oracle(i)
+                orc.feed(feed_t, feed_tt)
+                cnt[i] = orc.count
+                lists = orc.pruned(t_f) if t_f is not None else orc.lists
+                fit = _slots_from_lists(lists, self.lcap)
+                if fit is None:
+                    escrow[i] = orc
+                    ovf[i] = True
+                else:
+                    s[i], ptr[i] = fit
+                    ovf[i] = False
+            self._escrow = escrow
+        self._bstate = {"s": s, "ptr": ptr, "count": cnt, "ovf": ovf}
+        self._base_consumed += take
+        self._suffix = ([(t_all[take:], tt_all[take:])]
+                        if t_all.size > take else [])
+        if self.engine == "ptpe":
+            # fold the resolution back so future launches run from exact
+            # state
+            self._set_host_state(A1State(
+                s=torch.from_numpy(s), ptr=torch.from_numpy(ptr),
+                count=torch.from_numpy(cnt), ovf=torch.from_numpy(ovf)))
+
+    @property
+    def retained_windows(self) -> int:
+        """Raw event-chunk windows currently held for exact recovery —
+        O(checkpoint interval) in bounded mode, O(stream) otherwise."""
+        if self.engine == "level1":
+            return 0
+        if self.bounded:
+            return len(self._suffix)
+        return len(self._hist)
+
     def _snapshot(self) -> np.ndarray:
         out = self.counts()
         self.snapshots.append(out)
@@ -401,6 +682,14 @@ class StreamingCounter:
         return out
 
     # ----------------------------------------------------------- public
+
+    def fast_forward(self, p: int) -> None:
+        """Declare the first ``p`` miner windows out of scope for this
+        (virgin) counter — bounded-history mining starts late-born counters
+        at the retained-suffix horizon instead of replaying from genesis."""
+        if self.windows_seen or self._consumed:
+            raise RuntimeError("fast_forward on a non-virgin counter")
+        self.windows_seen = p
 
     def state_dict(self) -> dict[str, np.ndarray]:
         """Dynamic machine state as a flat ``{str: np.ndarray}`` dict in the
@@ -435,16 +724,27 @@ class StreamingCounter:
             if self._carry is not None:
                 for name, arr in zip(("a", "c", "b", "f"), self._carry):
                     d[f"carry/{name}"] = _to_numpy(arr)
-        for j, (t, tt) in enumerate(self._hist):
-            d[f"hist/{j}/t"] = t.copy()
-            d[f"hist/{j}/tt"] = tt.copy()
+        if self.bounded:
+            for k, v in self._bstate.items():
+                d[f"base/{k}"] = v.copy()
+            d["base_consumed"] = np.asarray(self._base_consumed, np.int64)
+            d["wsb"] = np.asarray(self._wsb, np.int64)
+            for j, (t, tt) in enumerate(self._suffix):
+                d[f"suffix/{j}/t"] = t.copy()
+                d[f"suffix/{j}/tt"] = tt.copy()
+            for i, orc in self._escrow.items():
+                d[f"escrow/{i}/count"] = np.asarray(orc.count, np.int64)
+                for j, lst in enumerate(orc.lists):
+                    d[f"escrow/{i}/l{j}"] = np.asarray(lst, np.int64)
+        else:
+            for j, (t, tt) in enumerate(self._hist):
+                d[f"hist/{j}/t"] = t.copy()
+                d[f"hist/{j}/tt"] = tt.copy()
         return d
 
     def load_state_dict(self, d: dict) -> None:
         """Inverse of ``state_dict`` (configuration must match)."""
         d = {k: np.asarray(v) for k, v in d.items()}
-        if any(k.startswith(("base/", "suffix/", "escrow/")) for k in d):
-            raise _bounded_mode_pending("state of a bounded-history counter")
         self.windows_seen = int(d["windows_seen"])
         self.finalized = bool(int(d["finalized"]))
         self._consumed = int(d["consumed"])
@@ -452,8 +752,10 @@ class StreamingCounter:
         self._t_last = _opt_unpack(d["t_last"])
         self._held_t = d["held_t"].astype(np.int32)
         self._held_tt = d["held_tt"].astype(np.int32)
-        self.snapshots = [d[f"snap/{j}"].astype(np.int64) for j in range(3)
-                          if f"snap/{j}" in d]
+        snaps = [d[f"snap/{j}"].astype(np.int64) for j in range(3)
+                 if f"snap/{j}" in d]
+        self.snapshots = (collections.deque(snaps, maxlen=8) if self.bounded
+                          else snaps)
         if self.engine == "level1":
             self._cum = d["cum"].astype(np.int64)
             return
@@ -474,6 +776,31 @@ class StreamingCounter:
                     bool if name == "f" else np.int32)).to(self.device)
                 for name in ("a", "c", "b", "f"))
                 if "carry/a" in d else None)
+        if self.bounded:
+            self._bstate = {
+                "s": d["base/s"].astype(np.int32),
+                "ptr": d["base/ptr"].astype(np.int32),
+                "count": d["base/count"].astype(np.int32),
+                "ovf": d["base/ovf"].astype(bool)}
+            self._base_consumed = int(d["base_consumed"])
+            self._wsb = int(d["wsb"])
+            self._suffix = []
+            j = 0
+            while f"suffix/{j}/t" in d:
+                self._suffix.append((d[f"suffix/{j}/t"].astype(np.int32),
+                                     d[f"suffix/{j}/tt"].astype(np.int32)))
+                j += 1
+            self._escrow = {}
+            for i in sorted({int(k.split("/")[1]) for k in d
+                             if k.startswith("escrow/")}):
+                lists, j = [], 0
+                while f"escrow/{i}/l{j}" in d:
+                    lists.append([int(x) for x in d[f"escrow/{i}/l{j}"]])
+                    j += 1
+                self._escrow[i] = _OracleA1(
+                    self.eps.etypes[i], self.eps.tlo[i], self.eps.thi[i],
+                    lists, int(d[f"escrow/{i}/count"]))
+            return
         self._hist = []
         j = 0
         while f"hist/{j}/t" in d:
@@ -528,11 +855,14 @@ class StreamingA2Counter:
     unconditionally bit-exact — no holdback, no flags, no history. The
     carried (s, cnt) tile stays on the device in kernel K1's layout."""
 
-    def __init__(self, eps: EpisodeBatch, device=None):
+    def __init__(self, eps: EpisodeBatch, executor=None,
+                 bounded: bool = False, device=None):
         self.eps = eps
         self._relaxed = eps.relaxed()
+        self.executor = executor
+        self.bounded = bounded
         self.device = resolve_device(device)
-        self.snapshots: list[np.ndarray] = []
+        self.snapshots = collections.deque(maxlen=8) if bounded else []
         self.windows_seen = 0
         if eps.N == 1:
             self._cum = np.zeros(eps.M, np.int64)
@@ -561,13 +891,22 @@ class StreamingA2Counter:
                 ev = kops.event_brick(window.types[real], window.times[real],
                                       with_dup=False, device=self.device,
                                       length=bucket_size(n))
-                with _obs_span("stream.launch", kind="a2_state"):
-                    kops.a2_state_call(self._ket, self._ktlo, self._kthi,
-                                       ev, s, c, n_events=n)
+                args = (self._ket, self._ktlo, self._kthi, ev, s, c)
+                if self.executor is not None:
+                    self.executor.a2_kernel_scan(args, n)
+                else:
+                    with _obs_span("stream.launch", kind="a2_state"):
+                        kops.a2_state_call(*args, n_events=n)
             out = c.cpu().numpy().astype(np.int64)
         self.snapshots.append(out)
         self.windows_seen += 1
         return out
+
+    def fast_forward(self, p: int) -> None:
+        """See ``StreamingCounter.fast_forward``."""
+        if self.windows_seen:
+            raise RuntimeError("fast_forward on a non-virgin counter")
+        self.windows_seen = p
 
     def state_dict(self) -> dict[str, np.ndarray]:
         d = {"windows_seen": np.asarray(self.windows_seen, np.int64)}
@@ -584,8 +923,10 @@ class StreamingA2Counter:
     def load_state_dict(self, d: dict) -> None:
         d = {k: np.asarray(v) for k, v in d.items()}
         self.windows_seen = int(d["windows_seen"])
-        self.snapshots = [d[f"snap/{j}"].astype(np.int64) for j in range(3)
-                          if f"snap/{j}" in d]
+        snaps = [d[f"snap/{j}"].astype(np.int64) for j in range(3)
+                 if f"snap/{j}" in d]
+        self.snapshots = (collections.deque(snaps, maxlen=8) if self.bounded
+                          else snaps)
         if self.eps.N == 1:
             self._cum = d["cum"].astype(np.int64)
         else:
@@ -626,18 +967,32 @@ class StreamingMiner:
     replays the retained window history to catch its machines up — exactness
     is never traded for the cull. ``device`` is where every counter's
     machines live (default: the CUDA card).
+
+    ``history_limit=K`` bounds memory for long-lived sessions: the retained
+    window history, every counter's recovery suffix, and the counter table
+    itself stay O(K) instead of O(stream length). Counters checkpoint their
+    machine state every K windows and recover flagged episodes by replaying
+    only the suffix since the checkpoint (``StreamingCounter``'s bounded
+    mode). The semantic trade, as in the reference: a counter born after
+    the horizon — a newly promoted subset, or a whole candidate batch whose
+    key first appears (or reappears after more than K idle windows, which
+    evicts it) — counts from the retained suffix, not from genesis.
+    Per-window deltas re-synchronize within the replayed suffix, so
+    ``mode="per_window"`` serving stays exact in practice;
+    ``mode="cumulative"`` totals are exact only for counters whose key
+    lineage stays within the horizon.
     """
 
     def __init__(self, intervals, theta: int, max_level: int = 4,
                  mode: str = "per_window", engine: str = "hybrid",
                  two_pass: bool = True, lcap: int = DEFAULT_LCAP,
                  num_segments: int = 8, history_limit: int | None = None,
-                 device=None):
+                 executor=None, device=None):
         if mode not in ("per_window", "cumulative"):
             raise ValueError(f"unknown mode {mode!r}")
         _stream_engine(engine)
-        if history_limit is not None:
-            raise _bounded_mode_pending("history_limit")
+        if history_limit is not None and history_limit < 1:
+            raise ValueError("history_limit must be >= 1")
         self.intervals = intervals
         self.theta = theta
         self.max_level = max_level
@@ -646,8 +1001,11 @@ class StreamingMiner:
         self.two_pass = two_pass
         self.lcap = lcap
         self.num_segments = num_segments
+        self.history_limit = history_limit
+        self.executor = executor
         self.device = resolve_device(device)
         self._history: list[EventStream] = []
+        self._hist_base = 0  # miner windows dropped from the history head
         self._p = 0
         self._num_types: int | None = None
         self._l1_cum: np.ndarray | None = None
@@ -666,10 +1024,14 @@ class StreamingMiner:
     def _make_counter(self, eps: EpisodeBatch) -> StreamingCounter:
         return StreamingCounter(eps, engine=self.engine, lcap=self.lcap,
                                 num_segments=self.num_segments,
+                                executor=self.executor,
+                                checkpoint_interval=self.history_limit,
                                 device=self.device)
 
     def _make_a2_counter(self, eps: EpisodeBatch) -> StreamingA2Counter:
-        return StreamingA2Counter(eps, device=self.device)
+        return StreamingA2Counter(eps, executor=self.executor,
+                                  bounded=self.history_limit is not None,
+                                  device=self.device)
 
     def _update_fragments(self, frags, window: EventStream, final: bool):
         """Advance every fragment of a tracked set; returns the
@@ -689,10 +1051,14 @@ class StreamingMiner:
 
     def _sync(self, counter, window: EventStream, final: bool) -> np.ndarray:
         """Feed any history windows this counter has not seen (a batch that
-        first appears — or grows — at window p replays windows 0..p-1),
-        then the current window."""
+        first appears — or grows — at window p replays windows 0..p-1; with
+        ``history_limit`` set, only the retained suffix), then the current
+        window."""
+        if counter.windows_seen < self._hist_base:
+            counter.fast_forward(self._hist_base)
         while counter.windows_seen < self._p:
-            counter.update(self._history[counter.windows_seen])
+            counter.update(self._history[counter.windows_seen
+                                         - self._hist_base])
         return counter.update(window, final=final)
 
     def _count_level(self, cand: EpisodeBatch, window: EventStream,
@@ -833,7 +1199,28 @@ class StreamingMiner:
             level += 1
         self._history.append(w)
         self._p += 1
+        if self.history_limit is not None:
+            while len(self._history) > self.history_limit:
+                self._history.pop(0)
+                self._hist_base += 1
+            stale = [k for k, seen in self._last_seen.items()
+                     if self._p - seen > self.history_limit]
+            for k in stale:
+                for dd in (self._a2, self._exact, self._known, self._known2,
+                           self._last_seen):
+                    dd.pop(k, None)
         return MiningResult(frequent=frequent, counts=counts, stats=stats)
+
+    @property
+    def retained_windows(self) -> int:
+        """Raw windows alive anywhere in the miner (shared history plus
+        per-counter recovery suffixes) — the quantity ``history_limit``
+        caps at O(checkpoint interval) instead of O(stream length)."""
+        n = len(self._history)
+        for _, frags in self._exact.values():
+            for ctr in frags:
+                n = max(n, ctr.retained_windows)
+        return n
 
     @staticmethod
     def _key_hash(key) -> str:
@@ -845,7 +1232,7 @@ class StreamingMiner:
         ``load_state_dict`` on a miner of either package constructed with
         the same configuration resumes bit-identically."""
         d = {"p": np.asarray(self._p, np.int64),
-             "hist_base": np.asarray(0, np.int64),
+             "hist_base": np.asarray(self._hist_base, np.int64),
              "num_types": _opt_pack(self._num_types)}
         if self._l1_cum is not None:
             d["l1_cum"] = self._l1_cum.copy()
@@ -888,9 +1275,8 @@ class StreamingMiner:
     def load_state_dict(self, d: dict) -> None:
         """Inverse of ``state_dict`` (configuration must match)."""
         d = {k: np.asarray(v) for k, v in d.items()}
-        if int(d["hist_base"]):
-            raise _bounded_mode_pending("state of a history_limit miner")
         self._p = int(d["p"])
+        self._hist_base = int(d["hist_base"])
         self._num_types = _opt_unpack(d["num_types"])
         self._l1_cum = (d["l1_cum"].astype(np.int64)
                         if "l1_cum" in d else None)

@@ -15,12 +15,21 @@ Modules:
     source ``csrc/a1_mapconcat.cu``; replaces
     ``repro.kernels.a1_count.a1_mapconcat_kernel``. K3 and K4 share
     ``csrc/mapc_common.cuh`` (stitch zones, segment staging, fold launch).
-  ops — host↔kernel layout contract and the one-shot, stateful and
-    segmented wrappers.
+  K6 — the fused multi-session launches: one launch advances many
+    counters' lanes through a device table of per-lane descriptors, K6a
+    (``a2_count.a2_count_state_lanes``) for K1, K6b
+    (``a1_count.a1_count_state_lanes``) for K2 and K6c
+    (``a1_count.a1_mapconcat_lanes``) for K4, in the same ``.cu`` files
+    and sharing their bodies; replace ``repro.kernels.ops``'s
+    ``a2_state_vmapped``, ``a1_state_vmapped`` and ``a1_mapc_vmapped``.
+  ops — host↔kernel layout contract and the one-shot, stateful,
+    segmented and fused (``*_vmapped``) wrappers.
   cuda — nvcc build at first use (``build/kernels/``), ctypes loading,
-    operand checks.
+    operand checks, lane tables.
   tally — launch counts per kernel (``a2_count_state``, ``a1_count_state``,
-    ``a2_mapconcat``, ``a1_mapconcat``).
+    ``a2_mapconcat``, ``a1_mapconcat``, ``a2_state_vmapped``,
+    ``a1_state_vmapped``, ``a1_mapc_vmapped``) and the fused launches'
+    lanes.
 
 A kernel wrapper runs the CUDA kernel for CUDA tensors and the plain
 version for CPU tensors; there is no other fallback. Nothing is compiled

@@ -1,5 +1,7 @@
 """K2: the carried A1 (bounded-list) counter — the CUDA kernel's wrapper and
-its plain PyTorch version.
+its plain PyTorch version; K6b, its fused multi-session form
+(``a1_count_state_lanes``); K4, the bounded-list MapConcatenate; and K6c,
+K4's fused multi-session form (``a1_mapconcat_lanes``).
 
 Port of ``repro/kernels/a1_count.py::a1_count_state_kernel`` (Pallas) and
 its fresh-state wrapper ``a1_count_kernel``. The CUDA source is
@@ -37,12 +39,14 @@ from .a2_count import (check_mapc_operands, mapc_fold_plain, mapc_launch,
 from .tally import record_launch, record_plain
 
 KERNEL = "a1_count_state"
+LANES_KERNEL = "a1_state_vmapped"  # K6b, named after the reference's vmap
 MAX_LEVELS = 8  # the CUDA kernel is instantiated for N = 2 .. MAX_LEVELS
 KERNEL_LCAPS = (1, 2, 4, 8)  # ... and for these list capacities
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"a1_count_state": (
-    _I, [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P])}
+    _I, [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "a1_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P])}
 
 
 def a1_count_state_plain(et, tlo, thi, ev, s, ptr, cnt, ovf,
@@ -74,18 +78,24 @@ def _launch(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events: int) -> None:
     rc = lib.a1_count_state(
         et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
         ev.shape[1], n_events, s.data_ptr(), ptr.data_ptr(), cnt.data_ptr(),
-        ovf.data_ptr(), m, n, lcap,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ovf.data_ptr(), m, n, lcap, cuda.device_index(dev),
         cuda.stream_handle(dev))
     cuda.check_launch(lib, KERNEL, rc)
     record_launch(KERNEL)
 
 
-def a1_count_state(et, tlo, thi, ev, s, ptr, cnt, ovf, *,
-                   n_events: int | None = None):
-    """Advance the carried bounded-list machines past ``ev[:, :n_events]``
-    (default: every column). Returns (cnt, ovf, s, ptr), updated in
-    place."""
+def _check_envelope(dev, n: int, lcap: int) -> None:
+    if dev.type == "cuda" and (not 2 <= n <= MAX_LEVELS
+                               or lcap not in KERNEL_LCAPS):
+        raise ValueError(
+            f"the CUDA kernel takes 2..{MAX_LEVELS} levels and lcap in "
+            f"{KERNEL_LCAPS}, got N={n}, lcap={lcap}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _check(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events: int | None) -> int:
+    """Raise unless the operands fit K2's contract; returns n_events."""
     n, m = et.shape
     lcap = s.shape[1] if s.dim() == 3 else -1
     dev = et.device
@@ -100,18 +110,60 @@ def a1_count_state(et, tlo, thi, ev, s, ptr, cnt, ovf, *,
     n_events = ep if n_events is None else int(n_events)
     if not 0 <= n_events <= ep:
         raise ValueError(f"n_events={n_events} outside [0, {ep}]")
-    if dev.type == "cpu":
+    _check_envelope(dev, n, lcap)
+    return n_events
+
+
+def a1_count_state(et, tlo, thi, ev, s, ptr, cnt, ovf, *,
+                   n_events: int | None = None):
+    """Advance the carried bounded-list machines past ``ev[:, :n_events]``
+    (default: every column). Returns (cnt, ovf, s, ptr), updated in
+    place."""
+    n_events = _check(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events)
+    if et.device.type == "cpu":
         record_plain(KERNEL)
         a1_count_state_plain(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events)
-    elif dev.type == "cuda":
-        if not 2 <= n <= MAX_LEVELS or lcap not in KERNEL_LCAPS:
-            raise ValueError(
-                f"the CUDA kernel takes 2..{MAX_LEVELS} levels and lcap in "
-                f"{KERNEL_LCAPS}, got N={n}, lcap={lcap}")
-        _launch(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events)
     else:
-        raise ValueError(f"unsupported device {dev}")
+        _launch(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events)
     return cnt, ovf, s, ptr
+
+
+def a1_count_state_lanes_plain(lanes) -> None:
+    """Plain version of K6b: K2's plain version on each lane in turn."""
+    for args, n_events in lanes:
+        a1_count_state_plain(*args, n_events)
+
+
+def a1_count_state_lanes(lanes) -> None:
+    """K6b: advance many counters' carried bounded-list machines in one
+    launch. ``lanes`` is a list of ``((et, tlo, thi, ev, s, ptr, cnt,
+    ovf), n_events)``, each lane K2's operands and its event count; every
+    lane has the same N and LCAP and lives on one device, and each is
+    advanced in place exactly as a lone K2 call would advance it."""
+    if not lanes:
+        return
+    n, lcap = lanes[0][0][4].shape[:2]
+    dev = lanes[0][0][0].device
+    for args, n_events in lanes:
+        _check(*args, n_events)
+        if tuple(args[4].shape[:2]) != (n, lcap) or args[0].device != dev:
+            raise ValueError("the lanes of one fused launch must share N, "
+                             "LCAP and the device")
+    if dev.type == "cpu":
+        record_plain(LANES_KERNEL, lanes=len(lanes))
+        a1_count_state_lanes_plain(lanes)
+        return
+    lib = cuda.library("a1_count", _SIGNATURES)
+    rows = [[et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
+             s.data_ptr(), ptr.data_ptr(), cnt.data_ptr(), ovf.data_ptr(),
+             et.shape[1], ev.shape[1], n_events]
+            for (et, tlo, thi, ev, s, ptr, cnt, ovf), n_events in lanes]
+    table = cuda.lane_table(rows, dev)
+    rc = lib.a1_count_state_lanes(
+        table.data_ptr(), len(lanes), max(r[8] for r in rows), n, lcap,
+        cuda.device_index(dev), cuda.stream_handle(dev))
+    cuda.check_launch(lib, LANES_KERNEL, rc)
+    record_launch(LANES_KERNEL, lanes=len(lanes))
 
 
 def a1_count_kernel(et, tlo, thi, ev, *, lcap: int = 4,
@@ -139,10 +191,12 @@ def a1_count_kernel(et, tlo, thi, ev, *, lcap: int = 4,
 # live-eviction flags over every (segment, phase).
 
 MAPC_KERNEL = "a1_mapconcat"
+MAPC_LANES_KERNEL = "a1_mapc_vmapped"  # K6c, after the reference's vmap
 
 _MAPC_SIGNATURES = {"a1_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-         _P, _I, _P])}
+         _P, _I, _P]),
+    "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _P])}
 
 
 def _a1_mapc_step(state, e, t, dup, et, tlo, thi):
@@ -207,16 +261,62 @@ def a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, lcap: int = 4,
     dev = et.device
     if lcap < 1:
         raise ValueError("lcap must be at least 1")
+    _check_envelope(dev, n, lcap)
     if dev.type == "cpu":
         record_plain(MAPC_KERNEL)
         return a1_mapconcat_plain(et, tlo, thi, cum, w, segs, lcap=lcap,
                                   fold=fold)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not 2 <= n <= MAX_LEVELS or lcap not in KERNEL_LCAPS:
-        raise ValueError(
-            f"the CUDA kernel takes 2..{MAX_LEVELS} levels and lcap in "
-            f"{KERNEL_LCAPS}, got N={n}, lcap={lcap}")
     lib = cuda.library("a1_mapconcat", _MAPC_SIGNATURES)
     return mapc_launch(lib, "a1_mapconcat", MAPC_KERNEL, et, tlo, thi, cum,
                        w, segs, fold, lcap)
+
+
+def a1_mapconcat_lanes_plain(lanes, *, lcap: int) -> list[tuple]:
+    """Plain version of K6c: K4's plain version (Map and fold) on each
+    lane in turn."""
+    return [a1_mapconcat_plain(*args, lcap=lcap) for args in lanes]
+
+
+def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
+    """K6c: many counters' segmented commits (K4, Map and fold) in one Map
+    launch and one fold launch. ``lanes`` is a list of ``(et, tlo, thi,
+    cum, w, segs)``, each lane K4's operands with its own M and window
+    length LW; every lane has the same N and P segments and lives on one
+    device. Returns each lane's (a, c, b, f, ovf), equal to a lone K4
+    call's."""
+    if not lanes:
+        return []
+    n, _, p, _ = check_mapc_operands(*lanes[0])
+    dev = lanes[0][0].device
+    for args in lanes:
+        ln, _, lp, _ = check_mapc_operands(*args)
+        if (ln, lp) != (n, p) or args[0].device != dev:
+            raise ValueError("the lanes of one fused launch must share N, "
+                             "P and the device")
+    if lcap < 1:
+        raise ValueError("lcap must be at least 1")
+    _check_envelope(dev, n, lcap)
+    if dev.type == "cpu":
+        record_plain(MAPC_LANES_KERNEL, lanes=len(lanes))
+        return a1_mapconcat_lanes_plain(lanes, lcap=lcap)
+    lib = cuda.library("a1_mapconcat", _MAPC_SIGNATURES)
+    outs, rows = [], []
+    for et, tlo, thi, cum, w, segs in lanes:
+        m = et.shape[1]
+        tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
+        out = tuple(torch.empty((n, m), dtype=torch.int32, device=dev)
+                    for _ in range(4)) + (
+            torch.empty(m, dtype=torch.int32, device=dev),)
+        outs.append((tuples, out))
+        rows.append([x.data_ptr() for x in (et, tlo, thi, cum, w, segs,
+                                              tuples, *out)]
+                    + [m, segs.shape[2]])
+    table = cuda.lane_table(rows, dev)
+    rc = lib.a1_mapconcat_lanes(
+        table.data_ptr(), len(lanes), p, max(r[12] for r in rows), n, lcap,
+        cuda.device_index(dev), cuda.stream_handle(dev))
+    cuda.check_launch(lib, MAPC_LANES_KERNEL, rc)
+    record_launch(MAPC_LANES_KERNEL, lanes=len(lanes))
+    # dropping the Map scratch and the table here is safe: the caching
+    # allocator hands a freed block out again only in stream order
+    return [out for _, out in outs]

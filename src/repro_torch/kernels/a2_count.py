@@ -1,5 +1,6 @@
 """K1: the carried A2 (single-slot) counter — the CUDA kernel's wrapper and
-its plain PyTorch version.
+its plain PyTorch version; K6a, its fused multi-session form
+(``a2_count_state_lanes``); and K3, the single-slot MapConcatenate.
 
 Port of ``repro/kernels/a2_count.py::a2_count_state_kernel`` (Pallas) and
 its fresh-state wrapper ``a2_count_kernel``. The CUDA source is
@@ -34,11 +35,13 @@ from . import cuda
 from .tally import record_launch, record_plain
 
 KERNEL = "a2_count_state"
+LANES_KERNEL = "a2_state_vmapped"  # K6a, named after the reference's vmap
 MAX_LEVELS = 8  # the CUDA kernel is instantiated for N = 2 .. MAX_LEVELS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"a2_count_state": (
-    _I, [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P])}
+    _I, [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
+    "a2_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _P])}
 
 
 def a2_count_state_plain(et, tlo, thi, ev, s, cnt, n_events: int) -> None:
@@ -66,15 +69,13 @@ def _launch(et, tlo, thi, ev, s, cnt, n_events: int) -> None:
     rc = lib.a2_count_state(
         et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
         ev.shape[1], n_events, s.data_ptr(), cnt.data_ptr(), m, n,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        cuda.stream_handle(dev))
+        cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, KERNEL, rc)
     record_launch(KERNEL)
 
 
-def a2_count_state(et, tlo, thi, ev, s, cnt, *, n_events: int | None = None):
-    """Advance the carried single-slot machines past ``ev[:, :n_events]``
-    (default: every column). Returns (cnt, s), updated in place."""
+def _check(et, tlo, thi, ev, s, cnt, n_events: int | None) -> int:
+    """Raise unless the operands fit K1's contract; returns n_events."""
     n, m = et.shape
     dev = et.device
     ep = ev.shape[1] if ev.dim() == 2 else -1
@@ -88,17 +89,62 @@ def a2_count_state(et, tlo, thi, ev, s, cnt, *, n_events: int | None = None):
     n_events = ep if n_events is None else int(n_events)
     if not 0 <= n_events <= ep:
         raise ValueError(f"n_events={n_events} outside [0, {ep}]")
-    if dev.type == "cpu":
+    if dev.type == "cuda" and not 2 <= n <= MAX_LEVELS:
+        raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
+                         f"got {n}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return n_events
+
+
+def a2_count_state(et, tlo, thi, ev, s, cnt, *, n_events: int | None = None):
+    """Advance the carried single-slot machines past ``ev[:, :n_events]``
+    (default: every column). Returns (cnt, s), updated in place."""
+    n_events = _check(et, tlo, thi, ev, s, cnt, n_events)
+    if et.device.type == "cpu":
         record_plain(KERNEL)
         a2_count_state_plain(et, tlo, thi, ev, s, cnt, n_events)
-    elif dev.type == "cuda":
-        if not 2 <= n <= MAX_LEVELS:
-            raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} "
-                             f"levels, got {n}")
-        _launch(et, tlo, thi, ev, s, cnt, n_events)
     else:
-        raise ValueError(f"unsupported device {dev}")
+        _launch(et, tlo, thi, ev, s, cnt, n_events)
     return cnt, s
+
+
+def a2_count_state_lanes_plain(lanes) -> None:
+    """Plain version of K6a: K1's plain version on each lane in turn."""
+    for (et, tlo, thi, ev, s, cnt), n_events in lanes:
+        a2_count_state_plain(et, tlo, thi, ev, s, cnt, n_events)
+
+
+def a2_count_state_lanes(lanes) -> None:
+    """K6a: advance many counters' carried single-slot machines in one
+    launch. ``lanes`` is a list of ``((et, tlo, thi, ev, s, cnt),
+    n_events)``, each lane K1's operands and its event count; every lane
+    has the same N and lives on one device, and each is advanced in place
+    exactly as a lone K1 call would advance it."""
+    if not lanes:
+        return
+    n = lanes[0][0][0].shape[0]
+    dev = lanes[0][0][0].device
+    for args, n_events in lanes:
+        _check(*args, n_events)
+        if args[0].shape[0] != n or args[0].device != dev:
+            raise ValueError("the lanes of one fused launch must share N "
+                             "and the device")
+    if dev.type == "cpu":
+        record_plain(LANES_KERNEL, lanes=len(lanes))
+        a2_count_state_lanes_plain(lanes)
+        return
+    lib = cuda.library("a2_count", _SIGNATURES)
+    rows = [[et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
+             s.data_ptr(), cnt.data_ptr(), et.shape[1], ev.shape[1],
+             n_events]
+            for (et, tlo, thi, ev, s, cnt), n_events in lanes]
+    table = cuda.lane_table(rows, dev)
+    rc = lib.a2_count_state_lanes(
+        table.data_ptr(), len(lanes), max(r[6] for r in rows), n,
+        cuda.device_index(dev), cuda.stream_handle(dev))
+    cuda.check_launch(lib, LANES_KERNEL, rc)
+    record_launch(LANES_KERNEL, lanes=len(lanes))
 
 
 def a2_count_kernel(et, tlo, thi, ev, *, n_events: int | None = None):
@@ -281,8 +327,7 @@ def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
         w.data_ptr(), segs.data_ptr(), p, lw, m, n, *extra, int(fold),
         tuples.data_ptr(),
         *((o.data_ptr() for o in outs) if fold else [None] * 5),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        cuda.stream_handle(dev))
+        cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, kernel, rc)
     record_launch(kernel)
     return tuple(outs) if fold else tuple(tuples.unbind(0))

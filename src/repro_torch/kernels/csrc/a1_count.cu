@@ -1,8 +1,11 @@
-// K2: carried A1 (bounded-list) episode counter for Hopper (sm_90a).
+// K2: carried A1 (bounded-list) episode counter for Hopper (sm_90a), and
+// K6b, its fused multi-session form.
 //
 // Replaces: src/repro/kernels/a1_count.py::a1_count_state_kernel (Pallas,
 // TPU; body _a1_body, grid step _a1_state_kernel) and, through its
-// fresh-state wrapper, a1_count_kernel.
+// fresh-state wrapper, a1_count_kernel; K6b replaces
+// src/repro/kernels/ops.py::a1_state_vmapped (jax.vmap of that kernel over
+// a leading session axis).
 //
 // What it computes: M episodes x N levels of bounded-list machines, LCAP
 // timestamp slots per level kept as a circular buffer. Level i advances
@@ -32,6 +35,12 @@
 // it is the mask's argmax. State is read at the start and written back in
 // place at the end, which stands in for input_output_aliases. Only the
 // first n_events events are walked (the rest are padding).
+//
+// K6b runs the same walk (a1_walk) for many counters in one launch: a
+// device table holds one descriptor per lane (its own tensors, m and
+// n_events), the lane is blockIdx.y and the episode tile blockIdx.x. Each
+// lane walks only its own events (no padding to the group's longest brick)
+// and its state is advanced where it lives (no stacking, no scatter).
 
 #include <cuda_runtime.h>
 
@@ -47,19 +56,20 @@ __device__ __forceinline__ int delta(int t, int s) {
   return static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(s));
 }
 
+// One thread's walk: episode j of an m-episode batch over the first
+// n_events events, its state advanced in place. Every thread of the block
+// calls it (those with j >= m too: they take part in the staging barriers
+// and write nothing). The single and the lane-table entry points share it.
 template <int N, int L>
-__global__ void __launch_bounds__(kThreads)
-a1_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
-                const int* __restrict__ thi,
-                const int* __restrict__ ev_types,
-                const int* __restrict__ ev_times,
-                const int* __restrict__ ev_dup, int n_events,
-                int* __restrict__ s, int* __restrict__ ptr,
-                int* __restrict__ cnt, int* __restrict__ ovf, int m) {
+__device__ __forceinline__ void a1_walk(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ ev_types,
+    const int* __restrict__ ev_times, const int* __restrict__ ev_dup,
+    int n_events, int* __restrict__ s, int* __restrict__ ptr,
+    int* __restrict__ cnt, int* __restrict__ ovf, int m, int j) {
   __shared__ int sh_type[kChunk];
   __shared__ int sh_time[kChunk];
   __shared__ int sh_dup[kChunk];
-  const int j = blockIdx.x * kThreads + threadIdx.x;
   const bool real = j < m;
   int r_et[N], r_lo[N], r_hi[N], r_p[N];
   int r_s[N][L];
@@ -143,6 +153,42 @@ a1_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
 }
 
 template <int N, int L>
+__global__ void __launch_bounds__(kThreads)
+a1_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
+                const int* __restrict__ thi,
+                const int* __restrict__ ev_types,
+                const int* __restrict__ ev_times,
+                const int* __restrict__ ev_dup, int n_events,
+                int* __restrict__ s, int* __restrict__ ptr,
+                int* __restrict__ cnt, int* __restrict__ ovf, int m) {
+  a1_walk<N, L>(et, tlo, thi, ev_types, ev_times, ev_dup, n_events, s, ptr,
+                cnt, ovf, m, blockIdx.x * kThreads + threadIdx.x);
+}
+
+// K6b: the lane-table form. Lane blockIdx.y's descriptor (int64 words):
+// et, tlo, thi, ev, s, ptr, cnt, ovf (device pointers), m, ep, n_events.
+// Each lane walks its own n_events of its own brick; a block past its
+// lane's m has nothing to do and leaves as a whole.
+constexpr int kLaneWords = 11;
+
+template <int N, int L>
+__global__ void __launch_bounds__(kThreads)
+a1_lanes_kernel(const long long* __restrict__ lanes) {
+  const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
+  const int m = static_cast<int>(d[8]);
+  if (static_cast<int>(blockIdx.x) * kThreads >= m) return;
+  const int ep = static_cast<int>(d[9]);
+  const int* ev = reinterpret_cast<const int*>(d[3]);
+  a1_walk<N, L>(reinterpret_cast<const int*>(d[0]),
+                reinterpret_cast<const int*>(d[1]),
+                reinterpret_cast<const int*>(d[2]), ev, ev + ep, ev + 2 * ep,
+                static_cast<int>(d[10]), reinterpret_cast<int*>(d[4]),
+                reinterpret_cast<int*>(d[5]), reinterpret_cast<int*>(d[6]),
+                reinterpret_cast<int*>(d[7]), m,
+                blockIdx.x * kThreads + threadIdx.x);
+}
+
+template <int N, int L>
 cudaError_t launch(const int* et, const int* tlo, const int* thi,
                    const int* ev, int ep, int n_events, int* s, int* ptr,
                    int* cnt, int* ovf, int m, cudaStream_t stream) {
@@ -166,6 +212,26 @@ cudaError_t launch_lcap(int lcap, const int* et, const int* tlo,
                                 ovf, m, st);
     case 8: return launch<N, 8>(et, tlo, thi, ev, ep, n_events, s, ptr, cnt,
                                 ovf, m, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int N, int L>
+cudaError_t launch_lanes(const long long* lanes, int n_lanes, int max_m,
+                         cudaStream_t stream) {
+  const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes);
+  a1_lanes_kernel<N, L><<<grid, kThreads, 0, stream>>>(lanes);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_lanes_lcap(int lcap, const long long* lanes, int n_lanes,
+                              int max_m, cudaStream_t st) {
+  switch (lcap) {
+    case 1: return launch_lanes<N, 1>(lanes, n_lanes, max_m, st);
+    case 2: return launch_lanes<N, 2>(lanes, n_lanes, max_m, st);
+    case 4: return launch_lanes<N, 4>(lanes, n_lanes, max_m, st);
+    case 8: return launch_lanes<N, 8>(lanes, n_lanes, max_m, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -200,6 +266,33 @@ int a1_count_state(const int* et, const int* tlo, const int* thi,
     default: return cudaErrorInvalidValue;
   }
 #undef A1_CASE
+}
+
+// K6b: lanes is a device int64[n_lanes, 11] table (see a1_lanes_kernel);
+// max_m the largest m over the lanes; every lane has n_levels levels and
+// lcap slots. Advances every lane's state in place in one launch. Returns
+// 0 or a cudaError_t code.
+int a1_count_state_lanes(const long long* lanes, int n_lanes, int max_m,
+                         int n_levels, int lcap, int device, void* stream) {
+  if (n_lanes <= 0 || max_m <= 0) return 0;
+  if (n_lanes > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define A1L_CASE(NL)                                                      \
+  case NL:                                                                \
+    return launch_lanes_lcap<NL>(lcap, lanes, n_lanes, max_m, st);
+  switch (n_levels) {
+    A1L_CASE(2)
+    A1L_CASE(3)
+    A1L_CASE(4)
+    A1L_CASE(5)
+    A1L_CASE(6)
+    A1L_CASE(7)
+    A1L_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef A1L_CASE
 }
 
 const char* kernel_error_string(int code) {

@@ -1,9 +1,11 @@
 // K4: segment-parallel MapConcatenate with bounded-list (A1) machines, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), and K6c, its fused multi-session form.
 //
 // Replaces: src/repro/kernels/a1_count.py::a1_mapconcat_kernel (Pallas, TPU;
 // body _a1_mapc_body, grid step _a1_mapc_kernel, fused fold
-// a2_count.py::_mapc_fold_and_emit).
+// a2_count.py::_mapc_fold_and_emit); K6c replaces
+// src/repro/kernels/ops.py::a1_mapc_vmapped (jax.vmap of that kernel over a
+// leading session axis).
 //
 // What it computes: for M episodes, P time segments and K = N phases, the
 // bounded-list machine of K2 (csrc/a1_count.cu) started cum[k] ticks before
@@ -35,6 +37,12 @@
 // (a, count, b, ovf) to a [4, P, K, M] scratch; the fold launch stitches
 // it. Called without the fold, the launch leaves the per-segment tuples
 // for the caller's Concatenate tree (the mapconcatenate engine).
+//
+// K6c runs the same Map and fold bodies for many counters' commits in one
+// Map launch and one fold launch: a device lane table holds each lane's
+// tensors, m and LW (mapc_common.cuh); the lane is folded into the Map
+// grid's z (lane * P + segment) and is the fold grid's y. Each lane walks
+// its own window length LW, so no brick is padded to the group's longest.
 
 #include "mapc_common.cuh"
 
@@ -42,19 +50,20 @@ namespace {
 
 using namespace mapc;
 
+// Machine (episode j, phase k, segment p of P) of an m-episode batch: walk
+// segment p's window and write its (a, count, b, ovf) into the Map scratch.
+// Every thread of the block calls it (those with j >= m too: they take
+// part in the barriers and write nothing). The single and the lane-table
+// entry points share it.
 template <int N, int L>
-__global__ void __launch_bounds__(kThreads)
-a1_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
-              const int* __restrict__ thi, const int* __restrict__ cum,
-              const int* __restrict__ wspan, const int* __restrict__ segs,
-              int lw, int m, int* __restrict__ tuples) {
+__device__ __forceinline__ void a1_map_body(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ cum,
+    const int* __restrict__ wspan, const int* __restrict__ segs, int lw,
+    int m, int j, int k, int p, int P, int* __restrict__ tuples) {
   __shared__ int sh_type[kChunk];
   __shared__ int sh_time[kChunk];
   __shared__ int sh_dup[kChunk];
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const int k = blockIdx.y;
-  const int p = blockIdx.z;
-  const int P = gridDim.z;
   const bool real = j < m;
   const int* seg = segs + static_cast<size_t>(p) * kSegRows * lw;
 
@@ -138,6 +147,61 @@ a1_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
 }
 
 template <int N, int L>
+__global__ void __launch_bounds__(kThreads)
+a1_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
+              const int* __restrict__ thi, const int* __restrict__ cum,
+              const int* __restrict__ wspan, const int* __restrict__ segs,
+              int lw, int m, int* __restrict__ tuples) {
+  a1_map_body<N, L>(et, tlo, thi, cum, wspan, segs, lw, m,
+                    blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                    blockIdx.z, gridDim.z, tuples);
+}
+
+// K6c Map launch: grid (episode tile, phase, lane * P + segment) over the
+// lane table (mapc_common.cuh); a block past its lane's m leaves as a whole.
+template <int N, int L>
+__global__ void __launch_bounds__(kThreads)
+a1_map_lanes_kernel(const long long* __restrict__ lanes, int P) {
+  const int lane = blockIdx.z / P;
+  const long long* d = lanes + static_cast<size_t>(lane) * kLaneWords;
+  const int m = static_cast<int>(d[kLaneM]);
+  if (static_cast<int>(blockIdx.x) * kThreads >= m) return;
+  a1_map_body<N, L>(lane_ptr<const int>(d, kLaneEt),
+                    lane_ptr<const int>(d, kLaneTlo),
+                    lane_ptr<const int>(d, kLaneThi),
+                    lane_ptr<const int>(d, kLaneCum),
+                    lane_ptr<const int>(d, kLaneW),
+                    lane_ptr<const int>(d, kLaneSegs),
+                    static_cast<int>(d[kLaneLw]), m,
+                    blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                    blockIdx.z - lane * P, P, lane_ptr<int>(d, kLaneTuples));
+}
+
+template <int N, int L>
+cudaError_t launch_lanes(const long long* lanes, int n_lanes, int p,
+                         int max_m, cudaStream_t st) {
+  const int tiles = (max_m + kThreads - 1) / kThreads;
+  a1_map_lanes_kernel<N, L><<<dim3(tiles, N, n_lanes * p), kThreads, 0,
+                              st>>>(lanes, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fold_lanes_kernel<N><<<dim3(tiles, n_lanes), kThreads, 0, st>>>(lanes, p);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_lanes_lcap(int lcap, const long long* lanes, int n_lanes,
+                              int p, int max_m, cudaStream_t st) {
+  switch (lcap) {
+    case 1: return launch_lanes<N, 1>(lanes, n_lanes, p, max_m, st);
+    case 2: return launch_lanes<N, 2>(lanes, n_lanes, p, max_m, st);
+    case 4: return launch_lanes<N, 4>(lanes, n_lanes, p, max_m, st);
+    case 8: return launch_lanes<N, 8>(lanes, n_lanes, p, max_m, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int N, int L>
 cudaError_t launch(const int* et, const int* tlo, const int* thi,
                    const int* cum, const int* w, const int* segs, int p,
                    int lw, int m, bool fold, int* tuples, int* a, int* c,
@@ -200,6 +264,35 @@ int a1_mapconcat(const int* et, const int* tlo, const int* thi,
     default: return cudaErrorInvalidValue;
   }
 #undef A1M_CASE
+}
+
+// K6c: lanes is a device int64[n_lanes, 14] table (mapc_common.cuh), every
+// lane with n_levels levels, lcap slots and p segments; max_m the largest m
+// over the lanes. One Map launch and one fold launch for all lanes; each
+// lane's stitched a/c/b/f and ovf land in its own output tensors. Returns
+// 0 or a cudaError_t code.
+int a1_mapconcat_lanes(const long long* lanes, int n_lanes, int p, int max_m,
+                       int n_levels, int lcap, int device, void* stream) {
+  if (n_lanes <= 0 || max_m <= 0 || p <= 0) return 0;
+  if (static_cast<long long>(n_lanes) * p > 65535 || n_lanes > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define A1ML_CASE(NL)                                                     \
+  case NL:                                                                \
+    return launch_lanes_lcap<NL>(lcap, lanes, n_lanes, p, max_m, st);
+  switch (n_levels) {
+    A1ML_CASE(2)
+    A1ML_CASE(3)
+    A1ML_CASE(4)
+    A1ML_CASE(5)
+    A1ML_CASE(6)
+    A1ML_CASE(7)
+    A1ML_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef A1ML_CASE
 }
 
 const char* kernel_error_string(int code) {

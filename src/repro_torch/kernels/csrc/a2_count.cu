@@ -1,8 +1,11 @@
-// K1: carried A2 (single-slot) episode counter for Hopper (sm_90a).
+// K1: carried A2 (single-slot) episode counter for Hopper (sm_90a), and
+// K6a, its fused multi-session form.
 //
 // Replaces: src/repro/kernels/a2_count.py::a2_count_state_kernel (Pallas,
 // TPU; body _a2_body, grid step _a2_state_kernel) and, through its
-// fresh-state wrapper, a2_count_kernel.
+// fresh-state wrapper, a2_count_kernel; K6a replaces
+// src/repro/kernels/ops.py::a2_state_vmapped (jax.vmap of that kernel over
+// a leading session axis).
 //
 // What it computes: M episodes x N levels of single-slot state machines
 // walk an event stream in order. Level i advances on a type match when
@@ -27,6 +30,13 @@
 // right. The state is read at the start and written back in place at the
 // end, which stands in for the Pallas call's input_output_aliases. Only
 // the first n_events events are walked (the rest are padding).
+//
+// K6a runs the same walk (a2_walk) for many counters in one launch: a
+// device table holds one descriptor per lane (its own tensors, m and
+// n_events), the lane is blockIdx.y and the episode tile blockIdx.x. Each
+// lane walks only its own events, so the vmap's padding of every brick to
+// the group's longest has no counterpart, and no operand is stacked or
+// scattered: every lane's state is advanced where it lives.
 
 #include <cuda_runtime.h>
 
@@ -42,16 +52,20 @@ __device__ __forceinline__ int delta(int t, int s) {
   return static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(s));
 }
 
+// One thread's walk: episode j of an m-episode batch over the first
+// n_events events, its state advanced in place. Every thread of the block
+// calls it (those with j >= m too: they take part in the staging barriers
+// and write nothing). The single and the lane-table entry points share it.
 template <int N>
-__global__ void __launch_bounds__(kThreads)
-a2_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
-                const int* __restrict__ thi,
-                const int* __restrict__ ev_types,
-                const int* __restrict__ ev_times, int n_events,
-                int* __restrict__ s, int* __restrict__ cnt, int m) {
+__device__ __forceinline__ void a2_walk(const int* __restrict__ et,
+                                        const int* __restrict__ tlo,
+                                        const int* __restrict__ thi,
+                                        const int* __restrict__ ev_types,
+                                        const int* __restrict__ ev_times,
+                                        int n_events, int* __restrict__ s,
+                                        int* __restrict__ cnt, int m, int j) {
   __shared__ int sh_type[kChunk];
   __shared__ int sh_time[kChunk];
-  const int j = blockIdx.x * kThreads + threadIdx.x;
   const bool real = j < m;
   int r_et[N], r_lo[N], r_hi[N], r_s[N];
 #pragma unroll
@@ -100,12 +114,53 @@ a2_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
 }
 
 template <int N>
+__global__ void __launch_bounds__(kThreads)
+a2_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
+                const int* __restrict__ thi,
+                const int* __restrict__ ev_types,
+                const int* __restrict__ ev_times, int n_events,
+                int* __restrict__ s, int* __restrict__ cnt, int m) {
+  a2_walk<N>(et, tlo, thi, ev_types, ev_times, n_events, s, cnt, m,
+             blockIdx.x * kThreads + threadIdx.x);
+}
+
+// K6a: the lane-table form. Lane blockIdx.y's descriptor (int64 words):
+// et, tlo, thi, ev, s, cnt (device pointers), m, ep, n_events. Each lane
+// walks its own n_events of its own brick; a block past its lane's m has
+// nothing to do and leaves as a whole.
+constexpr int kLaneWords = 9;
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+a2_lanes_kernel(const long long* __restrict__ lanes) {
+  const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
+  const int m = static_cast<int>(d[6]);
+  if (static_cast<int>(blockIdx.x) * kThreads >= m) return;
+  const int ep = static_cast<int>(d[7]);
+  const int* ev = reinterpret_cast<const int*>(d[3]);
+  a2_walk<N>(reinterpret_cast<const int*>(d[0]),
+             reinterpret_cast<const int*>(d[1]),
+             reinterpret_cast<const int*>(d[2]), ev, ev + ep,
+             static_cast<int>(d[8]), reinterpret_cast<int*>(d[4]),
+             reinterpret_cast<int*>(d[5]), m,
+             blockIdx.x * kThreads + threadIdx.x);
+}
+
+template <int N>
 cudaError_t launch(const int* et, const int* tlo, const int* thi,
                    const int* ev, int ep, int n_events, int* s, int* cnt,
                    int m, cudaStream_t stream) {
   const int blocks = (m + kThreads - 1) / kThreads;
   a2_state_kernel<N><<<blocks, kThreads, 0, stream>>>(
       et, tlo, thi, ev, ev + ep, n_events, s, cnt, m);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_lanes(const long long* lanes, int n_lanes, int max_m,
+                         cudaStream_t stream) {
+  const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes);
+  a2_lanes_kernel<N><<<grid, kThreads, 0, stream>>>(lanes);
   return cudaGetLastError();
 }
 
@@ -131,6 +186,28 @@ int a2_count_state(const int* et, const int* tlo, const int* thi,
     case 6: return launch<6>(et, tlo, thi, ev, ep, n_events, s, cnt, m, st);
     case 7: return launch<7>(et, tlo, thi, ev, ep, n_events, s, cnt, m, st);
     case 8: return launch<8>(et, tlo, thi, ev, ep, n_events, s, cnt, m, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K6a: lanes is a device int64[n_lanes, 9] table (see a2_lanes_kernel);
+// max_m the largest m over the lanes. Advances every lane's s and cnt in
+// place in one launch. Returns 0 or a cudaError_t code.
+int a2_count_state_lanes(const long long* lanes, int n_lanes, int max_m,
+                         int n_levels, int device, void* stream) {
+  if (n_lanes <= 0 || max_m <= 0) return 0;
+  if (n_lanes > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_levels) {
+    case 2: return launch_lanes<2>(lanes, n_lanes, max_m, st);
+    case 3: return launch_lanes<3>(lanes, n_lanes, max_m, st);
+    case 4: return launch_lanes<4>(lanes, n_lanes, max_m, st);
+    case 5: return launch_lanes<5>(lanes, n_lanes, max_m, st);
+    case 6: return launch_lanes<6>(lanes, n_lanes, max_m, st);
+    case 7: return launch_lanes<7>(lanes, n_lanes, max_m, st);
+    case 8: return launch_lanes<8>(lanes, n_lanes, max_m, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,6 +13,8 @@
 // walks segments in order and folds each one onto the carried tuple; here
 // segments run concurrently, so the fold is a second launch, one thread per
 // episode, walking segments left to right with fold_pair_unrolled's rule.
+// The fused multi-session launch (K6c) runs the same bodies over a lane
+// table: one descriptor per counter, the lane folded into the grid.
 
 #pragma once
 
@@ -93,12 +95,13 @@ __device__ __forceinline__ int stage_chunk(const int* seg, int lw, int base,
 // sets its flag (fold_pair_unrolled, bit for bit). Segment tuples carry no
 // flag of their own, so only the carried flag and the match decide f.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(const int* __restrict__ tuples, int p, int m, bool with_ovf,
-            int* __restrict__ out_a, int* __restrict__ out_c,
-            int* __restrict__ out_b, int* __restrict__ out_f,
-            int* __restrict__ out_ovf) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
+__device__ __forceinline__ void fold_body(const int* __restrict__ tuples,
+                                          int p, int m, int j, bool with_ovf,
+                                          int* __restrict__ out_a,
+                                          int* __restrict__ out_c,
+                                          int* __restrict__ out_b,
+                                          int* __restrict__ out_f,
+                                          int* __restrict__ out_ovf) {
   if (j >= m) return;
   const size_t plane = static_cast<size_t>(p) * K * m;  // one field
   const int* ta = tuples;
@@ -151,6 +154,44 @@ fold_kernel(const int* __restrict__ tuples, int p, int m, bool with_ovf,
     out_f[k * m + j] = cf[k] ? 1 : 0;
   }
   out_ovf[j] = o != 0;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const int* __restrict__ tuples, int p, int m, bool with_ovf,
+            int* __restrict__ out_a, int* __restrict__ out_c,
+            int* __restrict__ out_b, int* __restrict__ out_f,
+            int* __restrict__ out_ovf) {
+  fold_body<K>(tuples, p, m, blockIdx.x * kThreads + threadIdx.x, with_ovf,
+               out_a, out_c, out_b, out_f, out_ovf);
+}
+
+// Lane table of the fused multi-session segmented launch (K6c): one
+// descriptor of int64 words per lane — et, tlo, thi, cum, w, segs, the
+// [4, P, K, M] Map scratch, the outputs a, c, b, f, ovf (device pointers),
+// then m and lw. P, K and the list capacity are the same for every lane.
+constexpr int kLaneWords = 14;
+enum LaneWord {
+  kLaneEt = 0, kLaneTlo, kLaneThi, kLaneCum, kLaneW, kLaneSegs,
+  kLaneTuples, kLaneA, kLaneC, kLaneB, kLaneF, kLaneOvf, kLaneM, kLaneLw
+};
+
+template <typename T>
+__device__ __forceinline__ T* lane_ptr(const long long* d, int word) {
+  return reinterpret_cast<T*>(d[word]);
+}
+
+// Fold launch of the lane table: lane blockIdx.y, episode tile blockIdx.x.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+fold_lanes_kernel(const long long* __restrict__ lanes, int p) {
+  const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
+  fold_body<K>(lane_ptr<const int>(d, kLaneTuples), p,
+               static_cast<int>(d[kLaneM]),
+               blockIdx.x * kThreads + threadIdx.x, true,
+               lane_ptr<int>(d, kLaneA), lane_ptr<int>(d, kLaneC),
+               lane_ptr<int>(d, kLaneB), lane_ptr<int>(d, kLaneF),
+               lane_ptr<int>(d, kLaneOvf));
 }
 
 template <int K>

@@ -118,6 +118,19 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def lane_table(rows: list[list[int]], device: torch.device) -> torch.Tensor:
+    """The fused launches' lane descriptors (one row of int64 words per
+    lane: device pointers, then sizes), copied to ``device`` in one
+    transfer on the current stream, so the launch that reads it is ordered
+    after it."""
+    return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
 def check_operand(name: str, t: torch.Tensor, shape: tuple,
                   device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous int32 tensor of ``shape`` on

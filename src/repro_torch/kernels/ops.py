@@ -22,7 +22,10 @@ the carried (streaming) kernels, and result unpacking:
     operands (phase-start offsets and spans, per-segment
     types/times/dup/τ bricks), and ``a1_mapconcat_tuples`` /
     ``a1_mapconcat_map`` / ``a2_mapconcat_tuples`` / ``a1_mapconcat_count``
-    / ``a2_mapconcat_count`` run the MapConcatenate kernels K4 and K3.
+    / ``a2_mapconcat_count`` run the MapConcatenate kernels K4 and K3;
+  * ``a2_state_vmapped`` / ``a1_state_vmapped`` / ``a1_mapc_vmapped`` run
+    K1, K2 and K4 over many counters' lanes in one launch (K6, the
+    cross-session batcher's fused flushes).
 
 There is no dispatch policy: the device of the tensors chooses the path
 inside each kernel wrapper (CUDA kernel, or the plain version on CPU).
@@ -41,8 +44,11 @@ from repro_torch.core.events import (PAD_TYPE, EventStream, count_level1)
 from repro_torch.device import resolve_device
 from repro_torch.obs import span
 
-from .a1_count import a1_count_kernel, a1_count_state, a1_mapconcat_kernel
-from .a2_count import a2_count_kernel, a2_count_state, a2_mapconcat_kernel
+from .a1_count import (a1_count_kernel, a1_count_state,
+                       a1_count_state_lanes, a1_mapconcat_kernel,
+                       a1_mapconcat_lanes)
+from .a2_count import (a2_count_kernel, a2_count_state, a2_count_state_lanes,
+                       a2_mapconcat_kernel)
 
 
 def episode_layout(eps: EpisodeBatch, inclusive_lower: bool, device):
@@ -161,6 +167,42 @@ def a2_state_call(et, tlo, thi, ev, s, cnt, *, n_events: int):
     advanced in place."""
     with span("kernel.a2_count_state"):
         return a2_count_state(et, tlo, thi, ev, s, cnt, n_events=n_events)
+
+
+# --------------------------------------------------------------------------
+# Fused multi-session launches (K6): the cross-session batcher's flushes
+# --------------------------------------------------------------------------
+#
+# The reference stacks a group's lanes along a new leading session axis and
+# runs ``jax.vmap`` of the Pallas kernel. Here each lane stays where its
+# counter keeps it: one launch walks a device table of per-lane descriptors,
+# advancing every lane's state in place (no stack in, no scatter out, no
+# padding of the event bricks to the group's longest). Each lane ends as a
+# lone K1/K2/K4 call would leave it.
+
+
+def a2_state_vmapped(lanes) -> None:
+    """K6a: K1 over many lanes in one launch (traced). ``lanes``: a list of
+    ``((et, tlo, thi, ev, s, cnt), n_events)`` in K1's layout, same N;
+    each lane's (s, cnt) advanced in place."""
+    with span("kernel.a2_state_vmapped", lanes=len(lanes)):
+        a2_count_state_lanes(lanes)
+
+
+def a1_state_vmapped(lanes) -> None:
+    """K6b: K2 over many lanes in one launch (traced). ``lanes``: a list of
+    ``((et, tlo, thi, ev, s, ptr, cnt, ovf), n_events)`` in K2's layout,
+    same N and LCAP; each lane's state advanced in place."""
+    with span("kernel.a1_state_vmapped", lanes=len(lanes)):
+        a1_count_state_lanes(lanes)
+
+
+def a1_mapc_vmapped(lanes, *, lcap: int) -> list[tuple]:
+    """K6c: K4 (Map and fold) over many lanes in one Map and one fold
+    launch (traced). ``lanes``: a list of ``(et, tlo, thi, cum, w, segs)``
+    in K4's layout, same N and P. Returns each lane's (a, c, b, f, ovf)."""
+    with span("kernel.a1_mapc_vmapped", lanes=len(lanes)):
+        return a1_mapconcat_lanes(lanes, lcap=lcap)
 
 
 def a1_count_stateful(stream: EventStream, eps: EpisodeBatch,

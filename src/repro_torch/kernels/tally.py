@@ -3,7 +3,9 @@
 Each kernel wrapper adds one to ``kernel_launches{kernel=<name>}`` where it
 launches its CUDA kernel, and nowhere else; a run of its plain PyTorch
 version on CPU tensors adds one to ``plain_calls{kernel=<name>}`` instead.
-Both families live in the process-global ``obs.REGISTRY``, so a caller can
+The fused multi-session wrappers (K6) also add their lane count to
+``kernel_lanes{kernel=<name>}`` (``plain_lanes`` for the plain version).
+The families live in the process-global ``obs.REGISTRY``, so a caller can
 zero them, drive a path, and read back which kernels that path launched.
 """
 
@@ -13,14 +15,20 @@ from repro_torch.obs.registry import REGISTRY
 
 _LAUNCHES = "kernel_launches"
 _PLAIN = "plain_calls"
+_LANES = "kernel_lanes"
+_PLAIN_LANES = "plain_lanes"
 
 
-def record_launch(kernel: str) -> None:
+def record_launch(kernel: str, lanes: int | None = None) -> None:
     REGISTRY.counter(_LAUNCHES, kernel=kernel).inc()
+    if lanes is not None:
+        REGISTRY.counter(_LANES, kernel=kernel).inc(lanes)
 
 
-def record_plain(kernel: str) -> None:
+def record_plain(kernel: str, lanes: int | None = None) -> None:
     REGISTRY.counter(_PLAIN, kernel=kernel).inc()
+    if lanes is not None:
+        REGISTRY.counter(_PLAIN_LANES, kernel=kernel).inc(lanes)
 
 
 def _family(name: str) -> dict[str, int]:
@@ -38,6 +46,16 @@ def plain_counts() -> dict[str, int]:
     return _family(_PLAIN)
 
 
+def lane_counts() -> dict[str, int]:
+    """Lanes advanced by the fused (K6) launches since the last reset."""
+    return _family(_LANES)
+
+
+def plain_lane_counts() -> dict[str, int]:
+    """Lanes advanced by the fused wrappers' plain versions."""
+    return _family(_PLAIN_LANES)
+
+
 def reset_counts() -> None:
-    REGISTRY.clear_family(_LAUNCHES)
-    REGISTRY.clear_family(_PLAIN)
+    for family in (_LAUNCHES, _PLAIN, _LANES, _PLAIN_LANES):
+        REGISTRY.clear_family(family)

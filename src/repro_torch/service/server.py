@@ -1,0 +1,158 @@
+"""The multi-tenant real-time mining service: ingest/poll facade (port of
+the in-process part of ``repro.service.server``).
+
+The chip-on-chip loop, generalized to a fleet: many electrode arrays (or
+any event-emitting chips) stream partition windows in; the service mines
+them concurrently on one shared card and emits per-window frequent-episode
+deltas per session. The pieces:
+
+* ``MiningSession`` (session.py) — per-tenant miner, bounded memory,
+  checkpointable state;
+* ``CrossSessionBatcher`` (batcher.py) — kernel launches from concurrently
+  stepping sessions fused into one K6 launch per group;
+* ``RoundRobinScheduler`` (scheduler.py) — admission, backpressure,
+  fairness, watchdog retry.
+
+Guarantee: per-session outputs are bit-identical to a standalone
+``StreamingMiner`` over the same windows — batching and scheduling are
+pure throughput optimizations (tests/test_torch_service.py asserts this
+for every engine × two-pass combination, against the reference service
+too). Sessions live on ``device`` (default: the CUDA card).
+
+Usage::
+
+    svc = MiningService()
+    svc.create_session("array-0", SessionConfig(theta=4, window_ms=2000))
+    svc.ingest("array-0", window)          # may raise BackpressureError
+    svc.pump()                             # run pending batched steps
+    for delta in svc.poll("array-0"):
+        ...                                # per-window episode deltas
+
+The reference counts XLA recompiles from the start of serving
+(``ensure_recompile_listener``); the port compiles nothing while it serves
+(its kernels are built once, before the first launch), so it has no
+counterpart. The reference's ``checkpoint_all`` (with the scheduler's
+``quiesce``) serves its daemon and comes with that slice; a session
+checkpoints on its own through ``MiningSession.save``.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+from repro_torch.core.events import EventStream
+from repro_torch.device import resolve_device
+from repro_torch.kernels import tally
+from repro_torch.obs import REGISTRY, span
+from repro_torch.telemetry import MeterBank
+
+from .batcher import CrossSessionBatcher
+from .scheduler import RoundRobinScheduler, SchedulerPolicy
+from .session import MiningSession, SessionConfig, WindowDelta
+
+
+class MiningService:
+    def __init__(self, policy: SchedulerPolicy | None = None,
+                 batching: bool = True, device=None):
+        policy = policy or SchedulerPolicy()
+        if policy.policy_table:
+            raise NotImplementedError(
+                "calibrated dispatch tables are not ported to the PyTorch "
+                "port yet (ROADMAP queue 1 item 10); serve without "
+                "policy_table")
+        self.device = resolve_device(device)
+        self.batcher = CrossSessionBatcher(
+            fusion_gate=policy.fusion_gate,
+            flush_deadline_s=policy.flush_deadline_s) if batching else None
+        self.scheduler = RoundRobinScheduler(policy, self.batcher,
+                                             device=self.device)
+        self._auto_ids = itertools.count()
+
+    # --------------------------------------------------------- sessions
+
+    def create_session(self, session_id: str | None = None,
+                       config: SessionConfig | None = None) -> str:
+        """Admit a tenant (raises ``AdmissionError`` at capacity)."""
+        if session_id is None:
+            session_id = f"session-{next(self._auto_ids)}"
+        self.scheduler.admit(session_id, config or SessionConfig())
+        return session_id
+
+    def close_session(self, session_id: str) -> MiningSession:
+        """Drain the session's remaining windows, then remove it."""
+        s = self.scheduler.session(session_id)
+        while s.queue_depth:
+            self.scheduler.step()
+        return self.scheduler.evict(session_id)
+
+    def session(self, session_id: str) -> MiningSession:
+        return self.scheduler.session(session_id)
+
+    # ------------------------------------------------------ ingest/poll
+
+    def ingest(self, session_id: str, window: EventStream,
+               final: bool = False) -> None:
+        """Queue one partition window (raises ``BackpressureError`` when
+        the tenant's queue is full — shed or spool upstream)."""
+        with span("service.ingest", session=session_id):
+            self.scheduler.submit(session_id, window, final=final)
+
+    def pump(self, max_steps: int | None = None) -> int:
+        """Run batched scheduler steps until queues drain (or the step
+        budget runs out). Returns steps run."""
+        return self.scheduler.drain(
+            max_steps=10_000 if max_steps is None else max_steps)
+
+    def poll(self, session_id: str,
+             max_items: int | None = None) -> list[WindowDelta]:
+        """Per-window frequent-episode deltas mined since the last poll."""
+        return self.scheduler.session(session_id).poll(max_items)
+
+    # ------------------------------------------------------------ stats
+
+    def stats(self) -> dict:
+        """Service health snapshot: per-session sustained events/sec and
+        latency percentiles with the cross-session aggregate (the meters'
+        exact rows), the scheduler's and the batcher's counters, and the
+        kernel block — CUDA launches, plain-version runs and fused lanes
+        per kernel from ``kernels.tally``. ``metrics`` is the full flat
+        registry snapshot the structured fields are drawn from."""
+        bank = MeterBank()
+        for sid, s in self.scheduler.sessions.items():
+            bank.meters[sid] = s.meter
+        out = bank.summary()
+        out["scheduler"] = {
+            "steps": self.scheduler.steps,
+            "retries": self.scheduler.watchdog.retries,
+            "watchdog_retries": int(
+                REGISTRY.counter("scheduler_watchdog_retries_total").value),
+            "sessions": len(self.scheduler.sessions),
+            "pending_windows": self.scheduler.pending_windows,
+            "queue_depth": int(
+                REGISTRY.gauge("scheduler_queue_depth").value),
+            "heartbeat_ts": float(
+                REGISTRY.gauge("scheduler_heartbeat_ts").value),
+            "backpressure": int(
+                REGISTRY.counter("scheduler_backpressure_total").value),
+            "admission_rejected": int(
+                REGISTRY.counter("scheduler_admission_rejected_total").value),
+            "pipeline_overlap_s": self.scheduler.pipeline_overlap_s,
+        }
+        if self.batcher is not None:
+            out["batcher"] = {
+                "batches": self.batcher.batches,
+                "fused_requests": self.batcher.fused_requests,
+                "split_groups": self.batcher.split_groups,
+                "flush_groups": self.batcher.flush_groups,
+                "deadline_flushes": self.batcher.deadline_flushes,
+                "fusion_gate": dict(self.batcher.gate_decisions),
+                "lanes_per_launch": dict(self.batcher.lanes_per_launch),
+            }
+        out["kernel"] = {
+            "launches": tally.launch_counts(),
+            "plain": tally.plain_counts(),
+            "lanes": tally.lane_counts(),
+            "plain_lanes": tally.plain_lane_counts(),
+        }
+        out["metrics"] = REGISTRY.snapshot()
+        return out

@@ -1,5 +1,6 @@
-"""Sustained-throughput accounting for the streaming loop (port of
-``ThroughputMeter`` from ``repro.telemetry``).
+"""Sustained-throughput accounting for the streaming loop and the mining
+service (port of ``ThroughputMeter`` and ``MeterBank`` from
+``repro.telemetry``).
 
 The chip-on-chip constraint is *sustained* throughput: the miner keeps up
 with a multi-electrode array only if events/sec over the whole session
@@ -58,6 +59,27 @@ class ThroughputMeter:
         REGISTRY.histogram("window_latency_s", session=session).observe(dt)
         return dt
 
+    def mark(self) -> int:
+        """Opaque rewind point (row count) for ``truncate``. Take one
+        before speculative work — e.g. the scheduler snapshots a session
+        before a step it may retry — and rewind to it on failure."""
+        return len(self.rows)
+
+    def truncate(self, mark: int) -> None:
+        """Discard every row (and its wall-clock span) recorded after
+        ``mark``, un-counting windows a retried step will re-measure.
+        The registry series are monotone by design and keep the
+        discarded measurements; the meter's rows stay authoritative for
+        ``summary()``."""
+        del self.rows[mark:]
+        del self.spans[mark:]
+
+    def abort(self) -> None:
+        """Drop an open ``start()`` without recording a row — the
+        in-flight window died (step failure) and its partial time must
+        not leak into the next measurement. Safe when no start is open."""
+        self._t0 = None
+
     @property
     def events(self) -> int:
         return sum(n for n, _ in self.rows)
@@ -93,3 +115,41 @@ class ThroughputMeter:
         for k, v in self.latency_percentiles().items():
             out[f"{k}_latency_s"] = v
         return out
+
+
+class MeterBank:
+    """Labeled per-session meters plus a cross-session aggregate.
+
+    ``meters`` maps a session's label to its own ``ThroughputMeter``.
+    Per-session summaries use the session's *observed*
+    step times — in batched serving that includes barrier/co-tenant wait,
+    which is exactly the latency a tenant experiences. The aggregate's
+    ``events_per_sec`` is instead computed over the *wall-clock union span*
+    of all measurements: concurrent sessions overlap in time, so dividing
+    fleet events by summed per-session busy seconds would under-report the
+    fleet rate by ~the session count. (Falls back to busy-seconds when no
+    absolute spans were recorded, e.g. hand-filled rows.)"""
+
+    def __init__(self):
+        self.meters: dict[str, ThroughputMeter] = {}
+
+    def aggregate(self) -> ThroughputMeter:
+        agg = ThroughputMeter(label="aggregate")
+        for m in self.meters.values():
+            agg.rows.extend(m.rows)
+            agg.spans.extend(m.spans)
+        return agg
+
+    def summary(self) -> dict:
+        agg = self.aggregate()
+        out = agg.summary()
+        if agg.spans:
+            wall = (max(t1 for _, t1 in agg.spans)
+                    - min(t0 for t0, _ in agg.spans))
+            out["wall_seconds"] = wall
+            out["events_per_sec"] = agg.events / wall if wall > 0 else 0.0
+        return {
+            "sessions": {label: m.summary()
+                         for label, m in sorted(self.meters.items())},
+            "aggregate": out,
+        }

@@ -6,7 +6,10 @@ one). This file imports only the port, so it runs where JAX is absent:
 K1–K4 are held bit for bit (exact equality) against their plain PyTorch
 versions on the same CUDA tensors, and the streaming miner on the card
 against the same miner on the CPU, with the ``ptpe`` and the default
-``hybrid`` engine.
+``hybrid`` engine. The fused multi-session kernels K6a–K6c are held
+against lone K1, K2 and K4 launches (and the plain versions) on lanes of
+unequal M and event counts, and a two-session ``MiningService`` on the
+card against standalone miners.
 """
 
 import numpy as np
@@ -171,3 +174,131 @@ def test_streaming_hybrid_on_card_equals_cpu(card):
             np.testing.assert_array_equal(ca, cb)
     launches = tally.launch_counts()
     assert launches[k_a2.KERNEL] > 0 and launches[k_a1.MAPC_KERNEL] > 0
+
+
+# ------------------------------------------------------------ K6 (fused)
+
+# lanes of unequal episode counts and event counts, N = 3 in every lane
+LANE_M = (1, 127, 128, 129, 500)
+LANE_EVENTS = (0, 1, 1024, 1025, 3000)
+
+
+def fused_lanes(card, n, lcap, seed=0):
+    """K1 and K2 lanes (kernel layout, fresh state) of unequal M and event
+    counts on one tie-heavy stream, the bricks padded past the events."""
+    types, times = tie_stream(seed, n=max(LANE_EVENTS))
+    a2, a1 = [], []
+    for i, (m, k) in enumerate(zip(LANE_M, LANE_EVENTS)):
+        eps = random_batch(seed + i, m=m, n=n)
+        ev = ops.event_brick(types[:k], times[:k], with_dup=True,
+                             device=card, length=max(k, 1) + 64)
+        lay2 = ops.episode_layout(eps.relaxed(), True, card)
+        st2 = ops.a2_state_layout(init_a2_state(eps.relaxed(), card), card)
+        a2.append(((*lay2, ev, *st2), k))
+        lay1 = ops.episode_layout(eps, False, card)
+        st1 = ops.a1_state_layout(init_a1_state(eps, lcap, card), card)
+        a1.append(((*lay1, ev, *st1), k))
+    return a2, a1
+
+
+def _clone_lanes(lanes, n_state):
+    return [((*args[:-n_state], *(x.clone() for x in args[-n_state:])), k)
+            for args, k in lanes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lcap", [1, 4, 8])
+def test_cuda_fused_state_kernels_match_single_launches(card, lcap):
+    """K6a and K6b advance every lane exactly as a lone K1 or K2 launch
+    does (and as the plain versions do), bit for bit, with one launch for
+    all lanes."""
+    a2, a1 = fused_lanes(card, 3, lcap)
+    a2_single, a1_single = _clone_lanes(a2, 2), _clone_lanes(a1, 4)
+    a2_plain, a1_plain = _clone_lanes(a2, 2), _clone_lanes(a1, 4)
+    tally.reset_counts()
+    ops.a2_state_vmapped(a2)
+    ops.a1_state_vmapped(a1)
+    assert tally.launch_counts() == {"a2_state_vmapped": 1,
+                                     "a1_state_vmapped": 1}
+    assert tally.lane_counts() == {"a2_state_vmapped": len(LANE_M),
+                                   "a1_state_vmapped": len(LANE_M)}
+    for args, k in a2_single:
+        k_a2.a2_count_state(*args, n_events=k)
+    for args, k in a1_single:
+        k_a1.a1_count_state(*args, n_events=k)
+    for args, k in a2_plain:
+        k_a2.a2_count_state_plain(*args, k)
+    for args, k in a1_plain:
+        k_a1.a1_count_state_plain(*args, k)
+    torch.cuda.synchronize()
+    for fused, single, plain in ((a2, a2_single, a2_plain),
+                                 (a1, a1_single, a1_plain)):
+        for (x, _), (y, _), (z, _) in zip(fused, single, plain):
+            for u, v, w in zip(x, y, z):
+                assert torch.equal(u, v) and torch.equal(u, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_segments", [1, 2, 8])
+def test_cuda_fused_mapconcat_matches_single_launches(card, num_segments):
+    """K6c gives each lane the (a, c, b, f, ovf) a lone K4 launch gives it,
+    bit for bit, at lanes of unequal M and window length."""
+    from repro_torch.core import make_segments
+    for lcap in (1, 4, 8):
+        lanes = []
+        for i, (m, k) in enumerate(zip(LANE_M, (40, 700, 1500, 2400, 900))):
+            types, times = tie_stream(i, n=k)
+            eps = random_batch(i, m=m, n=3)
+            tau, wt, wtt = make_segments(
+                EventStream(types, times, NUM_TYPES), num_segments,
+                int(eps.max_span.max()))
+            lanes.append((*ops.mapconcat_layout(eps, False, card),
+                          ops.segment_bricks(wt, wtt, tau, card)))
+        tally.reset_counts()
+        fused = ops.a1_mapc_vmapped(lanes, lcap=lcap)
+        assert tally.launch_counts() == {"a1_mapc_vmapped": 1}
+        for args, got in zip(lanes, fused):
+            want = k_a1.a1_mapconcat_kernel(*args, lcap=lcap)
+            plain = k_a1.a1_mapconcat_plain(*args, lcap=lcap)
+            for x, y, z in zip(got, want, plain):
+                assert torch.equal(x, y) and torch.equal(x, z), lcap
+
+
+@pytest.mark.cuda
+def test_service_on_card_equals_standalone(card):
+    """Two sessions through ``MiningService`` on the card, every group
+    fused (gate off): the fused launches (K6) run, and each session's
+    deltas equal a standalone miner's on the card and, for the first
+    windows, the CPU plain path."""
+    from repro_torch.service import (MiningService, SchedulerPolicy,
+                                     SessionConfig)
+    cfg = SessionConfig(intervals=((5, 10),), theta=10, max_level=4,
+                        history_limit=2, lcap=8)
+    svc = MiningService(policy=SchedulerPolicy(fusion_gate=False),
+                        device=card)
+    feeds = {}
+    for seed in (1, 2):
+        stream, _ = sym26(seconds=12, seed=seed)
+        wins = list(partition_windows(stream, 2000))
+        sid = svc.create_session(f"s{seed}", cfg)
+        feeds[sid] = wins
+        for j, w in enumerate(wins):
+            svc.ingest(sid, w, final=j == len(wins) - 1)
+    tally.reset_counts()
+    svc.pump()
+    launches = tally.launch_counts()
+    assert launches.get("a2_state_vmapped", 0) > 0
+    assert (launches.get("a1_state_vmapped", 0)
+            + launches.get("a1_mapc_vmapped", 0)) > 0
+    for sid, wins in feeds.items():
+        deltas = svc.poll(sid)
+        miners = [cfg.make_miner(device=d) for d in (card, "cpu")]
+        for j, (d, w) in enumerate(zip(deltas, wins)):
+            final = j == len(wins) - 1
+            for miner in miners[:1 if j >= 2 else 2]:
+                want = miner.update(w, final=final)
+                assert len(d.result.frequent) == len(want.frequent)
+                for fa, fb, ca, cb in zip(d.result.frequent, want.frequent,
+                                          d.result.counts, want.counts):
+                    np.testing.assert_array_equal(fa.etypes, fb.etypes)
+                    np.testing.assert_array_equal(ca, cb)

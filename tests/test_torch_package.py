@@ -123,8 +123,15 @@ def test_policy_tables_raise(monkeypatch):
 
 
 def test_bounded_history_raises():
-    with pytest.raises(NotImplementedError, match="bounded-history"):
-        StreamingMiner([(1, 5)], 1, history_limit=4, device="cpu")
+    """Bounded history runs in the port; a checkpoint interval below one
+    window raises, as in the reference."""
+    _, eps = _tiny()
+    with pytest.raises(ValueError, match="history_limit"):
+        StreamingMiner([(1, 5)], 1, history_limit=0, device="cpu")
+    with pytest.raises(ValueError, match="checkpoint_interval"):
+        StreamingCounter(eps, checkpoint_interval=0, device="cpu")
+    assert StreamingMiner([(1, 5)], 1, history_limit=4,
+                          device="cpu").history_limit == 4
 
 
 def test_cpu_tensors_take_the_plain_version():
