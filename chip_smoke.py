@@ -18,15 +18,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    of unequal M (1, 127, 128, 129, 5000) and event counts (0, 1, 1024,
    1025, 5600) at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8, against
    the same lanes launched one by one through K1, K2 and K4 and against
-   their plain versions (the per-lane loops);
+   their plain versions (the per-lane loops); the mesh-sharded kernels K5
+   (A2 and A1 kinds: one K3/K4 launch per shard, the cross-shard fold) on
+   d = 2, 4, 8 logical shards of the card at N = 2, 3, 5, 8, LCAP = 1, 2,
+   4, 8, P = d and 2d segments, tie-heavy events, an occurrence ending
+   exactly at τ+W on a shard boundary and doctored stitches that go
+   unmatched inside a shard's group and between two shards (the carried
+   flag), against their plain versions (every output) and the unsharded
+   K3/K4 on the same segments (counts and unflagged tuples); K6d (K5 over
+   many lanes) against lone K5 calls and its plain per-lane loop;
 3. the main paths on the card, each with the launch counts zeroed just
    before it and read just after; 10-s windows, interval (5, 10] ms,
    θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
    [7, 8, 9, 10, 11] must be found:
    - the streaming two-pass miner (``StreamingMiner``, ``per_window``,
      LCAP = 8) with ``engine="ptpe"`` on Sym26 (26 neurons, 150 s) and on
-     Sym26 with 64 channels (60 s) — the first 2 windows held against the
-     port's CPU plain path;
+     Sym26 with 64 channels (60 s) — the first 2 windows (64 channels:
+     the first) held against the port's CPU plain path;
    - path A, the same miner with the reference's default
      ``engine="hybrid"`` on Sym26 150 s: how many counters resolved to each
      engine at each level; K1 and K4 must launch; the first 2 windows held
@@ -42,12 +50,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      launch; every session equals a standalone miner on the card, the
      first 2 windows of sessions 0 and 1 the CPU plain path; ev/s, window
      latency, lanes per fused launch, gate decisions, retained windows;
-   - path C′, the 8 Sym26 sessions for 60 s under the default fusion
+   - path C′, the 8 Sym26 sessions for 30 s under the default fusion
      gate, then with the gate off, measured beside each other and path C,
      every session held against a standalone miner on the card;
    - path D, bounded history at the reference's default LCAP = 4: one
      Sym26 session, ``history_limit`` = 2, its 6 windows: per-window
      latency and the checkpoint and recount spans;
+   - path E, the mesh-sharded MapConcatenate: path A's miner on a mesh of
+     4 logical shards of the card (``stream_mesh``): engines per level;
+     K5 and its fold must launch; every window equals path A's, the first
+     2 the CPU plain path on 4 CPU shards; then path B's restart windows
+     with ``engine="mapconcat_sharded"`` (K5 over K3 for the cull and
+     over K4): every window equals path B's, window 0 the CPU plain path;
+   - path F, the 8 Sym26 sessions for 60 s through the service on the
+     same 4-shard mesh, gate off: K6d must launch; every session equals
+     a standalone miner on the card;
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -57,6 +74,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    enqueue included), the plain version's time and the least time the card
    could take (its bound); the fused kernels at path C's largest group of
    each, beside the device time of the same lanes launched one by one;
+   K5 at path E's largest shapes beside the unsharded K4/K3 on the same
+   segments, and K6d at path F's largest group beside the same lanes'
+   lone K5 calls;
 5. a JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
    device line ``{"ok": true, "device": {...}}``.
 
@@ -68,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import re
 import statistics
@@ -101,8 +122,8 @@ DEFAULT_LCAP = 8
 PLANTED = ([0, 1, 2], [7, 8, 9, 10, 11])
 # (name, channels, seconds, engine, windows held against the CPU plain path);
 # the two 26-channel streams were 300 s and 3 checked windows before the
-# service paths joined the run
-STREAMS = (("sym26", 26, 150, "ptpe", 2), ("sym26-64ch", 64, 60, "ptpe", 2),
+# service paths joined the run, the 64-channel one 2 before paths E and F
+STREAMS = (("sym26", 26, 150, "ptpe", 2), ("sym26-64ch", 64, 60, "ptpe", 1),
            ("sym26-hybrid", 26, 150, "hybrid", 2))
 # kernels each streaming engine's path must launch
 REQUIRED = {"ptpe": ("a2_count_state", "a1_count_state"),
@@ -112,13 +133,17 @@ RESTART_ENGINE = "mapconcat_kernel"
 # path C, the service fleet: (channels, seconds, sessions), seeds counting
 # up from 0; the 64-channel sessions are cut from 120 s to 60 s
 FLEET = ((26, 120, 8), (64, 60, 4))
-FLEET_GATED = ((26, 60, 8),)           # path C′: the default fusion gate
+FLEET_GATED = ((26, 30, 8),)           # path C′ (60 s before path F)
 FLEET_CPU_SESSIONS = 2                 # sessions held against the CPU path
 FLEET_CPU_WINDOWS = 2                  # ... over their first windows
 BOUNDED = (26, 60, 2, 4)               # path D: channels, seconds, K, LCAP
 FUSED = ("a2_state_vmapped", "a1_state_vmapped", "a1_mapc_vmapped")
+# paths E and F: the mesh of logical shards of the card, and the fleet
+SHARDS = 4
+FLEET_SHARDED = ((26, 60, 8),)
+SHARDED = ("a1_mapc_shard", "a2_mapc_shard", "a1_mapc_sharded_vmapped")
 KERNELS = ("a2_count_state", "a1_count_state", "a2_mapconcat",
-           "a1_mapconcat") + FUSED
+           "a1_mapconcat") + FUSED + SHARDED
 SOURCES = {
     "a2_count_state": ("src/repro_torch/kernels/csrc/a2_count.cu",
                        "src/repro/kernels/a2_count.py:169"),
@@ -133,7 +158,14 @@ SOURCES = {
     "a1_state_vmapped": ("src/repro_torch/kernels/csrc/a1_count.cu",
                          "src/repro/kernels/ops.py:609"),
     "a1_mapc_vmapped": ("src/repro_torch/kernels/csrc/a1_mapconcat.cu",
-                        "src/repro/kernels/ops.py:600")}
+                        "src/repro/kernels/ops.py:600"),
+    "a1_mapc_shard": ("src/repro_torch/kernels/csrc/a1_mapconcat.cu",
+                      "src/repro/kernels/ops.py:425"),
+    "a2_mapc_shard": ("src/repro_torch/kernels/csrc/a2_mapconcat.cu",
+                      "src/repro/kernels/ops.py:425"),
+    "a1_mapc_sharded_vmapped": (
+        "src/repro_torch/kernels/csrc/a1_mapconcat.cu",
+        "src/repro/kernels/ops.py:588")}
 # the CUDA kernels (``__global__`` names) each wrapper launches
 DEVICE_KERNELS = {"a2_count_state": ("a2_state_kernel",),
                   "a1_count_state": ("a1_state_kernel",),
@@ -143,6 +175,20 @@ DEVICE_KERNELS = {"a2_count_state": ("a2_state_kernel",),
                   "a1_state_vmapped": ("a1_lanes_kernel",),
                   "a1_mapc_vmapped": ("a1_map_lanes_kernel",
                                       "fold_lanes_kernel")}
+# ... and per call of the sharded ones on d shards: {kernel: launches}
+SHARDED_DEVICE_KERNELS = {
+    "a1_mapc_shard": lambda d: {"a1_map_kernel": d, "fold_kernel": d,
+                                "stitch_shards_kernel": 1},
+    "a2_mapc_shard": lambda d: {"a2_map_kernel": d, "fold_kernel": d,
+                                "stitch_shards_kernel": 1},
+    "a1_mapc_sharded_vmapped": lambda d: {
+        "a1_map_lanes_kernel": d, "fold_lanes_kernel": d,
+        "stitch_shard_lanes_kernel": 1}}
+# launches each sharded path must make
+REQUIRED_E = ("a1_mapc_shard", "mapc_shard_fold")
+REQUIRED_E_RESTART = ("a2_mapc_shard", "a1_mapc_shard", "mapc_shard_fold")
+REQUIRED_F = ("a2_state_vmapped", "a1_mapc_sharded_vmapped",
+              "mapc_shard_fold_lanes")
 # the single kernel whose per-lane launches a fused kernel replaces
 SINGLE_OF = {"a2_state_vmapped": "a2_count_state",
              "a1_state_vmapped": "a1_count_state",
@@ -422,6 +468,146 @@ def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
               f"K6c at N=3, lcap 4)")
 
 
+def unflagged_diff(torch, got, one) -> int:
+    """Largest difference between two stitched (a, c, b, f, ovf) tuples
+    over what survives the exact recount: a, c and b where neither flags
+    the machine, and ovf."""
+    keep = (got[3] == 0) & (one[3] == 0)
+    d = max(int((x.long() - y.long()).abs()[keep].max()) if keep.any()
+            else 0 for x, y in zip(got[:3], one[:3]))
+    return max(d, max_abs_diff(torch, got[4:], one[4:]))
+
+
+def compare_sharded(torch, ops, k_a1, k_a2, eps, segs, mesh, lcaps, errs,
+                    what):
+    """K5 (A2, then A1 at each LCAP) on the logical shards ``mesh`` against
+    its plain version (every output) and against the unsharded K3/K4 on
+    the same segments (what survives the recount; whether the tuples are
+    equal in full is returned too). Returns ([(kernel, K5 outputs)],
+    equal in full)."""
+    lay2 = ops.mapconcat_layout(eps.relaxed(), True, "cuda")
+    lay1 = ops.mapconcat_layout(eps, False, "cuda")
+    runs = [("a2_mapc_shard",
+             k_a2.a2_mapconcat_sharded(*lay2, segs, devices=mesh),
+             k_a2.a2_mapconcat_sharded_plain(*lay2, segs, devices=mesh),
+             k_a2.a2_mapconcat_kernel(*lay2, segs))]
+    for lcap in lcaps:
+        runs.append((
+            "a1_mapc_shard",
+            k_a1.a1_mapconcat_sharded(*lay1, segs, lcap=lcap, devices=mesh),
+            k_a1.a1_mapconcat_sharded_plain(*lay1, segs, lcap=lcap,
+                                            devices=mesh),
+            k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap)))
+    torch.cuda.synchronize()
+    full = True
+    for k, got, plain, one in runs:
+        d = max(max_abs_diff(torch, got, plain),
+                unflagged_diff(torch, got, one))
+        full = full and max_abs_diff(torch, got, one) == 0
+        errs[k] = max(errs[k], d)
+        if d:
+            fail(f"{k} differs from its plain version or the unsharded "
+                 f"launch ({what}): {d}")
+    return [(k, got) for k, got, _, _ in runs], full
+
+
+def sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
+                        EventStream, errs):
+    """K5 on d = 2, 4, 8 logical shards of the card at N = 2, 3, 5, 8,
+    LCAP = 1, 2, 4, 8, P = d and 2d (tie-heavy events), then on the τ+W
+    straddler with τ on the boundary between two shards and on doctored
+    stitches that go unmatched inside a shard's group and between two
+    shards."""
+    from repro_torch.core import make_segments
+    types, times = tie_stream(np, 4, 1500, 4)
+    stream = EventStream(types, times, 4)
+    card = torch.device("cuda", 0)
+    all_full = True
+    for d in (2, 4, 8):
+        mesh = [card] * d
+        for n in (2, 3, 5, 8):
+            eps = random_batch(np, EpisodeBatch, 20 * d + n, 130 + n, n, 4)
+            for p in (d, 2 * d):
+                tau, wt, wtt = make_segments(stream, p,
+                                             int(eps.max_span.max()))
+                if wt.shape[0] != p:
+                    fail(f"the K5 edge stream no longer cuts into {p} "
+                         f"segments")
+                _, full = compare_sharded(
+                    torch, ops, k_a1, k_a2, eps,
+                    ops.segment_bricks(wt, wtt, tau, "cuda"), mesh,
+                    (1, 2, 4, 8), errs, f"d={d}, N={n}, P={p}")
+                all_full = all_full and full
+        print(f"[smoke] K5 == plain and == unsharded K3/K4 at d={d}, N "
+              f"2/3/5/8, P {d}/{2 * d}, lcap 1/2/4/8 (equal in full: "
+              f"{all_full})")
+    eps = EpisodeBatch(np.int32([[0, 1]]), np.int32([[0]]), np.int32([[10]]))
+    st = EventStream(np.int32([2, 0, 1, 2, 3, 0, 2, 2, 1, 0, 1, 2, 3]),
+                     np.int32([1, 5, 20, 33, 47, 50, 50, 50, 60, 61, 75, 88,
+                               99]), 4)
+    tau, wt, wtt = make_segments(st, 2, 10)
+    if int(tau[1]) != 50:
+        fail("the straddler fixture left the τ=50 boundary")
+    compare_sharded(torch, ops, k_a1, k_a2, eps,
+                    ops.segment_bricks(wt, wtt, tau, "cuda"), [card] * 2,
+                    (4,), errs, "τ+W straddler on a shard boundary")
+    eps = random_batch(np, EpisodeBatch, 3, 130, 3, 4)
+    w = int(eps.max_span.max())
+    tau, wt, wtt = make_segments(stream, 4, w)
+    for where, seg in (("inside a shard", 0), ("between shards", 1)):
+        segs = ops.segment_bricks(wt, wtt, tau, "cuda")
+        segs[seg, 4, :] = int(tau[-1]) + 10 * w
+        runs, _ = compare_sharded(torch, ops, k_a1, k_a2, eps, segs,
+                                  [card] * 2, (4,), errs,
+                                  f"unmatched stitch {where}")
+        if not all(bool(got[3][0].any()) for _, got in runs):
+            fail(f"the doctored boundary {where} raised no flag")
+    print("[smoke] K5 == plain and == unsharded on the τ+W straddler at a "
+          "shard boundary and on unmatched stitches inside a shard and "
+          "between shards (flag raised and carried)")
+
+
+def sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs):
+    """K6d on lanes of unequal M and window length, d = 2, 4, 8 shards,
+    N = 2, 3, 5, 8, P = d and 2d, LCAP = 1, 2, 4, 8, against the same
+    lanes' lone K5 calls, and against its plain per-lane loop at one
+    (d, N, P, LCAP)."""
+    types, times = tie_stream(np, 5, max(LANE_EVENTS), 4)
+    card = torch.device("cuda", 0)
+    for d in (2, 4, 8):
+        mesh = [card] * d
+        for n in (2, 3, 5, 8):
+            for p in (d, 2 * d):
+                lanes = []
+                for i, (m, k) in enumerate(zip(LANE_M, (17, 1, 1024, 1025,
+                                                        5600))):
+                    eps = random_batch(np, EpisodeBatch, 300 * n + i, m, n,
+                                       4)
+                    lanes.append(mapc_lane(np, ops, types[:k], times[:k],
+                                           eps, p))
+                for lcap in (1, 2, 4, 8):
+                    got = ops.a1_mapc_sharded_vmapped(lanes, lcap=lcap,
+                                                      devices=mesh)
+                    want = [k_a1.a1_mapconcat_sharded(*a, lcap=lcap,
+                                                      devices=mesh)
+                            for a in lanes]
+                    plain = (k_a1.a1_mapconcat_sharded_lanes_plain(
+                        lanes, lcap=lcap, devices=mesh)
+                        if (d, n, p, lcap) == (2, 3, 4, 4) else want)
+                    torch.cuda.synchronize()
+                    e = max(max(max_abs_diff(torch, g, w),
+                                max_abs_diff(torch, g, q))
+                            for g, w, q in zip(got, want, plain))
+                    errs["a1_mapc_sharded_vmapped"] = max(
+                        errs["a1_mapc_sharded_vmapped"], e)
+                    if e:
+                        fail(f"a1_mapc_sharded_vmapped differs at d={d}, "
+                             f"N={n}, P={p}, lcap={lcap}: {e}")
+        print(f"[smoke] K6d == per-lane K5 at d={d}, N 2/3/5/8, P "
+              f"{d}/{2 * d}, lcap 1/2/4/8, lanes M {LANE_M} (plain per-lane "
+              f"loop at d=2, N=3, P=4, lcap 4)")
+
+
 # ----------------------------------------------------------------- phase 3
 
 
@@ -562,7 +748,7 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap, engine,
             fail(f"{name} window {i}: CUDA path differs from CPU plain path")
     print(f"[smoke] {name}: first {check_windows} windows equal the CPU "
           f"plain path ({time.perf_counter() - t0:.1f} s)")
-    return miner, windows, launches, s
+    return miner, windows, launches, s, results
 
 
 def restart_path(np, torch, tally):
@@ -623,6 +809,104 @@ def restart_path(np, torch, tally):
     return results, windows, launches
 
 
+def sharded_path(np, torch, tally, path_a, restart_windows,
+                 restart_results, lcap):
+    """Path E: path A's ``hybrid`` miner on a mesh of ``SHARDS`` logical
+    shards of the card (``core.mapconcat.stream_mesh``), the launch counts
+    zeroed just before and read just after: its segment-parallel counters
+    shard their commits (K5); every window must equal path A's, the first
+    2 the CPU plain path on as many CPU shards. Then path B's restart
+    windows with ``engine="mapconcat_sharded"`` (K5 over K3 for the cull,
+    over K4 for the exact counts), each equal to path B's, window 0 to the
+    CPU plain path. Returns (miner, launches, restart launches, ev/s
+    summary)."""
+    from repro_torch.core import (StreamingMiner, mine, mine_partitions,
+                                  stream_mesh)
+    from repro_torch.obs import TRACER
+    from repro_torch.telemetry import ThroughputMeter
+
+    name = f"path-E-{SHARDS}-shards"
+    windows, results_a = path_a
+    mesh = [torch.device("cuda", 0)] * SHARDS
+    with stream_mesh(mesh):
+        miner = StreamingMiner([INTERVAL], THETA, max_level=MAX_LEVEL,
+                               mode="per_window", engine="hybrid",
+                               lcap=lcap, device="cuda")
+        meter = ThroughputMeter(label=name)
+        torch.cuda.synchronize()
+        TRACER.clear()
+        tally.reset_counts()
+        for i, w in enumerate(windows):
+            meter.start()
+            res = miner.update(w, final=i == len(windows) - 1)
+            meter.stop(len(w))
+            check_result(np, res, w)
+            if not same_result(res, results_a[i]):
+                fail(f"{name} window {i}: differs from path A (one card, "
+                     f"no mesh)")
+        torch.cuda.synchronize()
+        launches = tally.launch_counts()
+    s = meter.summary()
+    spans = span_totals(TRACER)
+    print(f"[smoke] {name}: {sum(len(w) for w in windows)} events, "
+          f"{len(windows)} windows, every one equal to path A's; sustained "
+          f"{s['events_per_sec']:.1f} ev/s, steady-state "
+          f"{s['steady_events_per_sec']:.1f} ev/s, window latency p50 "
+          f"{s['p50_latency_s'] * 1e3:.1f} ms p99 "
+          f"{s['p99_latency_s'] * 1e3:.1f} ms; host clock by span "
+          + ", ".join(f"{k} {v[0]:.3f} s" for k, v in sorted(spans.items())
+                      if k.startswith("stream.")))
+    print(f"[smoke] {name} engines per level: " + "; ".join(
+        f"L{lvl} " + ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+        for lvl, c in sorted(engine_table(miner).items())))
+    print(f"[smoke] {name} launches: {launches}")
+    for k in REQUIRED_E:
+        if launches.get(k, 0) <= 0:
+            fail(f"{name}: the path launched no {k}")
+    t0 = time.perf_counter()
+    with stream_mesh([torch.device("cpu")] * SHARDS):
+        cpu = StreamingMiner([INTERVAL], THETA, max_level=MAX_LEVEL,
+                             mode="per_window", engine="hybrid", lcap=lcap,
+                             device="cpu")
+        for i, w in enumerate(windows[:2]):
+            if not same_result(cpu.update(w), results_a[i]):
+                fail(f"{name} window {i}: the CPU plain path on "
+                     f"{SHARDS} CPU shards differs")
+    print(f"[smoke] {name}: first 2 windows equal the CPU plain path on "
+          f"{SHARDS} CPU shards ({time.perf_counter() - t0:.1f} s)")
+
+    rname = f"{name}-restart-mapconcat_sharded"
+    t0 = time.perf_counter()
+    with stream_mesh(mesh):
+        torch.cuda.synchronize()
+        tally.reset_counts()
+        for i, res in mine_partitions(restart_windows, [INTERVAL], THETA,
+                                      max_level=MAX_LEVEL, carry=False,
+                                      engine="mapconcat_sharded",
+                                      device="cuda"):
+            check_result(np, res, restart_windows[i])
+            if not same_result(res, restart_results[i]):
+                fail(f"{rname} window {i}: differs from path B")
+        torch.cuda.synchronize()
+        restart_launches = tally.launch_counts()
+    print(f"[smoke] {rname}: {len(restart_windows)} windows in "
+          f"{time.perf_counter() - t0:.3f} s, every one equal to path B's; "
+          f"launches {restart_launches}")
+    for k in REQUIRED_E_RESTART:
+        if restart_launches.get(k, 0) <= 0:
+            fail(f"{rname}: the path launched no {k}")
+    t0 = time.perf_counter()
+    with stream_mesh([torch.device("cpu")] * SHARDS):
+        cpu = mine(restart_windows[0], [INTERVAL], THETA,
+                   max_level=MAX_LEVEL, engine="mapconcat_sharded",
+                   device="cpu")
+    if not same_result(cpu, restart_results[0]):
+        fail(f"{rname} window 0: the CPU plain path differs")
+    print(f"[smoke] {rname}: window 0 equals the CPU plain path on "
+          f"{SHARDS} CPU shards ({time.perf_counter() - t0:.1f} s)")
+    return miner, launches, restart_launches, s
+
+
 def fleet_config(SessionConfig, history_limit, lcap):
     """The service paths' sessions: the streaming cells' mining settings
     at the service defaults (``hybrid``, two-pass, bounded history)."""
@@ -660,17 +944,18 @@ class GroupRecorder:
     N_STATE = {"a2_state_vmapped": 2, "a1_state_vmapped": 4,
                "a1_mapc_vmapped": 0}
 
-    def __init__(self, ops, capture=False):
+    def __init__(self, ops, capture=False, kernels=None):
         import threading
         self.ops = ops
         self.capture = capture
+        self.kernels = self.N_STATE if kernels is None else kernels
         self.sizes: dict = {}
         self.best: dict = {}
         self._orig: dict = {}
         self._lock = threading.Lock()
 
     def __enter__(self):
-        for name, n_state in self.N_STATE.items():
+        for name, n_state in self.kernels.items():
             self._orig[name] = orig = getattr(self.ops, name)
             setattr(self.ops, name, self._wrap(name, orig, n_state))
         return self
@@ -698,7 +983,8 @@ class GroupRecorder:
 
 
 def service_path(np, torch, tally, name, fleet, gate, history_limit, lcap,
-                 recorder=None, cpu_sessions=FLEET_CPU_SESSIONS):
+                 recorder=None, cpu_sessions=FLEET_CPU_SESSIONS,
+                 required=FUSED):
     """Drive a fleet of sessions through ``MiningService`` on the card
     (every window ingested up front, then ``pump``), the launch counts
     zeroed just before and read just after; then hold every session's
@@ -706,7 +992,6 @@ def service_path(np, torch, tally, name, fleet, gate, history_limit, lcap,
     windows, and the first ``cpu_sessions`` sessions' first windows
     against the CPU plain path. Returns (launches, fleet summary, batcher
     stats, tenants)."""
-    import contextlib
     from repro_torch.obs import TRACER
     from repro_torch.service import (MiningService, SchedulerPolicy,
                                      SessionConfig)
@@ -760,7 +1045,7 @@ def service_path(np, torch, tally, name, fleet, gate, history_limit, lcap,
         f"{k} {v[0]:.3f} s ({v[1]})" for k, v in sorted(spans.items())
         if k.startswith(("stream.", "batch.", "schedule."))))
     if not gate:
-        for k in FUSED:
+        for k in required:
             if launches.get(k, 0) <= 0:
                 fail(f"{name}: the service launched no {k}")
     results = {}
@@ -967,15 +1252,18 @@ def cuda_median_ms(torch, fn, n) -> float:
 def device_ms(torch, fn, n, kernel_names, per_call=1) -> tuple[float, int]:
     """Device time of one call of ``fn``, from ``n`` calls made back to
     back: for each CUDA kernel the call launches (``per_call`` times each
-    name in ``kernel_names``), its mean duration as the profiler records
-    it on the card times ``per_call``, summed over the kernels. The host's
+    name in ``kernel_names``, or ``per_call[name]`` times where it is a
+    dict), its mean duration as the profiler records it on the card times
+    its launches per call, summed over the kernels. The host's
     enqueue time between launches is not counted. The mean is over the
     launches the profiler recorded: CUPTI may drop records of a trace (19
     of 21 have been seen, and once 3 of 21), so fewer than all are
     accepted, down to half, and a trace that kept fewer is taken again, up
     to ``PROFILE_ATTEMPTS`` times. Returns (ms, the fewest launches
     recorded of any of the kernels)."""
-    expect = n * per_call
+    if not isinstance(per_call, dict):
+        per_call = dict.fromkeys(kernel_names, per_call)
+    expect = {name: n * per_call[name] for name in kernel_names}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_ATTEMPTS):
@@ -988,7 +1276,8 @@ def device_ms(torch, fn, n, kernel_names, per_call=1) -> tuple[float, int]:
         rows = {name: [e for e in stats if name in e.key]
                 for name in kernel_names}
         seen = {name: sum(e.count for e in r) for name, r in rows.items()}
-        if all((expect + 1) // 2 <= k <= expect for k in seen.values()):
+        if all((expect[k] + 1) // 2 <= v <= expect[k]
+               for k, v in seen.items()):
             break
         print(f"[smoke] the profiler recorded {seen} of {expect} launches; "
               f"tracing again")
@@ -997,7 +1286,7 @@ def device_ms(torch, fn, n, kernel_names, per_call=1) -> tuple[float, int]:
         fail(f"the profiler recorded {seen} of {expect} launches in each of "
              f"{PROFILE_ATTEMPTS} traces; device events: {timed[:8]}")
     total_us = sum(sum(e.self_device_time_total for e in rows[name])
-                   / seen[name] * per_call for name in kernel_names)
+                   / seen[name] * per_call[name] for name in kernel_names)
     return total_us / 1e3, min(seen.values())
 
 
@@ -1216,6 +1505,131 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
     return rows
 
 
+def shard_bound(p, lw, m, n, lcap, d):
+    """K5's bound: K4's (``mapc_bound``) over the same segments, plus the
+    gathered tuples — d shards' (a, c, b, f) [K, M] and ovf [M], written
+    once by the shards and read once by the fold — over the HBM rate."""
+    gathered = 2 * 4 * d * (4 * n * m + m)
+    return summed_bound([mapc_bound(p, lw, m, n, lcap),
+                         (0.0, "", gathered, 0)])
+
+
+def time_sharded_call(torch, name, d, kernel, plain, one, one_names, errs,
+                      what):
+    """Time the plain version of one sharded call once, hold the call
+    (``kernel``) against it (every output) and against the one-by-one
+    launches ``one`` (what survives the recount), then time the call:
+    device ms (the profiler's kernels of the call,
+    ``SHARDED_DEVICE_KERNELS``), wrapper ms, and the one-by-one launches'
+    device ms (``one_names``: {kernel: launches per call})."""
+    plain_out = []
+    plain_ms = cuda_median_ms(torch, lambda: plain_out.append(plain()), 1)
+    got, want, single = kernel(), plain_out[0], one()
+    torch.cuda.synchronize()
+    pairs = (list(zip(got, want, single)) if name == "a1_mapc_sharded_vmapped"
+             else [(got, want, single)])
+    e = max(max(max_abs_diff(torch, g, w), unflagged_diff(torch, g, o))
+            for g, w, o in pairs)
+    errs[name] = max(errs[name], e)
+    if e:
+        fail(f"{name} differs from its plain version or the one-by-one "
+             f"launches at {what}: {e}")
+    kernel()  # warm
+    names = SHARDED_DEVICE_KERNELS[name](d)
+    ms, seen = device_ms(torch, kernel, TIMED_LAUNCHES, tuple(names), names)
+    stitch = [k for k in names if k.startswith("stitch")]
+    fold_ms, _ = device_ms(torch, kernel, TIMED_LAUNCHES, tuple(stitch),
+                           {k: names[k] for k in stitch})
+    wrapper_ms = cuda_median_ms(torch, kernel, TIMED_LAUNCHES)
+    one_ms, _ = device_ms(torch, one, TIMED_LAUNCHES, tuple(one_names),
+                          one_names)
+    print(f"[smoke] {name}: the cross-shard fold launch takes {fold_ms:.5f} "
+          f"of its {ms:.5f} device ms")
+    return ms, seen, wrapper_ms, one_ms, plain_ms
+
+
+def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
+                 restart_results, restart_windows, recorder_f, lcap, errs):
+    """K5 at path E's largest shapes on its ``SHARDS``-shard mesh — A1 at
+    its largest mapconcatenate counter (one commit over its last window,
+    8 segments), A2 at path B's largest level-3 A2 batch, 8 segments —
+    beside the unsharded K4/K3 on the same segments; K6d at path F's
+    largest group beside the same lanes' lone K5 calls. Returns
+    {kernel: row}."""
+    from repro_torch.core import candidates
+    mesh = [torch.device("cuda", 0)] * SHARDS
+    d = SHARDS
+    rows = {}
+    frag = max((f for _, frags in miner_e._exact.values() for f in frags
+                if f.engine == "mapconcatenate"),
+               key=lambda f: (f.eps.M, f.eps.N))
+    args = ops.mapc_inputs(window_e, frag.eps, 8, False, "cuda")
+    p, _, lw = args[-1].shape
+    if p % d:
+        fail(f"path E's commit shape cuts into {p} segments")
+    n, m = frag.eps.N, frag.eps.M
+    ms, seen, wrapper_ms, one_ms, plain_ms = time_sharded_call(
+        torch, "a1_mapc_shard", d,
+        lambda: k_a1.a1_mapconcat_sharded(*args, lcap=lcap, devices=mesh),
+        lambda: k_a1.a1_mapconcat_sharded_plain(*args, lcap=lcap,
+                                                devices=mesh),
+        lambda: k_a1.a1_mapconcat_kernel(*args, lcap=lcap),
+        {"a1_map_kernel": 1, "fold_kernel": 1}, errs,
+        "path E's largest commit")
+    rows["a1_mapc_shard"] = (
+        ms, seen, wrapper_ms, plain_ms, shard_bound(p, lw, m, n, lcap, d),
+        f"path E largest mapconcatenate counter, {d} shards, N={n} M={m} "
+        f"LCAP={lcap} P={p} LW={lw}", one_ms)
+
+    i = max(range(len(restart_results)),
+            key=lambda j: restart_results[j].stats[2].num_candidates)
+    cand3 = candidates.join_next_level(restart_results[i].frequent[1])
+    args = ops.mapc_inputs(restart_windows[i], cand3.relaxed(), 8, True,
+                           "cuda")
+    p, _, lw = args[-1].shape
+    ms, seen, wrapper_ms, one_ms, plain_ms = time_sharded_call(
+        torch, "a2_mapc_shard", d,
+        lambda: k_a2.a2_mapconcat_sharded(*args, devices=mesh),
+        lambda: k_a2.a2_mapconcat_sharded_plain(*args, devices=mesh),
+        lambda: k_a2.a2_mapconcat_kernel(*args),
+        {"a2_map_kernel": 1, "fold_kernel": 1}, errs,
+        "path E restart's largest level-3 A2 batch")
+    rows["a2_mapc_shard"] = (
+        ms, seen, wrapper_ms, plain_ms,
+        shard_bound(p, lw, cand3.M, 3, 1, d),
+        f"path E restart window {i} level-3 A2 batch, {d} shards, N=3 "
+        f"M={cand3.M} P={p} LW={lw}", one_ms)
+
+    if "a1_mapc_sharded_vmapped" not in recorder_f.best:
+        fail("path F captured no K6d group")
+    (n_lanes, m_tot), lanes, kw = recorder_f.best["a1_mapc_sharded_vmapped"]
+    cap = kw["lcap"]
+    n, p = lanes[0][0].shape[0], lanes[0][5].shape[0]
+    ms, seen, wrapper_ms, one_ms, plain_ms = time_sharded_call(
+        torch, "a1_mapc_sharded_vmapped", d,
+        lambda: ops.a1_mapc_sharded_vmapped(lanes, lcap=cap, devices=mesh),
+        lambda: k_a1.a1_mapconcat_sharded_lanes_plain(lanes, lcap=cap,
+                                                      devices=mesh),
+        lambda: [k_a1.a1_mapconcat_sharded(*a, lcap=cap, devices=mesh)
+                 for a in lanes],
+        {"a1_map_kernel": d * n_lanes, "fold_kernel": d * n_lanes,
+         "stitch_shards_kernel": n_lanes}, errs, "path F's largest group")
+    rows["a1_mapc_sharded_vmapped"] = (
+        ms, seen, wrapper_ms, plain_ms,
+        summed_bound([shard_bound(p, a[5].shape[2], a[0].shape[1], n, cap,
+                                  d) for a in lanes]),
+        f"path F's largest group, {n_lanes} lanes, {d} shards, N={n} "
+        f"LCAP={cap} P={p}, M {[a[0].shape[1] for a in lanes]}, LW "
+        f"{[a[5].shape[2] for a in lanes]}", one_ms)
+    for k in SHARDED:
+        print(f"[smoke] {k}: device {rows[k][0]:.5f} ms against "
+              f"{rows[k][6]:.5f} ms one by one ("
+              + ("the same lanes' lone K5 calls"
+                 if k == "a1_mapc_sharded_vmapped" else
+                 "the unsharded launch on the same segments") + ")")
+    return {k: v[:6] for k, v in rows.items()}
+
+
 def main_path_shapes(miner, window):
     """The largest level-3 A2 batch and the largest level-3 A1 batch the
     main path carried, with its last window's events."""
@@ -1323,6 +1737,9 @@ def main() -> int:
     mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
                      errs)
     fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
+    sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
+                        EventStream, errs)
+    sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs)
     print(f"[smoke] phase 2 (kernels against plain versions): "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1335,11 +1752,13 @@ def main() -> int:
     main_runs = {}
     for name, num_types, seconds, engine, check in STREAMS:
         t0 = time.perf_counter()
-        miner, windows, got, summary = main_path(
+        miner, windows, got, summary, results = main_path(
             np, torch, tally, name, num_types, seconds, args.lcap, engine,
             check)
         add(got)
         main_runs[name] = (miner, windows, engine)
+        if name == "sym26-hybrid":
+            path_a = (windows, results)
         print(f"[smoke] phase 3 {name}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     restart_results, restart_windows, got = restart_path(np, torch, tally)
@@ -1378,6 +1797,29 @@ def main() -> int:
     got, _ = bounded_path(np, torch, tally)
     add(got)
     print(f"[smoke] phase 3 path D: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    miner_e, got, got_restart, _ = sharded_path(
+        np, torch, tally, path_a, restart_windows, restart_results,
+        args.lcap)
+    add(got)
+    add(got_restart)
+    print(f"[smoke] phase 3 path E: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    from repro_torch.core import stream_mesh
+    mesh = [torch.device("cuda", 0)] * SHARDS
+    # K6d's operands are the commits' own (nothing is cloned), so the
+    # timed run keeps its largest group for phase 4
+    recorder_f = GroupRecorder(ops, capture=True,
+                               kernels={"a1_mapc_sharded_vmapped": 0})
+    with stream_mesh(mesh):
+        got, _, _, tenants_f = service_path(
+            np, torch, tally, f"path-F-{SHARDS}-shards", FLEET_SHARDED,
+            False, 8, args.lcap, recorder_f, cpu_sessions=0,
+            required=REQUIRED_F)
+    add(got)
+    print(f"[smoke] path F: largest K6d group (lanes, episodes) "
+          f"{recorder_f.sizes}")
+    print(f"[smoke] phase 3 path F: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():
@@ -1385,10 +1827,19 @@ def main() -> int:
         print(f"[smoke] {name} device busy share, window 3: "
               f"{busy:.3f} ms of device time in {wall:.1f} ms wall = "
               f"{busy / wall:.4f} (idle {1 - busy / wall:.4f})")
-    busy, wall, n = service_busy(torch, tenants)
-    print(f"[smoke] path-C device busy share, step 4 ({n} sessions, one "
-          f"window each): {busy:.3f} ms of device time in {wall:.1f} ms "
-          f"wall = {busy / wall:.4f} (idle {1 - busy / wall:.4f})")
+    with stream_mesh(mesh):
+        busy, wall = device_busy(torch, path_a[0], args.lcap, "hybrid")
+    print(f"[smoke] path-E device busy share, window 3: {busy:.3f} ms of "
+          f"device time in {wall:.1f} ms wall = {busy / wall:.4f} (idle "
+          f"{1 - busy / wall:.4f})")
+    for label, fleet_tenants_, ctx in (
+            ("path-C", tenants, None), ("path-F", tenants_f, mesh)):
+        with stream_mesh(ctx) if ctx else contextlib.nullcontext():
+            busy, wall, n = service_busy(torch, fleet_tenants_)
+        print(f"[smoke] {label} device busy share, step 4 ({n} sessions, "
+              f"one window each): {busy:.3f} ms of device time in "
+              f"{wall:.1f} ms wall = {busy / wall:.4f} (idle "
+              f"{1 - busy / wall:.4f})")
     print(f"[smoke] busy shares: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1404,6 +1855,9 @@ def main() -> int:
     rows.update(time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hwins[-1],
                           restart_results, restart_windows, args.lcap, errs))
     rows.update(time_fused(np, torch, ops, k_a1, k_a2, recorder, errs))
+    rows.update(time_sharded(np, torch, ops, k_a1, k_a2, miner_e,
+                             path_a[0][-1], restart_results,
+                             restart_windows, recorder_f, args.lcap, errs))
     kernels = []
     for k in KERNELS:
         (ms, seen, wrapper_ms, plain_ms, (b_ms, b_by, nbytes, nops),

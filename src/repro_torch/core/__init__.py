@@ -7,6 +7,7 @@ Public API:
   count_two_pass            — Algorithm 4 (A2 cull → A1 exact)
   count_dispatch            — Hybrid dispatcher (Algorithm 2 / Eq. 2)
   mapconcatenate(_kernel)   — segment-parallel MapConcatenate (§5.2.2)
+  mapconcatenate_sharded(_kernel), stream_mesh — its multi-device form
   mine / mine_partitions    — level-wise miner, streaming windows
 """
 
@@ -18,9 +19,11 @@ from .events import (PAD_TYPE, TIME_NEG_INF, EventStream, count_level1,
                      type_histogram)
 from .calibrate import DispatchChoice, DispatchPolicy, get_policy
 from .hybrid import count_dispatch, crossover, f_of_n
-from .mapconcat import (concatenate_tree, fold_pair, fold_pair_unrolled,
-                        make_segments, mapconcatenate, mapconcatenate_kernel,
-                        phase_cum, stitch_zones)
+from .mapconcat import (concatenate_tree, data_mesh, fold_pair,
+                        fold_pair_unrolled, make_segments, mapconcatenate,
+                        mapconcatenate_kernel, mapconcatenate_sharded,
+                        mapconcatenate_sharded_kernel, phase_cum,
+                        shard_device_count, stitch_zones, stream_mesh)
 from .miner import LevelStats, MiningResult, mine, mine_partitions
 from .ref import (count_a1_sequential, count_a2_sequential,
                   count_occurrences_naive)
@@ -38,6 +41,8 @@ __all__ = [
     "count_dispatch", "crossover", "f_of_n",
     "DispatchChoice", "DispatchPolicy", "get_policy",
     "mapconcatenate", "mapconcatenate_kernel", "make_segments",
+    "mapconcatenate_sharded", "mapconcatenate_sharded_kernel",
+    "data_mesh", "shard_device_count", "stream_mesh",
     "fold_pair", "fold_pair_unrolled", "concatenate_tree", "phase_cum",
     "stitch_zones",
     "mine", "mine_partitions", "MiningResult", "LevelStats",

@@ -35,47 +35,65 @@ class DispatchPolicy:
     # ------------------------------------------------------ one-shot path
 
     def choose(self, *, n_events: int, n_episode: int, m: int,
-               default_segments: int = 8) -> DispatchChoice:
-        """Engine + segment count for one ``count_dispatch`` call."""
+               shard_devices: int = 1, default_segments: int = 8,
+               device=None) -> DispatchChoice:
+        """Engine + segment count for one ``count_dispatch`` call;
+        ``shard_devices`` is the mesh width the segment axis can shard
+        over (``hybrid.shard_devices``), ``device`` the caller's (the
+        capacity term of ``hybrid.crossover``)."""
         return self._heuristic_choice(n_events=n_events, n_episode=n_episode,
-                                      m=m, default_segments=default_segments)
+                                      m=m, shard_devices=shard_devices,
+                                      default_segments=default_segments,
+                                      device=device)
 
-    def _heuristic_choice(self, *, n_events, n_episode, m,
-                          default_segments) -> DispatchChoice:
+    def _heuristic_choice(self, *, n_events, n_episode, m, shard_devices,
+                          default_segments, device) -> DispatchChoice:
         """Eq. 2 (see ``hybrid``): PTPE above the capacity-scaled
-        crossover, the segmented kernel where the stream is long and the
+        crossover, the segmented kernel — sharded over the mesh when it
+        holds more than one device — where the stream is long and the
         batch cannot fill a tile of episodes."""
         from . import hybrid
         mapc_kernel = (hybrid._mapc_kernel_available()
                        and n_events >= hybrid.MAPC_KERNEL_MIN_EVENTS)
-        if m > hybrid.crossover(n_episode):
+        kern = ("mapconcat_sharded" if shard_devices > 1
+                else "mapconcat_kernel")
+        if m > hybrid.crossover(n_episode, device):
             if mapc_kernel and m <= hybrid.MAPC_KERNEL_MAX_EPISODES:
-                engine = "mapconcat_kernel"
+                engine = kern
             else:
                 engine = "ptpe"
         elif mapc_kernel:
-            engine = "mapconcat_kernel"
+            engine = kern
         else:
             engine = "mapconcatenate"
         return DispatchChoice(engine, default_segments, "heuristic")
 
     # ----------------------------------------------------- streaming path
 
-    def choose_stream(self, *, n_episode: int, m: int) -> DispatchChoice:
+    def choose_stream(self, *, n_episode: int, m: int,
+                      shard_devices: int = 1,
+                      device=None) -> DispatchChoice:
         """Resolve a streaming counter's ``hybrid`` to ptpe or the
-        segment-parallel engine."""
-        return self._stream_heuristic(n_episode, m)
+        segment-parallel engine (whose commits ``StreamingCounter`` shards
+        itself when the mesh is wider than one device). ``shard_devices``
+        is kept in the signature as in the reference: only a calibration
+        table reads it."""
+        return self._stream_heuristic(n_episode, m, device)
 
-    def _stream_heuristic(self, n_episode: int, m: int) -> DispatchChoice:
+    def _stream_heuristic(self, n_episode: int, m: int,
+                          device=None) -> DispatchChoice:
         from . import hybrid
-        engine = ("ptpe" if m > hybrid.crossover(n_episode)
+        engine = ("ptpe" if m > hybrid.crossover(n_episode, device)
                   else "mapconcatenate")
         return DispatchChoice(engine, 0, "heuristic")
 
-    def choose_segments(self, candidates: list[int]) -> int:
+    def choose_segments(self, candidates: list[int], *,
+                        devices: int = 1) -> int:
         """Pick a segment count from the caller's *safety-filtered*
         candidate list (stitch bounds stay the caller's job): the caller's
-        first preference."""
+        first preference. ``devices`` (the mesh width the commit shards
+        over) is kept as in the reference: only a calibration table reads
+        it."""
         if not candidates:
             raise ValueError("empty segment candidate list")
         return candidates[0]

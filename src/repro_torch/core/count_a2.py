@@ -119,28 +119,29 @@ def count_a2(stream: EventStream, eps: EpisodeBatch,
     ``segments`` routes the one-shot count through the segment-parallel
     kernel K3 (``kernels.ops.a2_mapconcat_count``). Episodes whose tuples
     fail to stitch are recounted by the exact single-slot scan, so the
-    result is *the* A2 count and Theorem 5.1's cull stays sound. Ignored in
+    result is *the* A2 count and Theorem 5.1's cull stays sound. With
+    ``sharded`` the segment axis additionally shards over the mesh
+    (``kernels.ops.a2_mapconcat_sharded_count``, kernel K5: one K3 launch
+    per device, the tuples folded on ``device``; one device, or a stream
+    too short to shard, takes the single K3 launch). Both are ignored in
     stateful mode (cross-chunk carry is a single sequential scan).
-    ``sharded`` (one segmented launch per device) needs the multi-GPU slice
-    and raises.
     """
     from repro_torch.kernels import ops
     from repro_torch.obs import span
 
-    if sharded:
-        raise NotImplementedError(
-            "sharded segmented A2 counting (kernel K5) belongs to the "
-            "multi-GPU slice of the PyTorch port (ROADMAP queue 1 item 11), "
-            "which is not ported yet")
     relaxed = eps.relaxed()
     if state is not None or return_state:
         return count_single_slot(stream, relaxed, inclusive_lower=True,
                                  state=state, return_state=True,
                                  device=device)
     if segments is not None and eps.N > 1:
-        counts, bad = ops.a2_mapconcat_count(stream, relaxed,
-                                             num_segments=segments,
-                                             device=device)
+        if sharded:
+            counts, bad = ops.a2_mapconcat_sharded_count(
+                stream, relaxed, num_segments=segments, device=device)
+        else:
+            counts, bad = ops.a2_mapconcat_count(stream, relaxed,
+                                                 num_segments=segments,
+                                                 device=device)
         if bad.any():
             idx = np.nonzero(bad)[0]
             counts = counts.copy()

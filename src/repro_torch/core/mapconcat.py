@@ -24,12 +24,24 @@ On the card the Map step is kernel K4 (``kernels.a1_count``,
 ``mapconcatenate`` mapping runs K4's Map launch and folds the [P, K, M]
 tuples here with ``concatenate_tree`` (torch ops, the analogue of the
 reference's XLA fold); ``mapconcatenate_kernel`` runs K4's Map and its fold
-launch, the analogue of the reference's single Pallas launch. The
-multi-device forms (``mapconcatenate_sharded*``) belong to the multi-GPU
-slice and are not ported yet.
+launch, the analogue of the reference's single Pallas launch.
+
+The multi-device forms shard the segment axis over a tuple of devices
+(``data_mesh``): ``mapconcatenate_sharded`` runs one segment's Map step on
+each device and folds the gathered tuples here; ``mapconcatenate_sharded_
+kernel`` runs kernel K5 (``kernels.ops.a1_mapconcat_sharded_count``): one
+K4 launch per device on its contiguous segment group, the per-device
+tuples copied to the caller's device and stitched by the cross-shard fold
+launch. The reference drives its devices from one process through
+``shard_map``; so does the port, with per-device launches and
+``Tensor.to`` copies, so its callers need no process group. A device may
+appear more than once in the tuple (logical shards on one card, or on the
+CPU): every launch, copy and fold then runs as it would across cards.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -39,6 +51,9 @@ from repro_torch.obs import span
 from .count_a1 import DEFAULT_LCAP, count_a1 as _count_a1_exact
 from .episodes import EpisodeBatch
 from .events import PAD_TYPE, EventStream, count_level1
+
+# the device tuple fixed by ``stream_mesh`` (None: the default mesh)
+_MESH: tuple[torch.device, ...] | None = None
 
 
 # ---------------------------------------------------------------- Map step
@@ -179,6 +194,77 @@ def cut_windows(types: np.ndarray, times: np.ndarray, tau: np.ndarray,
     return wt, wtt
 
 
+# ------------------------------------------------------------ device mesh
+
+
+@contextlib.contextmanager
+def stream_mesh(devices):
+    """Fix the process's device tuple for the sharded paths while the
+    block runs (the counterpart of the reference's
+    ``--xla_force_host_platform_device_count``). Devices may repeat:
+    ``[torch.device("cpu")] * 4`` shards over four logical CPU shards,
+    ``["cuda:0"] * 4`` over four logical shards of one card. The tuple is
+    process-wide, not per thread, so the service's session threads see it;
+    counters read it when they are made."""
+    global _MESH
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("stream_mesh needs at least one device")
+    prev, _MESH = _MESH, devs
+    try:
+        yield devs
+    finally:
+        _MESH = prev
+
+
+def _home(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def mesh_devices(device=None) -> tuple[torch.device, ...]:
+    """Every device the segment axis may use, for a caller on ``device``
+    (default: the card, else the CPU): the tuple ``stream_mesh`` fixed,
+    else every CUDA card for a CUDA caller and the caller's device alone
+    for a CPU caller."""
+    if _MESH is not None:
+        return _MESH
+    home = _home(device)
+    if home.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (home,)
+
+
+def shard_device_count(device=None) -> int:
+    """Largest power-of-two device count the segment axis can shard over
+    (segment counts are powers of two, so a ragged mesh would idle
+    devices); 1 means the sharded paths stand down. Single source of the
+    sharded dispatch's device-set policy: ``kernels.ops``,
+    ``hybrid.shard_devices`` and ``StreamingCounter`` read it."""
+    d = len(mesh_devices(device))
+    p = 1
+    while p * 2 <= d:
+        p *= 2
+    return p
+
+
+def data_mesh(num_devices: int | None = None,
+              device=None) -> tuple[torch.device, ...]:
+    """The first ``num_devices`` (default: ``shard_device_count()``) of
+    ``mesh_devices(device)`` — the devices the sharded counting and
+    streaming paths run their segment groups on, in segment order
+    (``launch.mesh.make_stream_mesh`` returns this)."""
+    devs = mesh_devices(device)
+    if num_devices is None:
+        num_devices = shard_device_count(device)
+    if not 1 <= num_devices <= len(devs):
+        raise ValueError(f"a mesh of {num_devices} devices, but "
+                         f"{len(devs)} are available: {devs}")
+    return devs[:num_devices]
+
+
 def _recount_bad(stream, eps, count, bad, lcap, device) -> np.ndarray:
     """Exact single-scan recount of the episodes whose tuples failed to
     stitch or whose bounded lists flagged a possibly-live eviction."""
@@ -230,4 +316,72 @@ def mapconcatenate_kernel(stream: EventStream, eps: EpisodeBatch,
     count, bad = ops.a1_mapconcat_count(stream, eps,
                                         num_segments=num_segments,
                                         lcap=lcap, device=dev)
+    return _recount_bad(stream, eps, count, bad, lcap, dev)
+
+
+def mapconcatenate_sharded(stream: EventStream, eps: EpisodeBatch,
+                           mesh=None, lcap: int = DEFAULT_LCAP,
+                           device=None) -> np.ndarray:
+    """Distributed MapConcatenate: one segment per device of ``mesh``
+    (default ``data_mesh()``), its Map step (K4's Map launch) run on that
+    device, the [1, K, M] tuples copied to ``device`` and folded there with
+    the Concatenate tree. A stream too short for one stitch-safe segment
+    per device takes ``mapconcatenate`` with the segments it allows.
+    Flagged episodes are recounted exactly, as in ``mapconcatenate``."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+
+    dev = resolve_device(device)
+    if eps.N == 1:
+        return count_level1(stream, eps.etypes[:, 0])
+    if len(stream) == 0:
+        return np.zeros(eps.M, np.int64)
+    mesh = data_mesh(device=dev) if mesh is None else tuple(mesh)
+    w_max = int(eps.max_span.max())
+    tau, wt, wtt = make_segments(stream, len(mesh), w_max)
+    if wt.shape[0] != len(mesh):
+        return mapconcatenate(stream, eps, num_segments=wt.shape[0],
+                              lcap=lcap, device=dev)
+    lay = {}
+    parts = []
+    for i, sd in enumerate(mesh):
+        if sd not in lay:
+            lay[sd] = ops.mapconcat_layout(eps, False, sd)
+        segs = ops.segment_bricks(wt[i:i + 1], wtt[i:i + 1], tau[i:i + 2],
+                                  sd)
+        parts.append(ops.a1_mapconcat_map(*lay[sd], segs, lcap=lcap))
+    a, c, b, ovf = (torch.cat([p[j].to(dev) for p in parts])
+                    for j in range(4))
+    count, bad = concatenate_tree(a, c, b, torch.zeros_like(a, dtype=bool))
+    bad = bad | (ovf != 0).any(dim=0).any(dim=0)
+    out = torch.stack([count, bad.to(torch.int32)]).cpu().numpy()
+    return _recount_bad(stream, eps, out[0].astype(np.int64), out[1] != 0,
+                        lcap, dev)
+
+
+def mapconcatenate_sharded_kernel(stream: EventStream, eps: EpisodeBatch,
+                                  num_segments: int = 8,
+                                  lcap: int = DEFAULT_LCAP,
+                                  num_devices: int | None = None,
+                                  device=None) -> np.ndarray:
+    """Mesh-sharded in-kernel MapConcatenate — kernel K5: the committed
+    span is cut into one contiguous segment group per mesh device, each
+    device runs one K4 launch (Map and in-group fold) on its group, the
+    per-device (a, count, b, flag) tuples are copied to ``device`` and the
+    cross-shard fold launch stitches them (``fold_pair`` is associative
+    across any cut, so device boundaries are invisible in the counts).
+
+    As in the reference, fewer than two devices, or a stream too short to
+    give every device a stitch-safe segment, takes the single-device K4
+    launch, with the same counts. Unmatched stitches and possibly-live
+    evictions are recounted by the exact single-scan engine."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+
+    dev = resolve_device(device)
+    if eps.N == 1:
+        return count_level1(stream, eps.etypes[:, 0])
+    count, bad = ops.a1_mapconcat_sharded_count(
+        stream, eps, num_segments=num_segments, lcap=lcap,
+        num_devices=num_devices, device=dev)
     return _recount_bad(stream, eps, count, bad, lcap, dev)

@@ -18,9 +18,16 @@ concatenated stream**:
       with ``fold_pair`` — the associative form of the paper's Concatenate
       tree (Fig. 6). A segment's tuple needs ``W`` ticks of lookahead (its
       crossing zone), so the commit frontier trails ingestion by ``W``;
-      ``finalize()`` flushes the tail. ``"mapconcat_kernel"`` is an alias,
-      and so is ``"mapconcat_sharded"`` while one device is all there is
-      (multi-GPU is not ported).
+      ``finalize()`` flushes the tail. ``"mapconcat_kernel"`` is an alias.
+      When the mesh (``mapconcat.data_mesh``) holds d > 1 devices, a
+      commit of q >= d segments shards (kernel K5: one K4 launch per
+      device on its contiguous segment group, the tuples folded on the
+      counter's device), with the per-commit segment count chosen
+      device-count-aware (up to ``max(num_segments, d)``); a commit too
+      short to shard takes the single K4 launch, with the same counts.
+      ``"mapconcat_sharded"`` is the alias that prefers this residency.
+      ``state_dict`` is device-count independent: a checkpoint written on
+      an 8-device mesh restores onto one device, and the reverse.
     * ``"hybrid"`` — the Eq. 2 dispatcher (``calibrate.get_policy``),
       applied once per counter: ptpe above ``hybrid.crossover(N)``
       episodes, mapconcatenate at or below it.
@@ -71,9 +78,10 @@ a recount, however long the stream.
 which the multi-tenant service fuses the counters' kernel launches across
 sessions: with one, every K1, K2 and K4 launch of a counter becomes a
 request to it (``a2_kernel_scan``, ``a1_kernel_scan``,
-``mapc_kernel_scan``); without one, the counter launches its kernels
-itself. ``state_dict`` keys and dtypes equal the reference's, so
-checkpoints move between the two packages in both directions.
+``mapc_kernel_scan``, ``mapc_sharded_scan``); without one, the counter
+launches its kernels itself. ``state_dict`` keys and dtypes equal the
+reference's, so checkpoints move between the two packages in both
+directions.
 """
 
 from __future__ import annotations
@@ -96,7 +104,7 @@ from .count_a2 import A2State, init_a2_state
 from .episodes import EpisodeBatch
 from .events import (PAD_TYPE, TIME_NEG_INF, EventStream, count_level1,
                      type_histogram)
-from .mapconcat import cut_windows, fold_pair
+from .mapconcat import cut_windows, data_mesh, fold_pair
 from .miner import LevelStats, MiningResult
 
 _EMPTY_I32 = np.empty(0, np.int32)
@@ -141,15 +149,10 @@ def _state_sub(d: dict, prefix: str) -> dict:
 
 def _stream_engine(engine: str) -> str:
     """Validate a streaming engine name and resolve its aliases: the
-    in-kernel MapConcatenate is the streaming ``mapconcatenate`` engine,
-    and so is the sharded one while ``hybrid.shard_devices()`` is 1 (one
-    device is all there is until multi-GPU is ported)."""
-    if engine == "mapconcat_sharded":
-        from . import hybrid
-        if hybrid.shard_devices() != 1:
-            raise hybrid.sharded_pending()
-        return "mapconcatenate"
-    if engine == "mapconcat_kernel":
+    in-kernel and the sharded MapConcatenate are the streaming
+    ``mapconcatenate`` engine, whose commits shard on their own whenever
+    the mesh holds more than one device."""
+    if engine in ("mapconcat_kernel", "mapconcat_sharded"):
         return "mapconcatenate"
     if engine not in ("ptpe", "mapconcatenate", "hybrid"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -312,9 +315,12 @@ class StreamingCounter:
             self._cum = np.zeros(eps.M, np.int64)
             return
         if engine == "hybrid":
+            from . import hybrid
             from .calibrate import get_policy
-            engine = get_policy().choose_stream(n_episode=eps.N,
-                                                m=eps.M).engine
+            engine = get_policy().choose_stream(
+                n_episode=eps.N, m=eps.M,
+                shard_devices=hybrid.shard_devices(self.device),
+                device=self.device).engine
         self.engine = engine
         if engine == "ptpe":
             # the carried machines live on the device in kernel layout
@@ -329,6 +335,9 @@ class StreamingCounter:
             # commit's ovf stay on the device
             self._kmapc = kops.mapconcat_layout(eps, inclusive_lower=False,
                                                 device=self.device)
+            # the mesh the commits shard over (one device: never); host
+            # state only, so checkpoints stay device-count independent
+            self._mesh = data_mesh(device=self.device)
             self._wmax = int(eps.max_span.max())
             self._carry = None
             self._ovf = torch.zeros(eps.M, dtype=torch.bool,
@@ -465,13 +474,19 @@ class StreamingCounter:
                 return
         with _obs_span("stream.commit"):
             span = tau_next - self._tau_c
+            # device-count-aware segment count: a sharded commit wants at
+            # least one stitch-safe (> W) segment per mesh device, so the
+            # limit grows to cover the mesh; a span too short for that
+            # keeps q < d and takes the single-device launch below
+            d = len(self._mesh)
+            q_limit = max(self.num_segments, d)
             q = 1
             safe = [1]  # stitch-safe power-of-two segment counts
-            while q * 2 <= self.num_segments and span // (q * 2) > w:
+            while q * 2 <= q_limit and span // (q * 2) > w:
                 q *= 2
                 safe.append(q)
             from .calibrate import get_policy
-            q = get_policy().choose_segments(safe[::-1])
+            q = get_policy().choose_segments(safe[::-1], devices=d)
             tau = np.round(np.linspace(self._tau_c, tau_next,
                                        q + 1)).astype(np.int64)
             tau[0], tau[-1] = self._tau_c, tau_next
@@ -480,7 +495,17 @@ class StreamingCounter:
             segs = kops.segment_bricks(wt, wtt, tau, self.device,
                                        length=wt.shape[1])
             kargs = (*self._kmapc, segs)
-            if self.executor is not None:
+            if d > 1 and q >= d:
+                # one K4 launch per mesh device on its contiguous segment
+                # group, the tuples folded here (K5; K6d when fused)
+                if self.executor is not None:
+                    a, c, b, f, ovf = self.executor.mapc_sharded_scan(
+                        kargs, self.lcap, self._mesh)
+                else:
+                    with _obs_span("stream.launch", kind="a1_mapc_shard"):
+                        a, c, b, f, ovf = kops.a1_mapconcat_sharded_tuples(
+                            *kargs, lcap=self.lcap, devices=self._mesh)
+            elif self.executor is not None:
                 a, c, b, f, ovf = self.executor.mapc_kernel_scan(kargs,
                                                                  self.lcap)
             else:

@@ -2,10 +2,10 @@
 ``repro.core.twopass``.
 
 Pass 1 counts every candidate under the *relaxed* constraints with the cheap
-single-slot engine (A2: kernel K1, or K3 segmented). Theorem 5.1:
+single-slot engine (A2: kernel K1, K3 segmented or K5 sharded). Theorem 5.1:
 ``count(α') >= count(α)``, so culling ``count(α') < θ`` never removes a truly
-frequent episode. Pass 2 runs the exact A1 engine (K2, or K4 segmented) only
-on survivors.
+frequent episode. Pass 2 runs the exact A1 engine (K2, K4 segmented or K5
+sharded) only on survivors.
 
 Returns exact counts for survivors and the A2 upper bound (plus a culled
 mask) for the rest — enough for the level-wise miner to proceed.
@@ -52,7 +52,10 @@ def count_two_pass(stream: EventStream, eps: EpisodeBatch, theta: int,
     """Algorithm 4. ``engine`` picks the pass-2 mapping (see
     ``hybrid.count_dispatch``); with ``"mapconcat_kernel"`` the pass-1 A2
     cull also runs its segmented kernel (K3), so both passes use the
-    (episode, phase, segment) grid. ``num_segments`` feeds the
+    (episode, phase, segment) grid, and with ``"mapconcat_sharded"`` both
+    passes shard their segmented launches over the mesh (K5 over K3 for
+    the cull, K5 over K4 for the exact counts; the single-device launches
+    where one device is all there is). ``num_segments`` feeds the
     segment-parallel mappings.
 
     Stateful mode (``state``/``return_state``) returns
@@ -80,9 +83,10 @@ def count_two_pass(stream: EventStream, eps: EpisodeBatch, theta: int,
             a2_counts=a2,
             eliminated_frac=float(1.0 - survived.mean()) if eps.M else 0.0)
         return res, TwoPassState(a2=a2_new, a1=a1_new)
+    segmented = engine in ("mapconcat_kernel", "mapconcat_sharded")
     a2 = _count_a2(stream, eps, device=device,
-                   segments=(num_segments if engine == "mapconcat_kernel"
-                             else None))
+                   segments=num_segments if segmented else None,
+                   sharded=engine == "mapconcat_sharded")
     survived = a2 >= theta
     counts = a2.copy()
     if survived.any():

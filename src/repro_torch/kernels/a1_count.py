@@ -1,7 +1,9 @@
 """K2: the carried A1 (bounded-list) counter — the CUDA kernel's wrapper and
 its plain PyTorch version; K6b, its fused multi-session form
-(``a1_count_state_lanes``); K4, the bounded-list MapConcatenate; and K6c,
-K4's fused multi-session form (``a1_mapconcat_lanes``).
+(``a1_count_state_lanes``); K4, the bounded-list MapConcatenate; K6c,
+K4's fused multi-session form (``a1_mapconcat_lanes``); K5's bounded-list
+kind, the mesh-sharded K4 (``a1_mapconcat_sharded``); and K6d, K5 over
+many counters' lanes (``a1_mapconcat_sharded_lanes``).
 
 Port of ``repro/kernels/a1_count.py::a1_count_state_kernel`` (Pallas) and
 its fresh-state wrapper ``a1_count_kernel``. The CUDA source is
@@ -34,8 +36,9 @@ from repro_torch.core.count_a1 import step_bounded_list
 from repro_torch.core.events import TIME_NEG_INF
 
 from . import cuda
-from .a2_count import (check_mapc_operands, mapc_fold_plain, mapc_launch,
-                       mapc_map_scan)
+from .a2_count import (check_mapc_operands, copy_outs, device_of,
+                       mapc_fold_plain, mapc_launch, mapc_map_scan,
+                       mapc_shard_fold, mapc_sharded, mapc_sharded_plain)
 from .tally import record_launch, record_plain
 
 KERNEL = "a1_count_state"
@@ -196,7 +199,10 @@ MAPC_LANES_KERNEL = "a1_mapc_vmapped"  # K6c, after the reference's vmap
 _MAPC_SIGNATURES = {"a1_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
          _P, _I, _P]),
-    "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _P])}
+    "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _P]),
+    "a1_mapc_shard_fold": (
+    _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]),
+    "a1_mapc_shard_fold_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P])}
 
 
 def _a1_mapc_step(state, e, t, dup, et, tlo, thi):
@@ -320,3 +326,156 @@ def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
     # dropping the Map scratch and the table here is safe: the caching
     # allocator hands a freed block out again only in stream order
     return [out for _, out in outs]
+
+
+# --------------------------------------------------------------------------
+# K5 (bounded-list kind) and K6d: the mesh-sharded K4
+# --------------------------------------------------------------------------
+#
+# Port of ``repro/kernels/ops.py::_mapc_sharded_fn`` (kind "a1") and of
+# ``a1_mapc_sharded_vmapped`` (the same with a leading session axis). The
+# sharded call itself is ``a2_count.mapc_sharded``: one K4 launch per
+# shard on its device, the tuples gathered on the operands' device, one
+# cross-shard fold launch. K6d runs one K6c lane-table launch per shard
+# over every lane's group of that shard, then one lane-table launch of the
+# cross-shard fold (``csrc/mapc_common.cuh``).
+
+SHARD_KERNEL = "a1_mapc_shard"  # one per shard launch: d per call
+SHARDED_LANES_KERNEL = "a1_mapc_sharded_vmapped"  # K6d, one per shard
+SHARD_FOLD_LANES = "mapc_shard_fold_lanes"  # K6d's fold launch
+
+
+def _a1_mapc_lib():
+    return cuda.library("a1_mapconcat", _MAPC_SIGNATURES)
+
+
+def a1_mapconcat_sharded_plain(et, tlo, thi, cum, w, segs, *, lcap: int,
+                               devices):
+    """Plain version of K5's bounded-list kind, on the operands' device:
+    K4's plain Map step over every segment, each shard's group folded,
+    then the cross-shard fold (``a2_count.mapc_sharded_plain``)."""
+    return mapc_sharded_plain(
+        a1_mapconcat_plain(et, tlo, thi, cum, w, segs, lcap=lcap,
+                           fold=False), len(devices))
+
+
+def a1_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, lcap: int,
+                         devices):
+    """K5, bounded-list kind: ``segs``' P segments split into len(devices)
+    contiguous groups (P a multiple of the device count), one K4 launch
+    (Map and fold) per group on its device, the groups' stitched tuples
+    folded on the operands' device with each group's flag carried.
+    Returns (a, c, b, f) i32[N, M] and ovf i32[M] (OR over the groups),
+    the reference's ``a1_mapconcat_sharded_tuples`` contract: row 0 of
+    ``c`` is the count and the episode needs the exact recount iff
+    ``f[0] | ovf``. The counts equal the unsharded K4's; a flagged
+    episode's ``c`` may differ, as the fold tree differs."""
+    n, _, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    dev = et.device
+    if lcap < 1:
+        raise ValueError("lcap must be at least 1")
+    _check_envelope(dev, n, lcap)
+    if dev.type == "cpu":
+        def run(lay, s, outs):
+            record_plain(SHARD_KERNEL)
+            copy_outs(outs, a1_mapconcat_plain(*lay, s, lcap=lcap))
+    else:
+        def run(lay, s, outs):
+            mapc_launch(_a1_mapc_lib(), "a1_mapconcat", SHARD_KERNEL, *lay,
+                        s, True, lcap, outs=outs)
+    return mapc_sharded(
+        et, tlo, thi, cum, w, segs, devices, run,
+        lambda shard, sovf: mapc_shard_fold(_a1_mapc_lib,
+                                            "a1_mapc_shard_fold", shard,
+                                            sovf))
+
+
+def a1_mapconcat_sharded_lanes_plain(lanes, *, lcap: int, devices):
+    """Plain version of K6d: K5's plain version on each lane in turn."""
+    return [a1_mapconcat_sharded_plain(*args, lcap=lcap, devices=devices)
+            for args in lanes]
+
+
+def a1_mapconcat_sharded_lanes(lanes, *, lcap: int, devices) -> list:
+    """K6d: many counters' sharded commits (K5, bounded-list kind) in one
+    K6c launch per shard and one cross-shard fold launch. ``lanes`` is a
+    list of ``(et, tlo, thi, cum, w, segs)``, K4's operands, each lane
+    with its own M and window length; every lane has the same N and P
+    segments (a multiple of the device count) and lives on one device.
+    Returns each lane's (a, c, b, f, ovf), equal to a lone K5 call's."""
+    if not lanes:
+        return []
+    n, _, p, _ = check_mapc_operands(*lanes[0])
+    home = lanes[0][0].device
+    for args in lanes:
+        ln, _, lp, _ = check_mapc_operands(*args)
+        if (ln, lp) != (n, p) or args[0].device != home:
+            raise ValueError("the lanes of one fused launch must share N, "
+                             "P and the device")
+    devs = [device_of(x) for x in devices]
+    d = len(devs)
+    if d < 1 or p % d:
+        raise ValueError(f"{p} segments do not split over {d} devices")
+    if any(x.type != home.type for x in devs):
+        raise ValueError(f"the mesh {devs} and the lanes ({home}) must be "
+                         f"of one device type")
+    if lcap < 1:
+        raise ValueError("lcap must be at least 1")
+    _check_envelope(home, n, lcap)
+    if home.type == "cpu":
+        record_plain(SHARDED_LANES_KERNEL, lanes=len(lanes))
+        record_plain(SHARD_FOLD_LANES)
+        return a1_mapconcat_sharded_lanes_plain(lanes, lcap=lcap,
+                                                devices=devs)
+    lib = _a1_mapc_lib()
+    pl = p // d
+    ms = [args[0].shape[1] for args in lanes]
+    gathered = [(torch.empty((d, 4, n, m), dtype=torch.int32, device=home),
+                 torch.empty((d, m), dtype=torch.int32, device=home))
+                for m in ms]
+    lay = {home: [args[:5] for args in lanes]}
+    for q, sd in enumerate(devs):
+        if sd not in lay:
+            lay[sd] = [tuple(x.to(sd) for x in ops_) for ops_ in lay[home]]
+        # rows hold raw pointers: ``keep`` holds their tensors until the
+        # launch is enqueued, ``later`` the copies to the gathered slots
+        rows, keep, later = [], [], []
+        for i, (args, m) in enumerate(zip(lanes, ms)):
+            seg_q = args[5][q * pl:(q + 1) * pl]
+            shard, sovf = gathered[i]
+            if sd == home:
+                outs = (*shard[q].unbind(0), sovf[q])
+            else:
+                seg_q = seg_q.to(sd)
+                loc = torch.empty((4, n, m), dtype=torch.int32, device=sd)
+                outs = (*loc.unbind(0),
+                        torch.empty(m, dtype=torch.int32, device=sd))
+                later += [(shard[q], loc), (sovf[q], outs[4])]
+            tuples = torch.empty((4, pl, n, m), dtype=torch.int32,
+                                 device=sd)
+            keep += [seg_q, tuples, *outs]
+            rows.append([x.data_ptr() for x in (*lay[sd][i], seg_q, tuples,
+                                                  *outs)]
+                        + [m, seg_q.shape[2]])
+        table = cuda.lane_table(rows, sd)
+        rc = lib.a1_mapconcat_lanes(
+            table.data_ptr(), len(lanes), pl, max(ms), n, lcap,
+            cuda.device_index(sd), cuda.stream_handle(sd))
+        cuda.check_launch(lib, SHARDED_LANES_KERNEL, rc)
+        record_launch(SHARDED_LANES_KERNEL, lanes=len(lanes))
+        for dst, src in later:
+            dst.copy_(src)
+    outs = [tuple(torch.empty((n, m), dtype=torch.int32, device=home)
+                  for _ in range(4))
+            + (torch.empty(m, dtype=torch.int32, device=home),)
+            for m in ms]
+    rows = [[shard.data_ptr(), sovf.data_ptr(),
+             *(o.data_ptr() for o in out), m]
+            for (shard, sovf), out, m in zip(gathered, outs, ms)]
+    table = cuda.lane_table(rows, home)
+    rc = lib.a1_mapc_shard_fold_lanes(
+        table.data_ptr(), len(lanes), d, max(ms), n,
+        cuda.device_index(home), cuda.stream_handle(home))
+    cuda.check_launch(lib, SHARD_FOLD_LANES, rc)
+    record_launch(SHARD_FOLD_LANES)
+    return outs

@@ -1,6 +1,8 @@
 """K1: the carried A2 (single-slot) counter — the CUDA kernel's wrapper and
 its plain PyTorch version; K6a, its fused multi-session form
-(``a2_count_state_lanes``); and K3, the single-slot MapConcatenate.
+(``a2_count_state_lanes``); K3, the single-slot MapConcatenate; and K5's
+single-slot kind (``a2_mapconcat_sharded``) with the cross-shard fold that
+K5 and K6d share (``mapc_sharded``, ``mapc_shard_fold``).
 
 Port of ``repro/kernels/a2_count.py::a2_count_state_kernel`` (Pallas) and
 its fresh-state wrapper ``a2_count_kernel``. The CUDA source is
@@ -178,7 +180,9 @@ SEG_ROWS = 5
 
 _MAPC_SIGNATURES = {"a2_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-         _I, _P])}
+         _I, _P]),
+    "a2_mapc_shard_fold": (
+    _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])}
 
 
 def check_mapc_operands(et, tlo, thi, cum, w, segs):
@@ -296,6 +300,25 @@ def mapc_fold_plain(a, c, b, ovf):
             (ovf != 0).any(dim=0).any(dim=0).to(torch.int32))
 
 
+def mapc_shard_fold_plain(shard, sovf):
+    """Plain version of the cross-shard fold launch (K5, K6d): a left chain
+    of ``core.mapconcat.fold_pair`` over the d shard tuples ``shard``
+    [d, 4, K, M] (each shard's stitched a, c, b and its own flag f), the
+    reference's fold over the gathered device axis; ovf [d, M] is OR'd
+    over the shards. Returns (a, c, b, f) i32[K, M] and ovf i32[M]."""
+    from repro_torch.core.mapconcat import fold_pair
+
+    def tup(q):
+        return shard[q, 0], shard[q, 1], shard[q, 2], shard[q, 3] != 0
+
+    carry = tup(0)
+    for q in range(1, shard.shape[0]):
+        carry = fold_pair(carry, tup(q))
+    ca, cc, cb, cf = carry
+    return (ca.clone(), cc.clone(), cb.clone(), cf.to(torch.int32),
+            (sovf != 0).any(dim=0).to(torch.int32))
+
+
 def a2_mapconcat_plain(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     """Plain PyTorch version of K3 (Map step, then the fold unless
     ``fold`` is False); same contract and outputs as the kernel."""
@@ -310,18 +333,20 @@ def a2_mapconcat_plain(et, tlo, thi, cum, w, segs, *, fold: bool = True):
 
 
 def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
-                fold: bool, *extra) -> tuple:
+                fold: bool, *extra, outs=None) -> tuple:
     """Run one segmented CUDA launch (K3 or K4): allocate the [4, P, K, M]
-    Map scratch and, with ``fold``, the stitched outputs; ``extra`` are the
-    kernel-specific ints after ``n_levels``. Returns the outputs as the
-    plain versions do."""
+    Map scratch and, with ``fold``, the stitched outputs (or write them to
+    ``outs``: a, c, b, f [K, M] and ovf [M], contiguous, on the operands'
+    device); ``extra`` are the kernel-specific ints after ``n_levels``.
+    Returns the outputs as the plain versions do."""
     n, m = et.shape
     p, _, lw = segs.shape
     dev = et.device
     tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
-    outs = ([torch.empty((n, m), dtype=torch.int32, device=dev)
-             for _ in range(4)]
-            + [torch.empty(m, dtype=torch.int32, device=dev)]) if fold else []
+    if fold and outs is None:
+        outs = ([torch.empty((n, m), dtype=torch.int32, device=dev)
+                 for _ in range(4)]
+                + [torch.empty(m, dtype=torch.int32, device=dev)])
     rc = getattr(lib, fn)(
         et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), cum.data_ptr(),
         w.data_ptr(), segs.data_ptr(), p, lw, m, n, *extra, int(fold),
@@ -331,6 +356,161 @@ def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
     cuda.check_launch(lib, kernel, rc)
     record_launch(kernel)
     return tuple(outs) if fold else tuple(tuples.unbind(0))
+
+
+# --------------------------------------------------------------------------
+# K5: the mesh-sharded MapConcatenate
+# --------------------------------------------------------------------------
+#
+# Port of ``repro/kernels/ops.py::_mapc_sharded_fn``: a ``shard_map`` in
+# which each device runs one K3/K4 launch on its contiguous group of P/d
+# segments, all-gathers the d stitched tuples and folds them with
+# ``fold_pair`` over the device axis. The reference drives its devices
+# from one process; so does the port: one K3/K4 launch per shard on the
+# shard's device and current stream, the tuples copied to the caller's
+# device (``Tensor.copy_``: a peer copy between cards, nothing at all for
+# a shard on the caller's device, whose launch writes its slot of the
+# gathered tensor directly), and one launch of the cross-shard fold
+# (``csrc/mapc_common.cuh``), which carries each shard's flag — the
+# segment fold launch cannot, as segments carry none.
+
+SHARD_KERNEL = "a2_mapc_shard"  # one per shard launch: d per call
+SHARD_FOLD = "mapc_shard_fold"  # the cross-shard fold launch (K5)
+
+
+def device_of(dev) -> torch.device:
+    """``dev`` with its index filled in (a bare ``cuda`` is the current
+    card), so devices compare equal to the ones tensors report."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def mapc_sharded(et, tlo, thi, cum, w, segs, devices, run_shard, fold):
+    """The sharded segmented call of K5's two kinds — their CUDA launches,
+    and for CPU tensors their plain calls shard by shard. Shard q runs
+    ``run_shard(episode operands, segs group, outs)`` on ``devices[q]``:
+    the episode operands copied there once per distinct device, the q-th
+    contiguous group of P/d segments, and ``outs`` the (a, c, b, f [K, M],
+    ovf [M]) it writes there — its slots of the gathered shard [d, 4, K, M]
+    and sovf [d, M] on the operands' device when the shard's device is that
+    one, else scratch copied into them afterwards. ``fold(shard, sovf)``
+    then stitches them; its (a, c, b, f, ovf) is returned."""
+    n, m, p, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    home = et.device
+    devs = [device_of(x) for x in devices]
+    d = len(devs)
+    if d < 1 or p % d:
+        raise ValueError(f"{p} segments do not split over {d} devices")
+    if any(x.type != home.type for x in devs):
+        raise ValueError(f"the mesh {devs} and the operands ({home}) must "
+                         f"be of one device type")
+    shard = torch.empty((d, 4, n, m), dtype=torch.int32, device=home)
+    sovf = torch.empty((d, m), dtype=torch.int32, device=home)
+    lay = {home: (et, tlo, thi, cum, w)}
+    pl = p // d
+    for q, sd in enumerate(devs):
+        if sd not in lay:
+            lay[sd] = tuple(x.to(sd) for x in lay[home])
+        seg_q = segs[q * pl:(q + 1) * pl]
+        if sd == home:
+            run_shard(lay[sd], seg_q, (*shard[q].unbind(0), sovf[q]))
+            continue
+        loc = torch.empty((4, n, m), dtype=torch.int32, device=sd)
+        lovf = torch.empty(m, dtype=torch.int32, device=sd)
+        run_shard(lay[sd], seg_q.to(sd), (*loc.unbind(0), lovf))
+        shard[q].copy_(loc)
+        sovf[q].copy_(lovf)
+    return fold(shard, sovf)
+
+
+def copy_outs(outs, got) -> None:
+    for o, x in zip(outs, got):
+        o.copy_(x)
+
+
+def mapc_shard_fold(lib_of, fn: str, shard, sovf) -> tuple:
+    """The cross-shard fold: the CUDA launch ``fn`` of the library
+    ``lib_of()`` for CUDA tensors, its plain version for CPU tensors.
+    Returns (a, c, b, f) i32[K, M] and ovf i32[M]."""
+    d, _, n, m = shard.shape
+    dev = shard.device
+    cuda.check_operand("shard", shard, (d, 4, n, m), dev)
+    cuda.check_operand("sovf", sovf, (d, m), dev)
+    if dev.type == "cpu":
+        record_plain(SHARD_FOLD)
+        return mapc_shard_fold_plain(shard, sovf)
+    lib = lib_of()
+    outs = ([torch.empty((n, m), dtype=torch.int32, device=dev)
+             for _ in range(4)]
+            + [torch.empty(m, dtype=torch.int32, device=dev)])
+    rc = getattr(lib, fn)(shard.data_ptr(), sovf.data_ptr(), d, m, n,
+                          *(o.data_ptr() for o in outs),
+                          cuda.device_index(dev), cuda.stream_handle(dev))
+    cuda.check_launch(lib, SHARD_FOLD, rc)
+    record_launch(SHARD_FOLD)
+    return tuple(outs)
+
+
+def _a2_lib():
+    return cuda.library("a2_mapconcat", _MAPC_SIGNATURES)
+
+
+def mapc_sharded_plain(maps, d: int):
+    """The plain sharded call on the Map step's per-segment tuples ``maps``
+    ((a, c, b, ovf) [P, K, M]): each of the d contiguous segment groups
+    folded with the plain segment fold (what one shard's K3/K4 launch
+    returns), then the plain cross-shard fold. The Map step is per
+    segment, so mapping every segment in one pass and cutting the tuples
+    into groups afterwards is the same arithmetic as mapping each group on
+    its own device."""
+    p = maps[0].shape[0]
+    if d < 1 or p % d:
+        raise ValueError(f"{p} segments do not split over {d} devices")
+    pl = p // d
+    groups = [mapc_fold_plain(*(x[q * pl:(q + 1) * pl] for x in maps))
+              for q in range(d)]
+    shard = torch.stack([torch.stack(g[:4]) for g in groups])
+    sovf = torch.stack([g[4] for g in groups])
+    return mapc_shard_fold_plain(shard, sovf)
+
+
+def a2_mapconcat_sharded_plain(et, tlo, thi, cum, w, segs, *, devices):
+    """Plain version of K5's single-slot kind, on the operands' device:
+    K3's plain Map step over every segment, each shard's group folded,
+    then the cross-shard fold (``mapc_sharded_plain``)."""
+    return mapc_sharded_plain(
+        a2_mapconcat_plain(et, tlo, thi, cum, w, segs, fold=False),
+        len(devices))
+
+
+def a2_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, devices):
+    """K5, single-slot kind: ``segs``' P segments split into len(devices)
+    contiguous groups, one K3 launch (Map and fold) per group on its
+    device, the groups' stitched tuples folded on the operands' device.
+    Returns (a, c, b, f) i32[N, M] and ovf i32[M] (zero), the reference's
+    ``a2_mapconcat_sharded_tuples`` contract; for a stream the
+    unsharded K3 stitches without a flag, the counts are the same."""
+    n, _, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    dev = et.device
+    if dev.type == "cpu":
+        def run(lay, s, outs):
+            record_plain(SHARD_KERNEL)
+            copy_outs(outs, a2_mapconcat_plain(*lay, s))
+    elif dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    elif not 2 <= n <= MAX_LEVELS:
+        raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
+                         f"got {n}")
+    else:
+        def run(lay, s, outs):
+            mapc_launch(_a2_lib(), "a2_mapconcat", SHARD_KERNEL, *lay, s,
+                        True, outs=outs)
+    return mapc_sharded(
+        et, tlo, thi, cum, w, segs, devices, run,
+        lambda shard, sovf: mapc_shard_fold(_a2_lib, "a2_mapc_shard_fold",
+                                            shard, sovf))
 
 
 def a2_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, fold: bool = True):

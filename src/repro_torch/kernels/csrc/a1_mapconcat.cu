@@ -1,11 +1,15 @@
 // K4: segment-parallel MapConcatenate with bounded-list (A1) machines, for
-// Hopper (sm_90a), and K6c, its fused multi-session form.
+// Hopper (sm_90a); K6c, its fused multi-session form; and the cross-shard
+// fold of its mesh-sharded forms K5 (A1) and K6d.
 //
 // Replaces: src/repro/kernels/a1_count.py::a1_mapconcat_kernel (Pallas, TPU;
 // body _a1_mapc_body, grid step _a1_mapc_kernel, fused fold
 // a2_count.py::_mapc_fold_and_emit); K6c replaces
 // src/repro/kernels/ops.py::a1_mapc_vmapped (jax.vmap of that kernel over a
-// leading session axis).
+// leading session axis). K5 (ops.py::_mapc_sharded_fn, kind "a1") and K6d
+// (ops.py::a1_mapc_sharded_vmapped) run this file's launches on each
+// shard's segment group and stitch the shards with the fold launches of
+// mapc_common.cuh (a1_mapc_shard_fold, a1_mapc_shard_fold_lanes).
 //
 // What it computes: for M episodes, P time segments and K = N phases, the
 // bounded-list machine of K2 (csrc/a1_count.cu) started cum[k] ticks before
@@ -293,6 +297,26 @@ int a1_mapconcat_lanes(const long long* lanes, int n_lanes, int p, int max_m,
     default: return cudaErrorInvalidValue;
   }
 #undef A1ML_CASE
+}
+
+// K5's cross-shard fold (mapc_common.cuh): shard int32[d, 4, n_levels, m]
+// (each shard's stitched a, c, b, f) and sovf int32[d, m] in; a/c/b/f
+// int32[n_levels, m] and ovf int32[m] out. Returns 0 or a cudaError_t code.
+int a1_mapc_shard_fold(const int* shard, const int* sovf, int d, int m,
+                       int n_levels, int* a, int* c, int* b, int* f,
+                       int* ovf, int device, void* stream) {
+  return mapc::shard_fold(shard, sovf, d, m, n_levels, a, c, b, f, ovf,
+                          device, stream);
+}
+
+// K6d's fold launch: lanes is a device int64[n_lanes, 8] table
+// (mapc_common.cuh), every lane with d shards and n_levels levels; max_m
+// the largest m. Returns 0 or a cudaError_t code.
+int a1_mapc_shard_fold_lanes(const long long* lanes, int n_lanes, int d,
+                             int max_m, int n_levels, int device,
+                             void* stream) {
+  return mapc::shard_fold_lanes(lanes, n_lanes, d, max_m, n_levels,
+                                device, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -1,9 +1,11 @@
 // K3: segment-parallel MapConcatenate with single-slot (A2) machines, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), and the cross-shard fold of its mesh-sharded form K5.
 //
 // Replaces: src/repro/kernels/a2_count.py::a2_mapconcat_kernel (Pallas,
 // TPU; body _a2_mapc_body, grid step _a2_mapc_kernel, fused fold
-// _mapc_fold_and_emit).
+// _mapc_fold_and_emit). K5 (src/repro/kernels/ops.py::_mapc_sharded_fn,
+// kind "a2") runs this file's launch on each shard's segment group and
+// stitches the shards with a2_mapc_shard_fold (mapc_common.cuh).
 //
 // What it computes: K1's single-slot machine (csrc/a2_count.cu) run as
 // K = N phase-shifted machines per (episode, time segment), gated by the
@@ -139,6 +141,16 @@ int a2_mapconcat(const int* et, const int* tlo, const int* thi,
     default: return cudaErrorInvalidValue;
   }
 #undef A2M_CASE
+}
+
+// K5's cross-shard fold for the single-slot machines (mapc_common.cuh),
+// as a1_mapc_shard_fold (csrc/a1_mapconcat.cu). Returns 0 or a cudaError_t
+// code.
+int a2_mapc_shard_fold(const int* shard, const int* sovf, int d, int m,
+                       int n_levels, int* a, int* c, int* b, int* f,
+                       int* ovf, int device, void* stream) {
+  return mapc::shard_fold(shard, sovf, d, m, n_levels, a, c, b, f, ovf,
+                          device, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -1,6 +1,7 @@
 // Shared pieces of the segmented MapConcatenate kernels K3
 // (a2_mapconcat.cu) and K4 (a1_mapconcat.cu): the segment brick layout,
-// the stitch zones, and the fold launch that stitches the segments' tuples.
+// the stitch zones, the fold launch that stitches the segments' tuples, and
+// the cross-shard fold of their mesh-sharded forms K5 and K6d.
 //
 // Layout (all int32):
 //   segs   [P, 5, LW]  rows: types, times, dup, tau_p, tau_{p+1}; the two
@@ -202,6 +203,187 @@ cudaError_t launch_fold(const int* tuples, int p, int m, bool with_ovf,
   fold_kernel<K><<<blocks, kThreads, 0, st>>>(tuples, p, m, with_ovf, a, c,
                                               b, f, ovf);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K5, K6d
+//
+// Cross-shard fold of the mesh-sharded MapConcatenate (K5; replaces the
+// all_gather-then-fold_pair tail of src/repro/kernels/ops.py::
+// _mapc_sharded_fn). Each shard (device) has run K3 or K4 on its contiguous
+// segment group; its stitched (a, c, b, f) and ovf are gathered on the
+// caller's device as
+//   shard [d, 4, K, M]  a, c, b, f of shard q (f: its in-group flag)
+//   sovf  [d, M]        ovf of shard q
+// Thread j folds shards 0..d-1 of episode j left to right with fold_pair's
+// rule (src/repro/core/mapconcat.py:170), bit for bit: the carry starts
+// from shard 0's tuple and flag; left machine k takes the lowest right
+// machine k' whose a equals its b, or falls through to k' = 0 unmatched,
+// and f |= f_right[k'] | !matched. This is where fold_body above differs:
+// Map segments carry no flag, so fold_body starts every flag at false and
+// reads plane 3 as ovf; a shard's tuple carries its own flag in plane 3,
+// and dropping it would lose an unmatched stitch inside a shard. ovf is
+// OR'd over the shards.
+//
+// What bounds it: bytes. Each thread reads 4*K*d + d ints and writes
+// 4*K + 1; the compares (K*K per shard) are few. One launch per call.
+template <int K>
+__device__ __forceinline__ void shard_fold_body(const int* __restrict__ shard,
+                                                const int* __restrict__ sovf,
+                                                int d, int m, int j,
+                                                int* __restrict__ out_a,
+                                                int* __restrict__ out_c,
+                                                int* __restrict__ out_b,
+                                                int* __restrict__ out_f,
+                                                int* __restrict__ out_ovf) {
+  if (j >= m) return;
+  const size_t plane = static_cast<size_t>(K) * m;  // one field of a shard
+  int ca[K], cc[K], cb[K];
+  bool cf[K];
+  int o = sovf[j];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ca[k] = shard[k * m + j];
+    cc[k] = shard[plane + k * m + j];
+    cb[k] = shard[2 * plane + k * m + j];
+    cf[k] = shard[3 * plane + k * m + j] != 0;
+  }
+  for (int q = 1; q < d; ++q) {
+    const int* s = shard + 4 * plane * q + j;
+    int ra[K], rc[K], rb[K];
+    bool rf[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ra[k] = s[k * m];
+      rc[k] = s[plane + k * m];
+      rb[k] = s[2 * plane + k * m];
+      rf[k] = s[3 * plane + k * m] != 0;
+    }
+    o |= sovf[static_cast<size_t>(q) * m + j];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      bool matched = false;
+      int gc = rc[0], gb = rb[0];
+      bool gf = rf[0];
+#pragma unroll
+      for (int kp = K - 1; kp >= 0; --kp) {
+        if (cb[k] == ra[kp]) {
+          matched = true;
+          gc = rc[kp];
+          gb = rb[kp];
+          gf = rf[kp];
+        }
+      }
+      cc[k] += gc;
+      cb[k] = gb;
+      cf[k] = cf[k] || gf || !matched;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    out_a[k * m + j] = ca[k];
+    out_c[k * m + j] = cc[k];
+    out_b[k * m + j] = cb[k];
+    out_f[k * m + j] = cf[k] ? 1 : 0;
+  }
+  out_ovf[j] = o != 0;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+stitch_shards_kernel(const int* __restrict__ shard,
+                     const int* __restrict__ sovf, int d, int m,
+                     int* __restrict__ out_a, int* __restrict__ out_c,
+                     int* __restrict__ out_b, int* __restrict__ out_f,
+                     int* __restrict__ out_ovf) {
+  shard_fold_body<K>(shard, sovf, d, m, blockIdx.x * kThreads + threadIdx.x,
+                     out_a, out_c, out_b, out_f, out_ovf);
+}
+
+// Lane table of K6d's fold launch (K5 over a session axis): one descriptor
+// of int64 words per lane — its gathered shard tuples [d, 4, K, M] and
+// ovf [d, M], its outputs a, c, b, f [K, M] and ovf [M] (device pointers),
+// then m. d and K are the same for every lane.
+constexpr int kShardLaneWords = 8;
+enum ShardLaneWord {
+  kSLaneShard = 0, kSLaneSovf, kSLaneA, kSLaneC, kSLaneB, kSLaneF,
+  kSLaneOvf, kSLaneM
+};
+
+// K6d's fold launch: lane blockIdx.y, episode tile blockIdx.x.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+stitch_shard_lanes_kernel(const long long* __restrict__ lanes, int d) {
+  const long long* s =
+      lanes + static_cast<size_t>(blockIdx.y) * kShardLaneWords;
+  shard_fold_body<K>(lane_ptr<const int>(s, kSLaneShard),
+                     lane_ptr<const int>(s, kSLaneSovf), d,
+                     static_cast<int>(s[kSLaneM]),
+                     blockIdx.x * kThreads + threadIdx.x,
+                     lane_ptr<int>(s, kSLaneA), lane_ptr<int>(s, kSLaneC),
+                     lane_ptr<int>(s, kSLaneB), lane_ptr<int>(s, kSLaneF),
+                     lane_ptr<int>(s, kSLaneOvf));
+}
+
+template <int K>
+cudaError_t launch_shard_fold(const int* shard, const int* sovf, int d,
+                              int m, int* a, int* c, int* b, int* f,
+                              int* ovf, cudaStream_t st) {
+  stitch_shards_kernel<K><<<(m + kThreads - 1) / kThreads, kThreads, 0,
+                            st>>>(shard, sovf, d, m, a, c, b, f, ovf);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_shard_fold_lanes(const long long* lanes, int n_lanes,
+                                    int d, int max_m, cudaStream_t st) {
+  const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes);
+  stitch_shard_lanes_kernel<K><<<grid, kThreads, 0, st>>>(lanes, d);
+  return cudaGetLastError();
+}
+
+// The C entry points' bodies (one per library that exports them). Return
+// 0 or a cudaError_t code.
+inline int shard_fold(const int* shard, const int* sovf, int d, int m,
+                      int n_levels, int* a, int* c, int* b, int* f, int* ovf,
+                      int device, void* stream) {
+  if (m <= 0 || d <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SHARD_FOLD_CASE(NL)                                               \
+  case NL:                                                                \
+    return launch_shard_fold<NL>(shard, sovf, d, m, a, c, b, f, ovf, st);
+  switch (n_levels) {
+    SHARD_FOLD_CASE(2)
+    SHARD_FOLD_CASE(3)
+    SHARD_FOLD_CASE(4)
+    SHARD_FOLD_CASE(5)
+    SHARD_FOLD_CASE(6)
+    SHARD_FOLD_CASE(7)
+    SHARD_FOLD_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SHARD_FOLD_CASE
+}
+
+inline int shard_fold_lanes(const long long* lanes, int n_lanes, int d,
+                            int max_m, int n_levels, int device,
+                            void* stream) {
+  if (n_lanes <= 0 || max_m <= 0 || d <= 0) return 0;
+  if (n_lanes > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_levels) {
+    case 2: return launch_shard_fold_lanes<2>(lanes, n_lanes, d, max_m, st);
+    case 3: return launch_shard_fold_lanes<3>(lanes, n_lanes, d, max_m, st);
+    case 4: return launch_shard_fold_lanes<4>(lanes, n_lanes, d, max_m, st);
+    case 5: return launch_shard_fold_lanes<5>(lanes, n_lanes, d, max_m, st);
+    case 6: return launch_shard_fold_lanes<6>(lanes, n_lanes, d, max_m, st);
+    case 7: return launch_shard_fold_lanes<7>(lanes, n_lanes, d, max_m, st);
+    case 8: return launch_shard_fold_lanes<8>(lanes, n_lanes, d, max_m, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Map launch geometry: x = episode tile, y = phase, z = segment.

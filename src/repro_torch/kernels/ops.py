@@ -25,7 +25,12 @@ the carried (streaming) kernels, and result unpacking:
     / ``a2_mapconcat_count`` run the MapConcatenate kernels K4 and K3;
   * ``a2_state_vmapped`` / ``a1_state_vmapped`` / ``a1_mapc_vmapped`` run
     K1, K2 and K4 over many counters' lanes in one launch (K6, the
-    cross-session batcher's fused flushes).
+    cross-session batcher's fused flushes);
+  * ``a1_mapconcat_sharded_tuples`` / ``a2_mapconcat_sharded_tuples`` /
+    ``a1_mapconcat_sharded_count`` / ``a2_mapconcat_sharded_count`` run
+    the mesh-sharded MapConcatenate K5 (one K4/K3 launch per device of the
+    mesh, the cross-shard fold on the caller's device), and
+    ``a1_mapc_sharded_vmapped`` its fused multi-session form K6d.
 
 There is no dispatch policy: the device of the tensors chooses the path
 inside each kernel wrapper (CUDA kernel, or the plain version on CPU).
@@ -42,13 +47,14 @@ from repro_torch.core.count_a2 import A2State, init_a2_state
 from repro_torch.core.episodes import EpisodeBatch
 from repro_torch.core.events import (PAD_TYPE, EventStream, count_level1)
 from repro_torch.device import resolve_device
-from repro_torch.obs import span
+from repro_torch.obs import REGISTRY, span
 
 from .a1_count import (a1_count_kernel, a1_count_state,
                        a1_count_state_lanes, a1_mapconcat_kernel,
-                       a1_mapconcat_lanes)
+                       a1_mapconcat_lanes, a1_mapconcat_sharded,
+                       a1_mapconcat_sharded_lanes)
 from .a2_count import (a2_count_kernel, a2_count_state, a2_count_state_lanes,
-                       a2_mapconcat_kernel)
+                       a2_mapconcat_kernel, a2_mapconcat_sharded)
 
 
 def episode_layout(eps: EpisodeBatch, inclusive_lower: bool, device):
@@ -348,6 +354,128 @@ def a2_mapconcat_count(stream: EventStream, eps: EpisodeBatch,
     args = mapc_inputs(stream, eps, num_segments, inclusive_lower=True,
                        device=dev)
     _, c, _, f, _ = a2_mapconcat_tuples(*args)
+    out = torch.stack([c[0], f[0]]).cpu().numpy()
+    return out[0].astype(np.int64), out[1] != 0
+
+
+# --------------------------------------------------------------------------
+# Multi-device (mesh-sharded) MapConcatenate dispatch: K5 and K6d
+# --------------------------------------------------------------------------
+#
+# The reference's ``shard_map`` over a ``("data",)`` mesh becomes a tuple
+# of devices (``core.mapconcat.data_mesh``) that one process drives: one
+# K4/K3 launch per device on its contiguous segment group, the tuples
+# copied to the caller's device, one cross-shard fold launch there.
+
+
+def a1_mapconcat_sharded_tuples(et, tlo, thi, cum, w, segs, *, lcap: int,
+                                devices):
+    """One mesh-sharded segmented A1 call, K5 (traced): ``segs``' segment
+    count must be a multiple of len(devices). Same output contract as
+    ``a1_mapconcat_tuples``: the stitched (a, c, b, f) plus ovf OR'd over
+    the devices."""
+    with span("kernel.a1_mapc_shard", devices=len(devices)):
+        return a1_mapconcat_sharded(et, tlo, thi, cum, w, segs, lcap=lcap,
+                                    devices=devices)
+
+
+def a2_mapconcat_sharded_tuples(et, tlo, thi, cum, w, segs, *, devices):
+    """Single-slot analogue of ``a1_mapconcat_sharded_tuples``."""
+    with span("kernel.a2_mapc_shard", devices=len(devices)):
+        return a2_mapconcat_sharded(et, tlo, thi, cum, w, segs,
+                                    devices=devices)
+
+
+def a1_mapc_sharded_vmapped(lanes, *, lcap: int, devices) -> list[tuple]:
+    """K6d: K5 (bounded-list kind) over many lanes — one K6c launch per
+    device and one cross-shard fold launch for all of them (traced).
+    ``lanes``: a list of ``(et, tlo, thi, cum, w, segs)`` in K4's layout,
+    same N and P (a multiple of len(devices)). Returns each lane's
+    (a, c, b, f, ovf)."""
+    with span("kernel.a1_mapc_sharded_vmapped", lanes=len(lanes),
+              devices=len(devices)):
+        return a1_mapconcat_sharded_lanes(lanes, lcap=lcap, devices=devices)
+
+
+def _sharded_segments(stream: EventStream, eps: EpisodeBatch,
+                      num_segments: int, d: int):
+    """Segment the stream for a d-device launch: at least one segment per
+    device, total divisible by d. Returns (tau, wt, wtt) or None when the
+    stream is too short to give every device a stitch-safe (> W) segment —
+    the caller then takes the single-device launch."""
+    from repro_torch.core.mapconcat import make_segments
+
+    w_max = int(eps.max_span.max())
+    tau, wt, wtt = make_segments(stream, max(num_segments, d), w_max)
+    p = wt.shape[0]
+    if p < d or p % d:
+        return None
+    return tau, wt, wtt
+
+
+def _sharded_inputs(stream, eps, num_segments, num_devices, inclusive_lower,
+                    device):
+    """The mesh and the packed operands of a one-shot sharded launch, or
+    None where the reference's rule takes the single-device launch: fewer
+    than two devices, or a stream too short to give every device a
+    stitch-safe segment (counted in ``mapc_shard_single_total``)."""
+    from repro_torch.core.mapconcat import data_mesh, shard_device_count
+
+    d = (shard_device_count(device) if num_devices is None
+         else num_devices)
+    made = (_sharded_segments(stream, eps, num_segments, d)
+            if d >= 2 and len(stream) else None)
+    if made is None:
+        REGISTRY.counter("mapc_shard_single_total").inc()
+        return None
+    tau, wt, wtt = made
+    return data_mesh(d, device=device), mapconcat_layout(
+        eps, inclusive_lower, device) + (segment_bricks(wt, wtt, tau,
+                                                        device),)
+
+
+def a1_mapconcat_sharded_count(stream: EventStream, eps: EpisodeBatch,
+                               num_segments: int = 8,
+                               lcap: int = DEFAULT_LCAP,
+                               num_devices: int | None = None,
+                               device=None):
+    """Mesh-sharded MapConcatenate (K5): one K4 launch per device with the
+    per-device tuples folded on ``device``. Returns (counts int64[M],
+    bad bool[M]) exactly like ``a1_mapconcat_count``, which it takes when
+    fewer than two devices are usable or the stream is too short to shard
+    stitch-safely."""
+    dev = resolve_device(device)
+    if eps.N == 1:
+        return (count_level1(stream, eps.etypes[:, 0]),
+                np.zeros(eps.M, dtype=bool))
+    got = _sharded_inputs(stream, eps, num_segments, num_devices, False, dev)
+    if got is None:
+        return a1_mapconcat_count(stream, eps, num_segments=num_segments,
+                                  lcap=lcap, device=dev)
+    mesh, args = got
+    _, c, _, f, ovf = a1_mapconcat_sharded_tuples(*args, lcap=lcap,
+                                                  devices=mesh)
+    out = torch.stack([c[0], f[0] | ovf]).cpu().numpy()
+    return out[0].astype(np.int64), out[1] != 0
+
+
+def a2_mapconcat_sharded_count(stream: EventStream, eps: EpisodeBatch,
+                               num_segments: int = 8,
+                               num_devices: int | None = None,
+                               device=None):
+    """Mesh-sharded segmented A2 counting (K5, single-slot kind) of the
+    relaxed batch with the inclusive lower bound — see
+    ``a2_mapconcat_count`` for the contract and the single-device rule."""
+    dev = resolve_device(device)
+    if eps.N == 1:
+        return (count_level1(stream, eps.etypes[:, 0]),
+                np.zeros(eps.M, dtype=bool))
+    got = _sharded_inputs(stream, eps, num_segments, num_devices, True, dev)
+    if got is None:
+        return a2_mapconcat_count(stream, eps, num_segments=num_segments,
+                                  device=dev)
+    mesh, args = got
+    _, c, _, f, _ = a2_mapconcat_sharded_tuples(*args, devices=mesh)
     out = torch.stack([c[0], f[0]]).cpu().numpy()
     return out[0].astype(np.int64), out[1] != 0
 

@@ -21,8 +21,12 @@ Two modes:
 ``--engine`` takes the reference's choices: ``hybrid`` (default; the
 Eq. 2 rule, per streaming counter or per one-shot batch), ``ptpe`` (kernels
 K1/K2), ``mapconcatenate`` and ``mapconcat_kernel`` (the segment-parallel
-kernels K4, and with ``--restart`` K3 for the A2 cull). ``mapconcat_sharded``
-is the multi-GPU form and raises until that slice is ported.
+kernels K4, and with ``--restart`` K3 for the A2 cull), and
+``mapconcat_sharded`` (K5: the segmented launches sharded over the mesh,
+one launch per device). The mesh is every card (the CPU alone with
+``--device cpu``), or the devices a caller fixes around ``main`` with
+``core.mapconcat.stream_mesh`` — logical shards of one card or of the CPU
+included.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.mine --seconds 30 --theta 40 \
@@ -38,10 +42,12 @@ import argparse
 import numpy as np
 
 from repro_torch.core import mine_partitions
-from repro_torch.core.hybrid import sharded_pending
 from repro_torch.core.streaming import StreamingMiner
 from repro_torch.data import partition_windows, sym26
+from repro_torch.device import resolve_device
 from repro_torch.telemetry import ThroughputMeter
+
+from .mesh import make_stream_mesh
 
 
 def _report(widx, res, max_level):
@@ -83,13 +89,12 @@ def main(argv=None):
                     choices=["window", "cumulative"],
                     help="apply θ to per-window deltas or cumulative counts")
     args = ap.parse_args(argv)
-    if args.engine == "mapconcat_sharded":
-        raise sharded_pending()
-
+    shards = len(make_stream_mesh(device=resolve_device(args.device)))
     stream, truth = sym26(seconds=args.seconds, seed=args.seed)
     print(f"[mine] {len(stream)} events over {args.seconds}s on "
-          f"{args.device}; planted: {truth['short'][0]} and "
-          f"{truth['long'][0]} with delays {truth['short'][1]}")
+          f"{args.device} ({shards} shard(s)); planted: "
+          f"{truth['short'][0]} and {truth['long'][0]} with delays "
+          f"{truth['short'][1]}")
     window_theta = max(2, args.theta * args.window_ms
                        // (args.seconds * 1000))
 

@@ -10,7 +10,10 @@ and each tenant's episode deltas are printed as they complete. Per-session
 results are bit-identical to a standalone ``StreamingMiner`` (the
 exactness tests assert this); the service only changes throughput. The
 kernels run on ``--device`` (default: the CUDA card; ``--device cpu`` runs
-their plain PyTorch versions).
+their plain PyTorch versions). ``--engine mapconcat_sharded`` (or
+``hybrid``'s segment-parallel counters) shards the commits over the device
+mesh — every card, or the devices ``core.mapconcat.stream_mesh`` fixes
+around ``main`` — with fused commits through K6d.
 
 Not ported yet: the wire-served daemon (``--listen``, ``--daemon``,
 ``--daemon-status``, ``--daemon-stop``, ``--data-dir``,
@@ -152,6 +155,7 @@ def main(argv=None):
         print(f"[serve] pipeline overlap "
               f"{stats['scheduler']['pipeline_overlap_s']*1e3:.0f} ms of "
               f"next-step staging under device work")
+    print(f"[serve] segment axis over {stats['mesh_devices']} shard(s)")
     k = stats["kernel"]
     print(f"[serve] kernel launches {k['launches']} (fused lanes "
           f"{k['lanes']}); plain-version runs {k['plain']}")

@@ -1,5 +1,5 @@
 """Step watchdog and retry (copy of ``repro.runtime.ft``'s single-host
-policies; the elastic re-meshing waits for the multi-GPU slice).
+policies; its elastic re-meshing, ``ElasticRuntime``, is not ported).
 
 The *policies* are the framework layer: deterministic retry from the last
 good state and p99-based straggler deadlines."""

@@ -6,9 +6,9 @@ measured fusion gate.
 The multi-tenant service advances many ``MiningSession``s concurrently.
 Each session's miner bottoms out in a handful of kernel launches (K1 for
 the A2 cull, K2 for the bounded-list counts, K4 for the segment-parallel
-commits); running S sessions naively issues S small launches per level per
-window. This module is the executor that turns those into one launch per
-group:
+commits, K5 for the commits a mesh of devices shards); running S sessions
+naively issues S small launches per level per window. This module is the
+executor that turns those into one launch per group:
 
 * each session step runs in its own worker thread and installs this
   executor into its counters (the ``executor`` seam of
@@ -20,8 +20,9 @@ group:
   tenants that were never going to join it. The
   thread whose submit (or ``end_step``) completes a group executes its
   flush: one fused launch (``kernels.ops.a2_state_vmapped``,
-  ``a1_state_vmapped`` or ``a1_mapc_vmapped``) advances every lane's
-  state where it lives. Singleton lanes dispatch immediately through the
+  ``a1_state_vmapped`` or ``a1_mapc_vmapped``; ``a1_mapc_sharded_vmapped``,
+  one per mesh device and one fold, for sharded commits) advances every
+  lane's state where it lives. Singleton lanes dispatch immediately through the
   plain single launch. Sessions with no prediction yet (first step) are
   wildcards — all groups then wait for every live step to park — and a
   ``flush_deadline_s`` timeout force-flushes a group should a stale
@@ -36,7 +37,9 @@ Group keys. The reference's lanes had to share Pallas block shapes, so its
 keys held the episode and state shapes. Here every lane carries its own
 episode count M and event count in the launch's lane table, so the keys
 hold only what one launch must share: N for K1 (``"a2k"``), N and LCAP for
-K2 (``"a1k"``), N, LCAP and the segment count P for K4 (``"mapck"``).
+K2 (``"a1k"``), N, LCAP and the segment count P for K4 (``"mapck"``), and
+for the mesh-sharded commits (``"mapcs"``: K5 alone, K6d fused) N, LCAP,
+P and the mesh's devices.
 Lanes of any M fuse, and no event brick is padded: each lane walks only
 its own events. The pad-waste guardrail ``MAX_PAD_RATIO`` still splits a
 group whose event-buffer lengths spread beyond that factor
@@ -78,6 +81,7 @@ _EV_LEN = {
     "a2k": lambda args: args[3].shape[-1],
     "a1k": lambda args: args[3].shape[-1],
     "mapck": lambda args: args[5].shape[-1],
+    "mapcs": lambda args: args[5].shape[-1],
 }
 
 
@@ -142,7 +146,8 @@ class _Request:
         self.kind = kind
         self.key = key
         self.args = args  # the counter's kernel-layout operands
-        self.static = static  # n_events (a2k, a1k) or lcap (mapck)
+        # n_events (a2k, a1k), lcap (mapck) or (lcap, devices) (mapcs)
+        self.static = static
         self.event = threading.Event()
         self.result = None
         self.error = None
@@ -211,14 +216,13 @@ class CrossSessionBatcher:
         key = ("mapck", args[0].shape[0], lcap, args[5].shape[0])
         return self._submit(_Request("mapck", key, args, lcap))
 
-    def mapc_sharded_scan(self, args, lcap: int, num_devices: int):
-        """The reference's seam for the mesh-sharded commit (K5 under
-        K6d). Multi-GPU is not ported: with one device it is the
-        single-device seam, else it raises."""
-        if num_devices != 1:
-            from repro_torch.core.hybrid import sharded_pending
-            raise sharded_pending()
-        return self.mapc_kernel_scan(args, lcap)
+    def mapc_sharded_scan(self, args, lcap: int, devices):
+        # K4 operands of a mesh-sharded commit (K5): the P segments split
+        # over ``devices``; returns the stitched (a, c, b, f, ovf). Fused
+        # groups run K6d; P and the mesh stay in the key, LW does not
+        key = ("mapcs", args[0].shape[0], lcap, args[5].shape[0],
+               tuple(devices))
+        return self._submit(_Request("mapcs", key, args, (lcap, devices)))
 
     # --------------------------------------------------- step accounting
 
@@ -428,9 +432,13 @@ class CrossSessionBatcher:
                 kops.a1_state_vmapped([(r.args, r.static) for r in group])
                 results = [(r.args[6], r.args[7], r.args[4], r.args[5])
                            for r in group]
-            else:
+            elif kind == "mapck":
                 results = kops.a1_mapc_vmapped([r.args for r in group],
                                                lcap=group[0].static)
+            else:
+                lcap, devices = group[0].static
+                results = kops.a1_mapc_sharded_vmapped(
+                    [r.args for r in group], lcap=lcap, devices=devices)
         with self._lock:
             self.cost_model.observe_fused(key, len(group),
                                           time.perf_counter() - t0)
@@ -448,9 +456,13 @@ class CrossSessionBatcher:
 
     @staticmethod
     def _run_single(req: _Request):
-        """Lone request: the single launch (K1, K2 or K4)."""
+        """Lone request: the single launch (K1, K2, K4 or K5)."""
         if req.kind == "a2k":
             return kops.a2_state_call(*req.args, n_events=req.static)
         if req.kind == "a1k":
             return kops.a1_state_call(*req.args, n_events=req.static)
+        if req.kind == "mapcs":
+            lcap, devices = req.static
+            return kops.a1_mapconcat_sharded_tuples(*req.args, lcap=lcap,
+                                                    devices=devices)
         return kops.a1_mapconcat_tuples(*req.args, lcap=req.static)

@@ -17,7 +17,9 @@ Guarantee: per-session outputs are bit-identical to a standalone
 ``StreamingMiner`` over the same windows — batching and scheduling are
 pure throughput optimizations (tests/test_torch_service.py asserts this
 for every engine × two-pass combination, against the reference service
-too). Sessions live on ``device`` (default: the CUDA card).
+too). Sessions live on ``device`` (default: the CUDA card); their
+segment-parallel commits shard over the mesh (every card, or the tuple
+``core.mapconcat.stream_mesh`` fixes around the service's steps).
 
 Usage::
 
@@ -41,6 +43,7 @@ from __future__ import annotations
 import itertools
 
 from repro_torch.core.events import EventStream
+from repro_torch.core.mapconcat import shard_device_count
 from repro_torch.device import resolve_device
 from repro_torch.kernels import tally
 from repro_torch.obs import REGISTRY, span
@@ -148,6 +151,9 @@ class MiningService:
                 "fusion_gate": dict(self.batcher.gate_decisions),
                 "lanes_per_launch": dict(self.batcher.lanes_per_launch),
             }
+        # the devices the sessions' segment-parallel commits shard over
+        # (``core.mapconcat.stream_mesh``; 1: none shard)
+        out["mesh_devices"] = shard_device_count(self.device)
         out["kernel"] = {
             "launches": tally.launch_counts(),
             "plain": tally.plain_counts(),

@@ -9,7 +9,11 @@ against the same miner on the CPU, with the ``ptpe`` and the default
 ``hybrid`` engine. The fused multi-session kernels K6a–K6c are held
 against lone K1, K2 and K4 launches (and the plain versions) on lanes of
 unequal M and event counts, and a two-session ``MiningService`` on the
-card against standalone miners.
+card against standalone miners. The mesh-sharded K5 (both kinds) runs on
+2, 4 and 8 logical shards of the card against its plain version and the
+unsharded K4/K3 launch on the same segments, K6d against lone K5 calls,
+and the ``hybrid`` streaming miner on a 4-shard mesh against the same
+miner without one.
 """
 
 import numpy as np
@@ -302,3 +306,104 @@ def test_service_on_card_equals_standalone(card):
                                           d.result.counts, want.counts):
                     np.testing.assert_array_equal(fa.etypes, fb.etypes)
                     np.testing.assert_array_equal(ca, cb)
+
+
+# ------------------------------------------------------ K5, K6d (sharded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_cuda_sharded_kernels_match_plain(card, d):
+    """K5 on d logical shards of the card, P = 2d segments: equal to its
+    plain version and to the unsharded K4/K3 launch on the same segments
+    (the segment fold is associative, flagged entries included), bit for
+    bit, at N = 2, 3, 5, 8 and LCAP = 1, 4, 8; d shard launches and one
+    fold launch per call."""
+    mesh = [card] * d
+    tally.reset_counts()
+    calls = 0
+    for n in (2, 3, 5, 8):
+        eps, segs = mapc_case(card, 10 * d + n, n, 130 + n, 2 * d)
+        assert segs.shape[0] == 2 * d
+        lay2 = ops.mapconcat_layout(eps.relaxed(), True, card)
+        got = k_a2.a2_mapconcat_sharded(*lay2, segs, devices=mesh)
+        for want in (k_a2.a2_mapconcat_sharded_plain(*lay2, segs,
+                                                     devices=mesh),
+                     k_a2.a2_mapconcat_kernel(*lay2, segs)):
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), ("K5 a2", n, d)
+        lay1 = ops.mapconcat_layout(eps, False, card)
+        for lcap in (1, 4, 8):
+            got = k_a1.a1_mapconcat_sharded(*lay1, segs, lcap=lcap,
+                                            devices=mesh)
+            calls += 1
+            for want in (k_a1.a1_mapconcat_sharded_plain(
+                    *lay1, segs, lcap=lcap, devices=mesh),
+                    k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap)):
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), ("K5 a1", n, lcap, d)
+    torch.cuda.synchronize()
+    launches = tally.launch_counts()
+    assert launches[k_a1.SHARD_KERNEL] == d * calls
+    assert launches[k_a2.SHARD_KERNEL] == d * 4
+    assert launches[k_a2.SHARD_FOLD] == calls + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4])
+def test_cuda_k6d_matches_k5_launches(card, d):
+    """K6d gives each lane (unequal M and window length) the tuples a lone
+    K5 call gives it, and its plain per-lane loop, bit for bit: one K6c
+    launch per shard and one fold launch for all lanes."""
+    from repro_torch.core import make_segments
+    mesh = [card] * d
+    for lcap in (1, 4):
+        lanes = []
+        for i, (m, k) in enumerate(zip(LANE_M, (400, 700, 1500, 2400,
+                                                 900))):
+            types, times = tie_stream(i, n=k)
+            eps = random_batch(i, m=m, n=3)
+            tau, wt, wtt = make_segments(
+                EventStream(types, times, NUM_TYPES), 2 * d,
+                int(eps.max_span.max()))
+            assert wt.shape[0] == 2 * d
+            lanes.append((*ops.mapconcat_layout(eps, False, card),
+                          ops.segment_bricks(wt, wtt, tau, card)))
+        tally.reset_counts()
+        fused = ops.a1_mapc_sharded_vmapped(lanes, lcap=lcap, devices=mesh)
+        assert tally.launch_counts() == {k_a1.SHARDED_LANES_KERNEL: d,
+                                         k_a1.SHARD_FOLD_LANES: 1}
+        plain = k_a1.a1_mapconcat_sharded_lanes_plain(lanes, lcap=lcap,
+                                                      devices=mesh)
+        for args, got, want_plain in zip(lanes, fused, plain):
+            want = k_a1.a1_mapconcat_sharded(*args, lcap=lcap, devices=mesh)
+            for x, y, z in zip(got, want, want_plain):
+                assert torch.equal(x, y) and torch.equal(x, z), lcap
+
+
+@pytest.mark.cuda
+def test_streaming_sharded_on_card_equals_unsharded(card):
+    """The default ``hybrid`` miner on a 4-shard mesh of the card shards
+    its segment-parallel commits (K5) and equals the same miner without a
+    mesh, window by window."""
+    from repro_torch.core import stream_mesh
+    stream, _ = sym26(seconds=12, seed=1)
+    wins = list(partition_windows(stream, 3000))
+    alone = StreamingMiner([(5, 10)], 10, max_level=4, engine="hybrid",
+                           device=card)
+    tally.reset_counts()
+    with stream_mesh([card] * 4):
+        sharded = StreamingMiner([(5, 10)], 10, max_level=4,
+                                 engine="hybrid", device=card)
+        for i, w in enumerate(wins):
+            final = i == len(wins) - 1
+            got = sharded.update(w, final=final)
+            want = alone.update(w, final=final)
+            assert len(got.frequent) == len(want.frequent)
+            for fa, fb, ca, cb in zip(got.frequent, want.frequent,
+                                      got.counts, want.counts):
+                np.testing.assert_array_equal(fa.etypes, fb.etypes)
+                np.testing.assert_array_equal(ca, cb)
+    launches = tally.launch_counts()
+    assert launches[k_a1.SHARD_KERNEL] > 0
+    assert launches[k_a2.SHARD_FOLD] > 0

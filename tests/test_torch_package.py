@@ -1,10 +1,12 @@
 """Package-level contract of the PyTorch port: it imports neither ``jax``
 nor ``repro``; its entry points default to the CUDA card and raise
 without one; engines and policy tables it does not have raise instead of
-answering under another name; its launcher runs end to end on the CPU with
-the default ``hybrid`` engine and with ``--restart --engine
-mapconcat_kernel``; and its data generators and candidate joins equal the
-reference's."""
+answering under another name; the sharded engine runs on logical CPU
+shards and degrades on one device as the reference's does; its launcher
+runs end to end on the CPU with the default ``hybrid`` engine, with
+``--restart --engine mapconcat_kernel`` and with ``--engine
+mapconcat_sharded`` on two CPU shards; and its data generators and
+candidate joins equal the reference's."""
 
 import ast
 import os
@@ -84,33 +86,51 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 @pytest.mark.parametrize("engine", ["mapconcat_sharded"])
 def test_pending_engines_raise(engine):
-    """The multi-GPU MapConcatenate is not ported: the one-shot paths
-    raise; a streaming counter, with one device all there is, takes it as
-    the single-device segment-parallel engine."""
+    """The multi-GPU MapConcatenate, once pending, runs: on two logical
+    CPU shards the one-shot paths count exactly through K5's plain
+    version, the launcher runs the engine end to end, and a streaming
+    counter takes it as the segment-parallel engine on the mesh. An
+    engine the reference does not have still raises."""
+    from repro_torch.core import stream_mesh
     stream, eps = _tiny()
-    with pytest.raises(NotImplementedError, match="MapConcatenate"):
-        count_dispatch(stream, eps, engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="MapConcatenate"):
-        count_two_pass(stream, eps, 1, engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="MapConcatenate"):
-        launch_main(["--device", "cpu", "--engine", engine])
-    assert StreamingCounter(eps, engine=engine,
-                            device="cpu").engine == "mapconcatenate"
+    with stream_mesh(["cpu"] * 2):
+        assert count_dispatch(stream, eps, engine=engine,
+                              num_segments=2, device="cpu").tolist() == [2]
+        res = count_two_pass(stream, eps, 1, engine=engine,
+                             num_segments=2, device="cpu")
+        assert res.counts.tolist() == [2]
+        ctr = StreamingCounter(eps, engine=engine, device="cpu")
+        assert ctr.engine == "mapconcatenate" and len(ctr._mesh) == 2
+        tally.reset_counts()
+        launch_main(["--device", "cpu", "--engine", engine, "--restart",
+                     "--seconds", "4", "--window-ms", "2000",
+                     "--max-level", "2"])
+        assert tally.plain_counts().get("a1_mapc_shard", 0) > 0
     with pytest.raises(ValueError):
         count_dispatch(stream, eps, engine="bogus", device="cpu")
 
 
-def test_streaming_sharded_alias_needs_one_device(monkeypatch):
-    """The streaming alias of the sharded engine to the single-device one
-    holds only while one device is all there is; beyond that it raises
-    rather than quietly run on one device."""
-    from repro_torch.core import hybrid
-    _, eps = _tiny()
-    monkeypatch.setattr(hybrid, "shard_devices", lambda: 2)
-    with pytest.raises(NotImplementedError, match="MapConcatenate"):
-        StreamingCounter(eps, engine="mapconcat_sharded", device="cpu")
-    assert StreamingCounter(eps, engine="mapconcat_kernel",
-                            device="cpu").engine == "mapconcatenate"
+def test_streaming_sharded_alias_needs_one_device():
+    """The streaming alias of the sharded engine degrades on a one-device
+    mesh exactly as the reference's does: it is the single-device
+    segment-parallel counter (no sharded commit, the ``mapconcat_kernel``
+    alias's counts). On two devices its commits shard, with the same
+    counts."""
+    from repro_torch.core import stream_mesh
+    stream, eps = _tiny()
+    counts = {}
+    for d in (1, 2):
+        with stream_mesh(["cpu"] * d):
+            for engine in ("mapconcat_sharded", "mapconcat_kernel"):
+                ctr = StreamingCounter(eps, engine=engine, num_segments=2,
+                                       device="cpu")
+                assert ctr.engine == "mapconcatenate"
+                assert len(ctr._mesh) == d
+                tally.reset_counts()
+                counts[d, engine] = ctr.update(stream, final=True).tolist()
+                shard = tally.plain_counts().get("a1_mapc_shard", 0)
+                assert (shard > 0) == (d == 2), (d, engine, shard)
+    assert set(map(tuple, counts.values())) == {(2,)}
 
 
 def test_policy_tables_raise(monkeypatch):
