@@ -4,16 +4,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
-   ``sm_90a``, one process per source, all started together (build time and
-   ptxas register/spill summary);
+   ``sm_90a``, one process per source, all started together (build time,
+   ptxas register/spill summary, and K1's and K2's registers and spills
+   for each N and LCAP);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
-   bit for bit: K1 (A2 single-slot) and K2 (A1 bounded-list) at edge shapes
-   (N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, M not a multiple of 128, tie-heavy
-   events, state carried over two chunks); K3 (A2 MapConcatenate) and K4
-   (A1 MapConcatenate, with and without its fold) at N = 2, 3, 5, 8,
-   LCAP = 1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy events, an occurrence
-   ending exactly at τ+W on a segment boundary and a stitch that goes
-   unmatched — all of (a, c, b, f, ovf) compared; the fused multi-session
+   bit for bit: K1 (A2 single-slot) and K2 (A1 bounded-list), the
+   type-indexed walk, also against the dense walk (a single-lane K6a/K6b
+   launch), at edge shapes (N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, M not a
+   multiple of 128, tie-heavy events over 4 types, state carried over two
+   chunks) and at what the type index treats specially (300 types, so its
+   64 buckets collide, repeated-type episodes, 1,100 events, M = 1, 33,
+   1000, state carried over 2 and 3 cuts between tie groups); K3 (A2
+   MapConcatenate) and K4 (A1 MapConcatenate, with and without its fold)
+   at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy
+   events, an occurrence ending exactly at τ+W on a segment boundary and a
+   stitch that goes unmatched — all of (a, c, b, f, ovf) compared; the fused multi-session
    kernels K6a, K6b and K6c (one launch for many counters' lanes) on lanes
    of unequal M (1, 127, 128, 129, 5000) and event counts (0, 1, 1024,
    1025, 5600) at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8, against
@@ -72,13 +77,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    over back-to-back calls of the kernel durations the profiler records on
    the card, beside the wrapper's wall time per call (CUDA events, host
    enqueue included), the plain version's time and the least time the card
-   could take (its bound); the fused kernels at path C's largest group of
-   each, beside the device time of the same lanes launched one by one;
+   could take (its bound: each input read once, each output written once,
+   and the compares these inputs need: the type compares on each (event,
+   episode) pair whose event's type is one of the episode's, and the
+   window test at each level of the event's type; K1/K2's lines also
+   print the dense count of PR 11-14, a full step for every pair); K1
+   and K2 at the largest level-3 batches of the Sym26 and the 64-channel
+   ptpe runs, each in turns (new, old, old, new) with the dense walk on the
+   same inputs (a single-lane K6a/K6b launch); the fused kernels at path
+   C's largest group of each, beside the device time of the same lanes
+   launched one by one;
    K5 at path E's largest shapes beside the unsharded K4/K3 on the same
    segments, and K6d at path F's largest group beside the same lanes'
    lone K5 calls;
-5. a JSON line of kernel numbers, the ``nvidia-smi`` line, and last the
-   device line ``{"ok": true, "device": {...}}``.
+5. a JSON line of kernel numbers (K1/K2 at the Sym26 shape), the
+   ``nvidia-smi`` line, and last the device line ``{"ok": true, "device":
+   {...}}``.
 
 Usage (from the root of a checkout, on a machine with one CUDA card):
     python3 chip_smoke.py [--lcap 8]
@@ -199,6 +213,14 @@ PLAIN_RUNS = 3
 # fused-kernel edge lanes: unequal episode and event counts
 LANE_M = (1, 127, 128, 129, 5000)
 LANE_EVENTS = (0, 1, 1024, 1025, 5600)
+# K1/K2 type-index edge cases: more types than 4 x the index's 64 buckets
+# (buckets collide), an event count that is no multiple of 32 and crosses
+# the 1,024-event chunk, M from one episode to several blocks
+WALK_TYPES = 300
+WALK_EVENTS = 1100
+WALK_M = (1, 33, 1000)
+# phase 4 times K1/K2 at the largest level-3 batches of these streams
+WALK_SHAPES = ("sym26", "sym26-64ch")
 
 
 def fail(msg: str) -> None:
@@ -220,6 +242,25 @@ def ptxas_summary(log: str) -> str:
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
     return (f"{len(regs)} kernels, registers max {max(regs, default=0)}, "
             f"spill stores max {max(spills, default=0)} bytes")
+
+
+def ptxas_kernels(log: str, kernel: str) -> dict[str, tuple[int, int]]:
+    """{"N,L": (registers, spill store bytes)} of each instantiation of the
+    ``__global__`` template ``kernel`` in one source's ptxas report."""
+    out, name, spill = {}, "", 0
+    for line in log.splitlines():
+        got = re.search(r"Compiling entry function '(\S+)'", line)
+        if got:
+            name, spill = got.group(1), 0
+        got = re.search(r"(\d+) bytes spill stores", line)
+        if got:
+            spill = int(got.group(1))
+        got = re.search(r"Used (\d+) registers", line)
+        if got and kernel in name:
+            args = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?", name)
+            key = ",".join(a for a in args.groups() if a) if args else name
+            out[key] = (int(got.group(1)), spill)
+    return out
 
 
 # ----------------------------------------------------------------- phase 2
@@ -246,59 +287,152 @@ def max_abs_diff(torch, xs, ys) -> int:
                for x, y in zip(xs, ys))
 
 
-def compare_k1(torch, ops, k_a2, eps, ev, n_events, chunks=1):
-    """K1 vs its plain version on the same CUDA tensors; returns the largest
-    absolute difference over counts and carried state."""
-    lay = ops.episode_layout(eps.relaxed(), inclusive_lower=True,
-                             device="cuda")
-    from repro_torch.core import init_a2_state
-    st = ops.a2_state_layout(init_a2_state(eps.relaxed(), "cuda"), "cuda")
-    plain = [x.clone() for x in st]
-    cuts = [n_events * j // chunks for j in range(chunks + 1)]
+def compare_walks(torch, kernel, plain, old_walk, lay, st, ev, cuts):
+    """One K1/K2 kernel, its plain version and the dense walk (a single-lane
+    K6a/K6b launch) advance copies of the carried state ``st`` over the
+    chunks ``cuts`` of ``ev``, on the same CUDA tensors; returns the
+    largest absolute difference of the kernel's counts and state from the
+    other two."""
+    got, want, old = ([x.clone() for x in st] for _ in range(3))
     for a, b in zip(cuts[:-1], cuts[1:]):
         sub = ev[:, a:].contiguous()
-        k_a2.a2_count_state(*lay, sub, *st, n_events=b - a)
-        k_a2.a2_count_state_plain(*lay, sub, *plain, b - a)
+        kernel(*lay, sub, *got, n_events=b - a)
+        plain(*lay, sub, *want, b - a)
+        old_walk([((*lay, sub, *old), b - a)])
     torch.cuda.synchronize()
-    return max_abs_diff(torch, st, plain)
+    return max(max_abs_diff(torch, got, want), max_abs_diff(torch, got, old))
+
+
+def compare_k1(torch, ops, k_a2, eps, ev, cuts):
+    """K1 against its plain version and the dense walk (``compare_walks``)."""
+    from repro_torch.core import init_a2_state
+    return compare_walks(
+        torch, k_a2.a2_count_state, k_a2.a2_count_state_plain,
+        k_a2.a2_count_state_lanes,
+        ops.episode_layout(eps.relaxed(), inclusive_lower=True,
+                           device="cuda"),
+        ops.a2_state_layout(init_a2_state(eps.relaxed(), "cuda"), "cuda"),
+        ev, cuts)
 
 
 def compare_k2(torch, ops, k_a1, eps, lcap, ev, cuts):
-    """K2 vs its plain version on the same CUDA tensors, the state carried
-    over the chunks ``cuts``; returns the largest absolute difference over
-    counts, ovf and the carried state."""
+    """K2 against its plain version and the dense walk (``compare_walks``),
+    counts, ovf and the carried state compared."""
     from repro_torch.core import init_a1_state
-    lay = ops.episode_layout(eps, inclusive_lower=False, device="cuda")
-    st = ops.a1_state_layout(init_a1_state(eps, lcap, "cuda"), "cuda")
-    plain = [x.clone() for x in st]
-    for a, b in zip(cuts[:-1], cuts[1:]):
-        sub = ev[:, a:].contiguous()
-        k_a1.a1_count_state(*lay, sub, *st, n_events=b - a)
-        k_a1.a1_count_state_plain(*lay, sub, *plain, b - a)
-    torch.cuda.synchronize()
-    return max_abs_diff(torch, st, plain)
+    return compare_walks(
+        torch, k_a1.a1_count_state, k_a1.a1_count_state_plain,
+        k_a1.a1_count_state_lanes,
+        ops.episode_layout(eps, inclusive_lower=False, device="cuda"),
+        ops.a1_state_layout(init_a1_state(eps, lcap, "cuda"), "cuda"),
+        ev, cuts)
+
+
+def tie_cuts(np, times, k) -> list[int]:
+    """``k`` chunks' bounds, cut only where the time rises (never inside a
+    tie group, as the streaming counters' holdback guarantees)."""
+    ok = np.nonzero(np.diff(times) > 0)[0] + 1
+    return ([0] + [int(ok[len(ok) * j // k]) for j in range(1, k)]
+            + [len(times)])
 
 
 def edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
     types, times = tie_stream(np, 1, 3000, 4)
-    ok = np.nonzero(np.diff(times) > 0)[0] + 1
-    cuts = [0, int(ok[len(ok) // 2]), types.size]  # cut off tie groups
+    cuts = tie_cuts(np, times, 2)
     ev = ops.event_brick(types, times, with_dup=True, device="cuda",
                          length=4096)
     for n in (2, 3, 5, 8):
         eps = random_batch(np, EpisodeBatch, n, 1000 + n, n, 4)
-        d = compare_k1(torch, ops, k_a2, eps, ev, types.size, chunks=2)
+        d = compare_k1(torch, ops, k_a2, eps, ev,
+                       [0, types.size // 2, types.size])
         errs["a2_count_state"] = max(errs["a2_count_state"], d)
         if d:
-            fail(f"K1 differs from its plain version at N={n}: {d}")
+            fail(f"K1 differs from its plain version or the dense walk at "
+                 f"N={n}: {d}")
         for lcap in (1, 2, 4, 8):
             d = compare_k2(torch, ops, k_a1, eps, lcap, ev, cuts)
             errs["a1_count_state"] = max(errs["a1_count_state"], d)
             if d:
-                fail(f"K2 differs from its plain version at N={n}, "
-                     f"lcap={lcap}: {d}")
-        print(f"[smoke] K1/K2 == plain at N={n}, M={eps.M}, "
+                fail(f"K2 differs from its plain version or the dense walk "
+                     f"at N={n}, lcap={lcap}: {d}")
+        print(f"[smoke] K1/K2 == plain == dense walk at N={n}, M={eps.M}, "
               f"lcap 1/2/4/8, {types.size} events in 2 chunks")
+
+
+def walk_stream(np, seed, n, num_types):
+    """A tie-heavy stream of ``n`` events over ``num_types`` types in which
+    a motif of 8 events (5 types, one of them three times) recurs every 40
+    events, 2 ms apart, so that episodes drawn from it complete whatever
+    the alphabet's size. Returns (types, times, motif)."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.choice([0, 0, 1, 2], size=n)
+    types = rng.integers(0, num_types, size=n).astype(np.int32)
+    motif = rng.integers(0, num_types, size=5)[[0, 0, 1, 2, 0, 3, 4, 1]]
+    for a in range(0, n - 8, 40):
+        types[a:a + 8] = motif
+        gaps[a + 1:a + 8] = 2
+    return types, (np.cumsum(gaps) + 1).astype(np.int32), motif.astype(
+        np.int32)
+
+
+def walk_batch(np, EpisodeBatch, seed, m, n, types, motif):
+    """``m`` episodes of ``n`` levels (n <= 8) in turn: the motif's
+    repeated type at every level (A→A→…, the first episode), motif types
+    drawn with repeats, a run of the stream's consecutive events, and a
+    run of the motif; lower bounds 0 or 1, windows 2 to 7 wide."""
+    rng = np.random.default_rng(seed)
+    et = np.empty((m, n), np.int32)
+    for j in range(m):
+        kind = j % 4
+        if kind == 0:
+            et[j] = motif[0]
+        elif kind == 1:
+            et[j] = rng.choice(motif, size=n)
+        elif kind == 2:
+            a = int(rng.integers(0, len(types) - n))
+            et[j] = types[a:a + n]
+        else:
+            a = int(rng.integers(0, len(motif) - n + 1))
+            et[j] = motif[a:a + n]
+    tlo = rng.integers(0, 2, size=(m, n - 1)).astype(np.int32)
+    thi = (tlo + rng.integers(2, 8, size=(m, n - 1))).astype(np.int32)
+    return EpisodeBatch(et, tlo, thi)
+
+
+def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
+    """K1 and K2 on what their type index treats specially: ``WALK_TYPES``
+    types (buckets collide), repeated-type episodes, ``WALK_EVENTS`` events
+    (no multiple of 32; the 1,024-event chunk is crossed), M in ``WALK_M``,
+    LCAP 1, 2, 4, 8, the state carried over 2 and 3 cuts that keep tie
+    groups whole; each held against its plain version and the dense walk.
+    K1 takes the 2-row event brick (no dup) in every other case."""
+    types, times, motif = walk_stream(np, 6, WALK_EVENTS, WALK_TYPES)
+    ev = ops.event_brick(types, times, with_dup=True, device="cuda",
+                         length=WALK_EVENTS + 64)
+    total = 0
+    for n in (2, 3, 5, 8):
+        for i, m in enumerate(WALK_M):
+            eps = walk_batch(np, EpisodeBatch, 10 * n + i, m, n, types,
+                             motif)
+            k = 2 + (n + i) % 2
+            cuts = tie_cuts(np, times, k)
+            d = compare_k1(torch, ops, k_a2, eps,
+                           ev[:2].contiguous() if i % 2 else ev, cuts)
+            errs["a2_count_state"] = max(errs["a2_count_state"], d)
+            if d:
+                fail(f"K1 differs from its plain version or the dense walk "
+                     f"at {WALK_TYPES} types, N={n}, M={m}, {k} cuts: {d}")
+            for lcap in (1, 2, 4, 8):
+                d = compare_k2(torch, ops, k_a1, eps, lcap, ev, cuts)
+                errs["a1_count_state"] = max(errs["a1_count_state"], d)
+                if d:
+                    fail(f"K2 differs from its plain version or the dense "
+                         f"walk at {WALK_TYPES} types, N={n}, M={m}, "
+                         f"lcap={lcap}, {k} cuts: {d}")
+            total += 1
+    print(f"[smoke] K1/K2 == plain == dense walk on {total} type-index "
+          f"cases: {WALK_TYPES} types (motif {motif.tolist()}), "
+          f"{WALK_EVENTS} events, N 2/3/5/8, M {WALK_M}, lcap 1/2/4/8, 2 "
+          f"and 3 cuts, repeated-type episodes")
 
 
 def compare_mapc(torch, ops, k_a1, k_a2, eps, segs, lcaps, errs, what):
@@ -1290,35 +1424,80 @@ def device_ms(torch, fn, n, kernel_names, per_call=1) -> tuple[float, int]:
     return total_us / 1e3, min(seen.values())
 
 
-def bound(n_events, m, n, lcap, kind):
-    """(bound_ms, bound_by, bytes, ops): each input read once, each output
-    written once, over the HBM rate; the int32 compares over the int32
-    rate. K1 per event and episode: N type compares + 2(N-1) window
-    compares; K2: N + 2(N-1)·LCAP."""
+Bound = collections.namedtuple("Bound", "ms by nbytes ops")
+
+
+def type_hist(np, types):
+    """Events per type over ``types`` (padding, type -1, left out)."""
+    types = np.asarray(types, np.int64).ravel()
+    return np.bincount(types[types >= 0], minlength=1)
+
+
+def hits(np, hist, idx):
+    """``hist`` at the types ``idx``, 0 for a type no event has."""
+    ok = (idx >= 0) & (idx < hist.size)
+    return hist[np.where(ok, idx, 0)] * ok
+
+
+def matching_pairs(np, types, et) -> int:
+    """(event, episode) pairs whose event's type is one of the episode's
+    distinct level types: the events that can change a machine. ``types``:
+    the walked events' types (padding, type -1, matches nothing); ``et``:
+    the episodes' level types, (M, N)."""
+    et = np.sort(np.asarray(et, np.int64), axis=1)
+    first = np.ones(et.shape, bool)
+    first[:, 1:] = et[:, 1:] != et[:, :-1]
+    return int(hits(np, type_hist(np, types), et)[first].sum())
+
+
+def walk_ops(np, types, et, slots) -> int:
+    """The int32 compares a walk needs over the events ``types`` for the
+    episodes ``et`` (M, N) with ``slots`` witnesses a level (LCAP for A1,
+    1 for A2): N type compares on each matching pair (``matching_pairs``;
+    any other event leaves the machine as it was), and the window test,
+    2 compares a slot, for each level i >= 1 whose type is the event's
+    (a repeated type counts at each of its levels; level 0 has none)."""
+    et = np.asarray(et, np.int64)
+    n = et.shape[1]
+    level_hits = int(hits(np, type_hist(np, types), et[:, 1:]).sum())
+    return n * matching_pairs(np, types, et) + 2 * slots * level_hits
+
+
+def roofline(nbytes, nops) -> Bound:
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = nops / PEAK_INT32_OPS_PER_S
+    return Bound(max(t_bytes, t_ops) * 1e3,
+                 "bytes" if t_bytes > t_ops else "operations", nbytes, nops)
+
+
+def bound(np, types, et, lcap, kind) -> Bound:
+    """The least time the card could take for one K1/K2 call over the
+    events ``types`` for the episodes ``et`` (M, N): each input read once,
+    each output written once, over the HBM rate; the compares the inputs
+    need (``walk_ops``, one witness slot for K1, LCAP for K2), over the
+    int32 rate."""
+    n_events = len(types)
+    m, n = np.shape(et)
     if kind == "a2_count_state":
         words = 3 * n * m + 2 * n_events + 2 * (n * m + m)
-        ops = n_events * m * (n + 2 * (n - 1))
+        slots = 1
     else:
         words = 3 * n * m + 3 * n_events + 2 * (n * lcap * m + n * m + 2 * m)
-        ops = n_events * m * (n + 2 * (n - 1) * lcap)
-    t_bytes = 4 * words / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes > t_ops else "operations", 4 * words, ops)
+        slots = lcap
+    return roofline(4 * words, walk_ops(np, types, et, slots))
 
 
-def mapc_bound(p, lw, m, n, lcap):
-    """``bound`` extended by the factor P·K (K = N phases) for K3/K4 over
-    P segments of LW (padded) events: inputs et/tlo/thi/cum, w and the
+def mapc_bound(np, types, et, lcap) -> Bound:
+    """``bound`` for K3/K4 over P segments of LW (padded) events
+    (``types``: [P, LW], padding -1): inputs et/tlo/thi/cum, w and the
     [P, 5, LW] segment bricks read once, outputs a/c/b/f and ovf written
-    once; P·K·LW·M machine steps of N + 2(N-1)·LCAP compares (LCAP = 1
-    for K3)."""
+    once; each of the P·K (K = N phases) machines needs its segment's
+    ``walk_ops`` (LCAP slots; 1 for K3)."""
+    p, lw = np.shape(types)
+    m, n = np.shape(et)
     words = 4 * n * m + m + 5 * p * lw + 4 * n * m + m
-    ops = p * n * lw * m * (n + 2 * (n - 1) * lcap)
-    t_bytes = 4 * words / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes > t_ops else "operations", 4 * words, ops)
+    ops = sum(walk_ops(np, row, et, lcap) for row in types)
+    return roofline(4 * words, n * ops)
 
 
 def time_mapc_call(torch, kernel, plain, args, kw, what, errs, name):
@@ -1359,7 +1538,8 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
         "path B's level-3 A2 batch", errs, "a2_mapconcat")
     p, _, lw = args[-1].shape
     rows["a2_mapconcat"] = (ms, seen, wrapper_ms, plain_ms,
-                            mapc_bound(p, lw, cand3.M, 3, 1),
+                            mapc_bound(np, seg_types(args[-1]),
+                                       cand3.etypes, 1),
                             f"path B window {i} level-3 A2 batch N=3 "
                             f"M={cand3.M} P={p} LW={lw}")
 
@@ -1381,7 +1561,7 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
             {"lcap": cap}, what, errs, "a1_mapconcat")
         p, _, lw = args[-1].shape
         row = (ms, seen, wrapper_ms, plain_ms,
-               mapc_bound(p, lw, eps.M, eps.N, cap),
+               mapc_bound(np, seg_types(args[-1]), eps.etypes, cap),
                f"{what} N={eps.N} M={eps.M} LCAP={cap} P={p} LW={lw}")
         print(f"[smoke] a1_mapconcat at {row[-1]}: device {ms:.5f} ms, "
               f"wrapper {wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms)")
@@ -1390,17 +1570,21 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
     return rows
 
 
-def summed_bound(parts):
+def seg_types(segs):
+    """The event types [P, LW] of a [P, 5, LW] segment brick, on the host."""
+    return segs[:, 0, :].cpu().numpy()
+
+
+def lane_types(et):
+    """A lane's episode types (M, N) from its level-major et (N, M)."""
+    return et.cpu().numpy().T
+
+
+def summed_bound(parts) -> Bound:
     """The bound of one launch doing the work of several lanes: their
-    bytes and their operations summed, each over its peak rate. (Every
-    lane here is bound by operations, so this is the sum of the lanes'
-    own bounds.) ``parts``: ``bound``/``mapc_bound`` tuples."""
-    nbytes = sum(x[2] for x in parts)
-    nops = sum(x[3] for x in parts)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = nops / PEAK_INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes > t_ops else "operations", nbytes, nops)
+    bytes and their operations summed, each over its peak rate.
+    ``parts``: ``Bound``s."""
+    return roofline(sum(x.nbytes for x in parts), sum(x.ops for x in parts))
 
 
 def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
@@ -1435,7 +1619,7 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
             got, want = fused(), one_by_one()
             torch.cuda.synchronize()
             d = diff(got, want)
-            parts = [mapc_bound(p, a[5].shape[2], a[0].shape[1], n, lcap)
+            parts = [mapc_bound(np, seg_types(a[5]), lane_types(a[0]), lcap)
                      for a in lanes]
             what = (f"N={n} LCAP={lcap} P={p}, M "
                     f"{[a[0].shape[1] for a in lanes]}, LW "
@@ -1475,7 +1659,8 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
             got, want = fused(), one_by_one()
             torch.cuda.synchronize()
             d = diff(got, want)
-            parts = [bound(k, args[0].shape[1], n, lcap, single)
+            parts = [bound(np, args[3][0, :k].cpu().numpy(),
+                           lane_types(args[0]), lcap, single)
                      for args, k in lanes]
             what = (f"N={n} LCAP={lcap}, M "
                     f"{[args[0].shape[1] for args, _ in lanes]}, events "
@@ -1505,13 +1690,14 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
     return rows
 
 
-def shard_bound(p, lw, m, n, lcap, d):
+def shard_bound(np, types, et, lcap, d) -> Bound:
     """K5's bound: K4's (``mapc_bound``) over the same segments, plus the
     gathered tuples — d shards' (a, c, b, f) [K, M] and ovf [M], written
     once by the shards and read once by the fold — over the HBM rate."""
+    m, n = np.shape(et)
     gathered = 2 * 4 * d * (4 * n * m + m)
-    return summed_bound([mapc_bound(p, lw, m, n, lcap),
-                         (0.0, "", gathered, 0)])
+    return summed_bound([mapc_bound(np, types, et, lcap),
+                         Bound(0.0, "", gathered, 0)])
 
 
 def time_sharded_call(torch, name, d, kernel, plain, one, one_names, errs,
@@ -1577,7 +1763,8 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
         {"a1_map_kernel": 1, "fold_kernel": 1}, errs,
         "path E's largest commit")
     rows["a1_mapc_shard"] = (
-        ms, seen, wrapper_ms, plain_ms, shard_bound(p, lw, m, n, lcap, d),
+        ms, seen, wrapper_ms, plain_ms,
+        shard_bound(np, seg_types(args[-1]), frag.eps.etypes, lcap, d),
         f"path E largest mapconcatenate counter, {d} shards, N={n} M={m} "
         f"LCAP={lcap} P={p} LW={lw}", one_ms)
 
@@ -1596,7 +1783,7 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
         "path E restart's largest level-3 A2 batch")
     rows["a2_mapc_shard"] = (
         ms, seen, wrapper_ms, plain_ms,
-        shard_bound(p, lw, cand3.M, 3, 1, d),
+        shard_bound(np, seg_types(args[-1]), cand3.etypes, 1, d),
         f"path E restart window {i} level-3 A2 batch, {d} shards, N=3 "
         f"M={cand3.M} P={p} LW={lw}", one_ms)
 
@@ -1616,8 +1803,8 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
          "stitch_shards_kernel": n_lanes}, errs, "path F's largest group")
     rows["a1_mapc_sharded_vmapped"] = (
         ms, seen, wrapper_ms, plain_ms,
-        summed_bound([shard_bound(p, a[5].shape[2], a[0].shape[1], n, cap,
-                                  d) for a in lanes]),
+        summed_bound([shard_bound(np, seg_types(a[5]), lane_types(a[0]),
+                                  cap, d) for a in lanes]),
         f"path F's largest group, {n_lanes} lanes, {d} shards, N={n} "
         f"LCAP={cap} P={p}, M {[a[0].shape[1] for a in lanes]}, LW "
         f"{[a[5].shape[2] for a in lanes]}", one_ms)
@@ -1640,57 +1827,93 @@ def main_path_shapes(miner, window):
     return a2.eps, a1.eps, window
 
 
-def time_kernels(np, torch, ops, k_a1, k_a2, miner, window, lcap, errs):
+def fresh_calls(fn, state, n):
+    """A call of ``fn`` on a fresh copy of the carried ``state`` each time,
+    for timing an in-place kernel back to back: the copies for ``n`` calls
+    in each of ``device_ms``'s traces are made ahead, so no timed call
+    clones."""
+    pool = iter([[x.clone() for x in state]
+                 for _ in range(PROFILE_ATTEMPTS * n)])
+    return lambda: fn(next(pool))
+
+
+def time_walks(np, torch, ops, k_a1, k_a2, shapes, lcap, errs):
+    """K1 and K2 at each of ``shapes`` ({label: (A2 batch, A1 batch,
+    window)}: the main paths' largest level-3 batches with their last
+    window). Each is held against its plain version (run once, and timed)
+    and against the dense walk on the same inputs — a single-lane K6a/K6b
+    launch, which runs exactly that walk — then the device time of the
+    kernel and of the dense walk is taken in turns (new, old, old, new),
+    and the kernel's wrapper time. Returns {kernel: {label: (device ms,
+    launches recorded, wrapper ms, plain ms, Bound, what, dense walk
+    ms)}}."""
     from repro_torch.core import init_a1_state, init_a2_state
-    a2_eps, a1_eps, w = main_path_shapes(miner, window)
-    n = len(w)
-    ev = ops.event_brick(w.types, w.times, with_dup=True, device="cuda")
-    rows = {}
+    out = {"a2_count_state": {}, "a1_count_state": {}}
+    for label, (a2_eps, a1_eps, w) in shapes.items():
+        n = len(w)
+        ev = ops.event_brick(w.types, w.times, with_dup=True, device="cuda")
+        kinds = (
+            ("a2_count_state", "a2_state_vmapped", a2_eps, 1,
+             ops.episode_layout(a2_eps.relaxed(), True, "cuda"),
+             ops.a2_state_layout(init_a2_state(a2_eps.relaxed(), "cuda"),
+                                 "cuda"),
+             k_a2.a2_count_state, k_a2.a2_count_state_plain,
+             k_a2.a2_count_state_lanes),
+            ("a1_count_state", "a1_state_vmapped", a1_eps, lcap,
+             ops.episode_layout(a1_eps, False, "cuda"),
+             ops.a1_state_layout(init_a1_state(a1_eps, lcap, "cuda"),
+                                 "cuda"),
+             k_a1.a1_count_state, k_a1.a1_count_state_plain,
+             k_a1.a1_count_state_lanes))
+        for name, old_name, eps, cap, lay, st0, kernel, plain, lanes in kinds:
+            what = f"{label} N={eps.N} M={eps.M} LCAP={cap} events={n}"
+            got, want, old = ([x.clone() for x in st0] for _ in range(3))
+            kernel(*lay, ev, *got, n_events=n)
+            plain_ms = cuda_median_ms(
+                torch, lambda: plain(*lay, ev, *want, n), 1)
+            lanes([((*lay, ev, *old), n)])
+            torch.cuda.synchronize()
+            d = max(max_abs_diff(torch, got, want),
+                    max_abs_diff(torch, got, old))
+            errs[name] = max(errs[name], d)
+            if d:
+                fail(f"{name} differs from its plain version or the dense "
+                     f"walk at {what}: {d}")
 
-    lay2 = ops.episode_layout(a2_eps.relaxed(), True, "cuda")
-    fresh2 = ops.a2_state_layout(init_a2_state(a2_eps.relaxed(), "cuda"),
-                                 "cuda")
-    errs["a2_count_state"] = max(errs["a2_count_state"],
-                                 compare_k1(torch, ops, k_a2, a2_eps, ev, n))
-    if errs["a2_count_state"]:
-        fail("K1 differs from its plain version at the main-path shape")
-    # fresh machines for every timed launch (the kernels advance in place)
-    states = [[x.clone() for x in fresh2]
-              for _ in range(2 * TIMED_LAUNCHES + 1)]
-    it = iter(states)
-    k_a2.a2_count_state(*lay2, ev, *next(it), n_events=n)  # warm
-    ms, seen = device_ms(torch, lambda: k_a2.a2_count_state(
-        *lay2, ev, *next(it), n_events=n), TIMED_LAUNCHES,
-        DEVICE_KERNELS["a2_count_state"])
-    wrapper_ms = cuda_median_ms(torch, lambda: k_a2.a2_count_state(
-        *lay2, ev, *next(it), n_events=n), TIMED_LAUNCHES)
-    plain_ms = cuda_median_ms(torch, lambda: k_a2.a2_count_state_plain(
-        *lay2, ev, *[x.clone() for x in fresh2], n), PLAIN_RUNS)
-    rows["a2_count_state"] = (ms, seen, wrapper_ms, plain_ms, n, a2_eps.M,
-                              a2_eps.N, 1)
+            def new_walk(st):
+                kernel(*lay, ev, *st, n_events=n)
 
-    lay1 = ops.episode_layout(a1_eps, False, "cuda")
-    fresh1 = ops.a1_state_layout(init_a1_state(a1_eps, lcap, "cuda"),
-                                 "cuda")
-    errs["a1_count_state"] = max(
-        errs["a1_count_state"],
-        compare_k2(torch, ops, k_a1, a1_eps, lcap, ev, [0, n]))
-    if errs["a1_count_state"]:
-        fail("K2 differs from its plain version at the main-path shape")
-    states = [[x.clone() for x in fresh1]
-              for _ in range(2 * TIMED_LAUNCHES + 1)]
-    it = iter(states)
-    k_a1.a1_count_state(*lay1, ev, *next(it), n_events=n)  # warm
-    ms, seen = device_ms(torch, lambda: k_a1.a1_count_state(
-        *lay1, ev, *next(it), n_events=n), TIMED_LAUNCHES,
-        DEVICE_KERNELS["a1_count_state"])
-    wrapper_ms = cuda_median_ms(torch, lambda: k_a1.a1_count_state(
-        *lay1, ev, *next(it), n_events=n), TIMED_LAUNCHES)
-    plain_ms = cuda_median_ms(torch, lambda: k_a1.a1_count_state_plain(
-        *lay1, ev, *[x.clone() for x in fresh1], n), PLAIN_RUNS)
-    rows["a1_count_state"] = (ms, seen, wrapper_ms, plain_ms, n, a1_eps.M,
-                              a1_eps.N, lcap)
-    return rows
+            def old_walk(st):
+                lanes([((*lay, ev, *st), n)])
+            runs = {"new": [], "old": []}
+            for which in ("new", "old", "old", "new"):
+                fn, names = ((new_walk, DEVICE_KERNELS[name])
+                             if which == "new" else
+                             (old_walk, DEVICE_KERNELS[old_name]))
+                runs[which].append(device_ms(
+                    torch, fresh_calls(fn, st0, TIMED_LAUNCHES),
+                    TIMED_LAUNCHES, names))
+            wrapper_ms = cuda_median_ms(
+                torch, fresh_calls(new_walk, st0, TIMED_LAUNCHES),
+                TIMED_LAUNCHES)
+            ms = statistics.mean(t for t, _ in runs["new"])
+            old_ms = statistics.mean(t for t, _ in runs["old"])
+            b = bound(np, w.types, eps.etypes, cap, name)
+            dense = roofline(b.nbytes, n * eps.M * (
+                eps.N + 2 * (eps.N - 1) * cap))
+            print(f"[smoke] {name} at {what}: type-indexed walk {ms:.5f} ms "
+                  f"({runs['new'][0][0]:.5f}, {runs['new'][1][0]:.5f}) "
+                  f"against the dense walk (single-lane {old_name}) "
+                  f"{old_ms:.5f} ms ({runs['old'][0][0]:.5f}, "
+                  f"{runs['old'][1][0]:.5f}): {ms / old_ms:.3f} of it; "
+                  f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+                  f"bound {b.ms:.5f} ms ({b.ops} int32 ops over "
+                  f"{matching_pairs(np, w.types, eps.etypes)} matching "
+                  f"pairs; the dense count of PR 11-14, a full step for "
+                  f"every pair: {dense.ops} ops, {dense.ms:.5f} ms)")
+            out[name][label] = (ms, min(x for _, x in runs["new"]),
+                                wrapper_ms, plain_ms, b, what, old_ms)
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -1730,10 +1953,16 @@ def main() -> int:
     for src, rec in sorted(log.items()):
         print(f"[smoke]   {src}.cu: nvcc {rec['seconds']:.1f} s; "
               f"{ptxas_summary(rec['ptxas'])}")
+    for src, kernel in (("a2_count", "a2_state_kernel"),
+                        ("a1_count", "a1_state_kernel")):
+        print(f"[smoke]   {kernel} (type-indexed walk) {{N,LCAP: (registers, "
+              f"spill store bytes)}}: "
+              f"{ptxas_kernels(log[src]['ptxas'], kernel)}")
 
     errs = {k: 0 for k in KERNELS}
     t0 = time.perf_counter()
     edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
+    walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
     mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
                      errs)
     fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
@@ -1843,14 +2072,10 @@ def main() -> int:
     print(f"[smoke] busy shares: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    miner, windows, _ = main_runs["sym26"]
-    rows = {}
-    for k, (ms, seen, wrapper_ms, plain_ms, n, m, nl, lcap) in time_kernels(
-            np, torch, ops, k_a1, k_a2, miner, windows[-1], args.lcap,
-            errs).items():
-        rows[k] = (ms, seen, wrapper_ms, plain_ms,
-                   bound(n, m, nl, lcap, k),
-                   f"main-path shape N={nl} M={m} LCAP={lcap} events={n}")
+    walks = time_walks(np, torch, ops, k_a1, k_a2, {
+        name: main_path_shapes(main_runs[name][0], main_runs[name][1][-1])
+        for name in WALK_SHAPES}, args.lcap, errs)
+    rows = {k: by_shape[WALK_SHAPES[0]][:6] for k, by_shape in walks.items()}
     hybrid, hwins, _ = main_runs["sym26-hybrid"]
     rows.update(time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hwins[-1],
                           restart_results, restart_windows, args.lcap, errs))
@@ -1860,19 +2085,18 @@ def main() -> int:
                              restart_windows, recorder_f, args.lcap, errs))
     kernels = []
     for k in KERNELS:
-        (ms, seen, wrapper_ms, plain_ms, (b_ms, b_by, nbytes, nops),
-         what) = rows[k]
+        ms, seen, wrapper_ms, plain_ms, b, what = rows[k]
         print(f"[smoke] {k} at {what}: device {ms:.5f} ms (mean of the "
               f"{seen} launches the profiler recorded of {TIMED_LAUNCHES} "
               f"back-to-back calls), wrapper "
               f"{wrapper_ms:.4f} ms (median call, CUDA events), plain "
-              f"{plain_ms:.1f} ms; bound {b_ms:.5f} ms by {b_by} ({nbytes} "
-              f"B, {nops} int32 ops); launches {launches[k]}")
+              f"{plain_ms:.1f} ms; bound {b.ms:.5f} ms by {b.by} "
+              f"({b.nbytes} B, {b.ops} int32 ops); launches {launches[k]}")
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k][0],
                         "replaces": SOURCES[k][1], "launches": launches[k],
                         "max_abs_err": errs[k], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None})
+                        "plain_ms": plain_ms, "bound_ms": b.ms,
+                        "bound_by": b.by, "library_ms": None})
     print(f"[smoke] phase 4 (timing): {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,30 +19,49 @@
 //
 // What bounds it on the card: not bytes. State is N*LCAP + N + 2 ints per
 // episode, read once and written once; events (types, times, dup) are
-// read once per block. The work is n_events x M x N x LCAP int32 compares
-// in a chain of dependent steps per episode, so with one thread per
-// episode it is bound by that serial walk and by how many episodes there
-// are to hide its latency.
+// read once per block. An event changes an episode's machine only if its
+// type is one of the episode's level types: for any other, every level's
+// advance is false and the step is a no-op. So the work these inputs need
+// is, per matching (event, episode) pair, N type compares, plus the
+// window test (2 compares per list slot, LCAP slots) at each level i >= 1
+// whose type is the event's, in a chain of dependent steps per episode;
+// with one thread per episode the kernel is bound by that serial walk and
+// by how many episodes there are to hide its latency.
 //
-// Design: one thread per episode, 128 threads per block. The lists, the
-// pointers and the bounds live in registers, templated on N and LCAP so
-// every loop unrolls; the slot at the pointer is selected with unrolled
-// compares, not an indexed load, so the lists never spill to local
-// memory for being indexed. Event chunks (types, times, dup) are staged
-// through shared memory and read as broadcasts. All levels advance from
-// the pre-event state (masks first, then writes), as the Pallas body
-// does. The integer pointer ptr[N, M] replaces the Pallas one-hot mask:
-// it is the mask's argmax. State is read at the start and written back in
-// place at the end, which stands in for input_output_aliases. Only the
-// first n_events events are walked (the rest are padding).
+// Why the dense walk (a1_walk, kept for K6b) does more: every thread steps
+// every event, through the whole witness loop and the write-pointer
+// select, and nearly all of those steps are no-ops (a level-3 episode of a
+// 26-neuron array holds 3 of 26 types).
 //
-// K6b runs the same walk (a1_walk) for many counters in one launch: a
+// Design of K2 (a1_walk_indexed): one thread per episode, 128 threads per
+// block. The lists, the pointers and the bounds live in registers,
+// templated on N and LCAP so every loop unrolls; the slot at the pointer
+// is selected with unrolled compares, not an indexed load, so the lists
+// never spill to local memory for being indexed. Event chunks (types,
+// times, dup) are staged through shared memory with a type index beside
+// them (type_index.cuh): per 32-event group, one word per type bucket. A
+// thread ORs its level buckets' words of a group and visits the set bits
+// in order (__ffs), so it steps only the events of its own types (and of
+// types that share their buckets, which change nothing). On a visited
+// event the witness loop runs only for the levels whose type equals the
+// event's; all levels still advance from the pre-event state (masks
+// first, then writes), as the Pallas body does, which keeps repeated-type
+// episodes (A->A->A) right. The window test is one unsigned compare per
+// slot (type_index::in_window). The integer pointer ptr[N, M] replaces
+// the Pallas one-hot mask: it is the mask's argmax. State is read at the
+// start and written back in place at the end, which stands in for
+// input_output_aliases. Only the first n_events events are walked (the
+// rest are padding).
+//
+// K6b runs the dense walk (a1_walk) for many counters in one launch: a
 // device table holds one descriptor per lane (its own tensors, m and
 // n_events), the lane is blockIdx.y and the episode tile blockIdx.x. Each
 // lane walks only its own events (no padding to the group's longest brick)
 // and its state is advanced where it lives (no stacking, no scatter).
 
 #include <cuda_runtime.h>
+
+#include "type_index.cuh"
 
 namespace {
 
@@ -56,10 +75,10 @@ __device__ __forceinline__ int delta(int t, int s) {
   return static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(s));
 }
 
-// One thread's walk: episode j of an m-episode batch over the first
-// n_events events, its state advanced in place. Every thread of the block
-// calls it (those with j >= m too: they take part in the staging barriers
-// and write nothing). The single and the lane-table entry points share it.
+// One thread's dense walk (K6b's): episode j of an m-episode batch over
+// the first n_events events, its state advanced in place. Every thread of
+// the block calls it (those with j >= m too: they take part in the staging
+// barriers and write nothing).
 template <int N, int L>
 __device__ __forceinline__ void a1_walk(
     const int* __restrict__ et, const int* __restrict__ tlo,
@@ -152,6 +171,112 @@ __device__ __forceinline__ void a1_walk(
   }
 }
 
+// K2's walk: as a1_walk, but each thread visits only the events whose type
+// bucket is one of its levels' (see the header and type_index.cuh).
+template <int N, int L>
+__device__ __forceinline__ void a1_walk_indexed(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ ev_types,
+    const int* __restrict__ ev_times, const int* __restrict__ ev_dup,
+    int n_events, int* __restrict__ s, int* __restrict__ ptr,
+    int* __restrict__ cnt, int* __restrict__ ovf, int m, int j) {
+  using namespace type_index;
+  __shared__ int sh_type[kChunk];
+  __shared__ int sh_time[kChunk];
+  __shared__ int sh_dup[kChunk];
+  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
+  const bool real = j < m;
+  int r_et[N], r_b[N], r_lo[N], r_hi[N], r_p[N];
+  int r_base[N];
+  unsigned r_span[N];
+  int r_s[N][L];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    r_et[i] = real ? et[i * m + j] : kPadRow;
+    r_b[i] = bucket(r_et[i]);
+    r_lo[i] = real ? tlo[i * m + j] : 0;
+    r_hi[i] = real ? thi[i * m + j] : 0;
+    r_base[i] = static_cast<int>(static_cast<unsigned>(r_lo[i]) + 1u);
+    r_span[i] = window_span(r_lo[i], r_hi[i]);
+    r_p[i] = real ? ptr[i * m + j] : 0;
+#pragma unroll
+    for (int l = 0; l < L; ++l)
+      r_s[i][l] = real ? s[(i * L + l) * m + j] : kNegInf;
+  }
+  int c = real ? cnt[j] : 0;
+  int o = real ? ovf[j] : 0;
+
+  for (int base = 0; base < n_events; base += kChunk) {
+    const int len = min(kChunk, n_events - base);
+    __syncthreads();  // every thread is done with the previous chunk
+    stage_chunk<kThreads>(ev_types, ev_times, ev_dup, base, len, sh_type,
+                          sh_time, sh_dup, sh_bits);
+    __syncthreads();
+    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
+    for (int g = 0; g < n_groups; ++g) {
+      unsigned word = real ? group_word<N>(sh_bits, g, r_b) : 0u;
+      while (word) {
+        const int k = g * kWarpSize + __ffs(word) - 1;
+        word &= word - 1u;
+        const int e = sh_type[k];
+        const int t = sh_time[k];
+        const bool dup = sh_dup[k] != 0;
+        bool adv[N];
+        adv[0] = r_et[0] == e;
+#pragma unroll
+        for (int i = 1; i < N; ++i) {
+          bool witness = false;
+          if (r_et[i] == e) {
+            const unsigned tb = static_cast<unsigned>(t) -
+                                static_cast<unsigned>(r_base[i - 1]);
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+              witness |= in_window(tb, r_s[i - 1][l], r_span[i - 1]);
+          }
+          adv[i] = witness;
+        }
+        if (adv[N - 1]) {
+          ++c;
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            r_p[i] = 0;
+#pragma unroll
+            for (int l = 0; l < L; ++l) r_s[i][l] = kNegInf;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < N - 1; ++i) {
+            if (adv[i]) {
+              int v = kNegInf;
+#pragma unroll
+              for (int l = 0; l < L; ++l) {
+                if (l == r_p[i]) {
+                  v = r_s[i][l];
+                  r_s[i][l] = t;
+                }
+              }
+              o |= (v > kNegInf) & (delta(t, v) <= r_hi[i]) &
+                   ((r_lo[i] > 0) | dup);
+              r_p[i] = (r_p[i] + 1 == L) ? 0 : r_p[i] + 1;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (real) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      ptr[i * m + j] = r_p[i];
+#pragma unroll
+      for (int l = 0; l < L; ++l) s[(i * L + l) * m + j] = r_s[i][l];
+    }
+    cnt[j] = c;
+    ovf[j] = o;
+  }
+}
+
 template <int N, int L>
 __global__ void __launch_bounds__(kThreads)
 a1_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
@@ -161,8 +286,9 @@ a1_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
                 const int* __restrict__ ev_dup, int n_events,
                 int* __restrict__ s, int* __restrict__ ptr,
                 int* __restrict__ cnt, int* __restrict__ ovf, int m) {
-  a1_walk<N, L>(et, tlo, thi, ev_types, ev_times, ev_dup, n_events, s, ptr,
-                cnt, ovf, m, blockIdx.x * kThreads + threadIdx.x);
+  a1_walk_indexed<N, L>(et, tlo, thi, ev_types, ev_times, ev_dup, n_events,
+                        s, ptr, cnt, ovf, m,
+                        blockIdx.x * kThreads + threadIdx.x);
 }
 
 // K6b: the lane-table form. Lane blockIdx.y's descriptor (int64 words):

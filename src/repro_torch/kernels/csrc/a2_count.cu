@@ -16,22 +16,36 @@
 //
 // What bounds it on the card: not bytes. The state (N + 1 ints per
 // episode) is read once and written once, and the events are read once
-// per block. The work is n_events x M x N int32 compares, but each
-// episode's walk is a chain of dependent steps over every event, so with
-// one thread per episode the kernel is bound by that serial walk and by
-// how many episodes (threads) there are to hide its latency.
+// per block. An event changes an episode's machine only if its type is
+// one of the episode's level types (for any other, every advance is
+// false), so the work these inputs need is, per matching (event, episode)
+// pair, N type compares plus the window test (2 compares) at each level
+// i >= 1 whose type is the event's. Each episode's walk is a
+// chain of dependent steps, so with one thread per episode the kernel is
+// bound by that serial walk and by how many episodes (threads) there are
+// to hide its latency.
 //
-// Design: one thread per episode, 128 threads per block. The machine
-// state lives in registers (templated on N so every level loop unrolls).
-// The block stages chunks of events through shared memory, where each
-// event is read by every thread as a broadcast. All levels advance from
-// the pre-event state, as the Pallas body does: the masks are computed
-// before any slot is written, which keeps repeated-type episodes (A->A)
-// right. The state is read at the start and written back in place at the
-// end, which stands in for the Pallas call's input_output_aliases. Only
-// the first n_events events are walked (the rest are padding).
+// Why the dense walk (a2_walk, kept for K6a) does more: every thread
+// steps every event, and nearly all of those steps are no-ops (a level-3
+// episode of a 26-neuron array holds 3 of 26 types).
 //
-// K6a runs the same walk (a2_walk) for many counters in one launch: a
+// Design of K1 (a2_walk_indexed): one thread per episode, 128 threads per
+// block. The machine state lives in registers (templated on N so every
+// level loop unrolls). The block stages chunks of events through shared
+// memory with a type index beside them (type_index.cuh): per 32-event
+// group, one word per type bucket. A thread ORs its level buckets' words
+// of a group and visits the set bits in order (__ffs), so it steps only
+// the events of its own types (and of types that share their buckets,
+// which change nothing); the lanes of a warp read positions of one group,
+// in distinct banks. All levels advance from the pre-event state, as the
+// Pallas body does: the masks are computed before any slot is written,
+// which keeps repeated-type episodes (A->A) right. The window test is one
+// unsigned compare (type_index::in_window). The state is read at the
+// start and written back in place at the end, which stands in for the
+// Pallas call's input_output_aliases. Only the first n_events events are
+// walked (the rest are padding).
+//
+// K6a runs the dense walk (a2_walk) for many counters in one launch: a
 // device table holds one descriptor per lane (its own tensors, m and
 // n_events), the lane is blockIdx.y and the episode tile blockIdx.x. Each
 // lane walks only its own events, so the vmap's padding of every brick to
@@ -39,6 +53,8 @@
 // scattered: every lane's state is advanced where it lives.
 
 #include <cuda_runtime.h>
+
+#include "type_index.cuh"
 
 namespace {
 
@@ -52,10 +68,10 @@ __device__ __forceinline__ int delta(int t, int s) {
   return static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(s));
 }
 
-// One thread's walk: episode j of an m-episode batch over the first
-// n_events events, its state advanced in place. Every thread of the block
-// calls it (those with j >= m too: they take part in the staging barriers
-// and write nothing). The single and the lane-table entry points share it.
+// One thread's dense walk (K6a's): episode j of an m-episode batch over
+// the first n_events events, its state advanced in place. Every thread of
+// the block calls it (those with j >= m too: they take part in the staging
+// barriers and write nothing).
 template <int N>
 __device__ __forceinline__ void a2_walk(const int* __restrict__ et,
                                         const int* __restrict__ tlo,
@@ -113,6 +129,73 @@ __device__ __forceinline__ void a2_walk(const int* __restrict__ et,
   }
 }
 
+// K1's walk: as a2_walk, but each thread visits only the events whose type
+// bucket is one of its levels' (see the header and type_index.cuh).
+template <int N>
+__device__ __forceinline__ void a2_walk_indexed(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ ev_types,
+    const int* __restrict__ ev_times, int n_events, int* __restrict__ s,
+    int* __restrict__ cnt, int m, int j) {
+  using namespace type_index;
+  __shared__ int sh_type[kChunk];
+  __shared__ int sh_time[kChunk];
+  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
+  const bool real = j < m;
+  int r_et[N], r_b[N], r_base[N], r_s[N];
+  unsigned r_span[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    r_et[i] = real ? et[i * m + j] : kPadRow;
+    r_b[i] = bucket(r_et[i]);
+    const int lo = real ? tlo[i * m + j] : 0;
+    r_base[i] = static_cast<int>(static_cast<unsigned>(lo) + 1u);
+    r_span[i] = window_span(lo, real ? thi[i * m + j] : 0);
+    r_s[i] = real ? s[i * m + j] : kNegInf;
+  }
+  int c = real ? cnt[j] : 0;
+
+  for (int base = 0; base < n_events; base += kChunk) {
+    const int len = min(kChunk, n_events - base);
+    __syncthreads();  // every thread is done with the previous chunk
+    stage_chunk<kThreads>(ev_types, ev_times, nullptr, base, len, sh_type,
+                          sh_time, nullptr, sh_bits);
+    __syncthreads();
+    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
+    for (int g = 0; g < n_groups; ++g) {
+      unsigned word = real ? group_word<N>(sh_bits, g, r_b) : 0u;
+      while (word) {
+        const int k = g * kWarpSize + __ffs(word) - 1;
+        word &= word - 1u;
+        const int e = sh_type[k];
+        const int t = sh_time[k];
+        bool adv[N];
+        adv[0] = r_et[0] == e;
+#pragma unroll
+        for (int i = 1; i < N; ++i)
+          adv[i] = (r_et[i] == e) &
+                   in_window(static_cast<unsigned>(t) -
+                                 static_cast<unsigned>(r_base[i - 1]),
+                             r_s[i - 1], r_span[i - 1]);
+        if (adv[N - 1]) {
+          ++c;
+#pragma unroll
+          for (int i = 0; i < N; ++i) r_s[i] = kNegInf;
+        } else {
+#pragma unroll
+          for (int i = 0; i < N - 1; ++i) r_s[i] = adv[i] ? t : r_s[i];
+        }
+      }
+    }
+  }
+
+  if (real) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i * m + j] = r_s[i];
+    cnt[j] = c;
+  }
+}
+
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 a2_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
@@ -120,8 +203,8 @@ a2_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
                 const int* __restrict__ ev_types,
                 const int* __restrict__ ev_times, int n_events,
                 int* __restrict__ s, int* __restrict__ cnt, int m) {
-  a2_walk<N>(et, tlo, thi, ev_types, ev_times, n_events, s, cnt, m,
-             blockIdx.x * kThreads + threadIdx.x);
+  a2_walk_indexed<N>(et, tlo, thi, ev_types, ev_times, n_events, s, cnt, m,
+                     blockIdx.x * kThreads + threadIdx.x);
 }
 
 // K6a: the lane-table form. Lane blockIdx.y's descriptor (int64 words):

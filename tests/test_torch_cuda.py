@@ -4,9 +4,11 @@ one). This file imports only the port, so it runs where JAX is absent:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 K1–K4 are held bit for bit (exact equality) against their plain PyTorch
-versions on the same CUDA tensors, and the streaming miner on the card
-against the same miner on the CPU, with the ``ptpe`` and the default
-``hybrid`` engine. The fused multi-session kernels K6a–K6c are held
+versions on the same CUDA tensors (K1 and K2, the type-indexed walk, also
+against the dense walk that single-lane K6a/K6b launches run, over the
+small alphabet and over 300 types, where the index's buckets collide), and
+the streaming miner on the card against the same miner on the CPU, with
+the ``ptpe`` and the default ``hybrid`` engine. The fused multi-session kernels K6a–K6c are held
 against lone K1, K2 and K4 launches (and the plain versions) on lanes of
 unequal M and event counts, and a two-session ``MiningService`` on the
 card against standalone miners. The mesh-sharded K5 (both kinds) runs on
@@ -26,6 +28,8 @@ from repro_torch.data import partition_windows, sym26
 from repro_torch.kernels import a1_count as k_a1
 from repro_torch.kernels import a2_count as k_a2
 from repro_torch.kernels import ops, tally
+from torch_walk_cases import NUM_TYPES as WALK_NUM_TYPES
+from torch_walk_cases import cuts, walk_case
 
 NUM_TYPES = 4
 
@@ -83,6 +87,54 @@ def test_cuda_kernels_match_plain(card, lcap):
         for x, y in zip(st + s2, plain + p2):
             assert torch.equal(x, y), (n, lcap)
     assert tally.launch_counts() == {k_a1.KERNEL: 14, k_a2.KERNEL: 14}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_types", WALK_NUM_TYPES)
+def test_cuda_type_indexed_walk_matches_plain_and_old_walk(card, num_types):
+    """K1 and K2 against their plain versions and against the dense walk
+    (a single-lane K6a/K6b launch) on the same CUDA tensors, bit for bit:
+    N = 2, 3, 5, 8, M = 1, 33, 1000, LCAP = 1, 2, 4, 8, 1,100 events (no
+    multiple of 32, across the 1,024-event chunk), repeated-type episodes,
+    the state carried over 2 or 3 cuts between tie groups; K1 on the 2-row
+    event brick in every other case."""
+    tally.reset_counts()
+    launches = 0
+    for n in (2, 3, 5, 8):
+        for i, m in enumerate((1, 33, 1000)):
+            types, times, (et, tlo, thi) = walk_case(10 * n + i, m, n,
+                                                     num_types, 1100)
+            eps = EpisodeBatch(et, tlo, thi)
+            ev = ops.event_brick(types, times, with_dup=True, device=card,
+                                 length=1164)
+            k = 2 + (n + i) % 2
+            runs = [(ops.episode_layout(eps.relaxed(), True, card),
+                     ops.a2_state_layout(
+                         init_a2_state(eps.relaxed(), card), card),
+                     k_a2.a2_count_state, k_a2.a2_count_state_plain,
+                     k_a2.a2_count_state_lanes,
+                     ev[:2].contiguous() if i % 2 else ev)]
+            runs += [(ops.episode_layout(eps, False, card),
+                      ops.a1_state_layout(init_a1_state(eps, lcap, card),
+                                          card),
+                      k_a1.a1_count_state, k_a1.a1_count_state_plain,
+                      k_a1.a1_count_state_lanes, ev)
+                     for lcap in (1, 2, 4, 8)]
+            for lay, st, kernel, plain, old_walk, brick in runs:
+                want = [x.clone() for x in st]
+                old = [x.clone() for x in st]
+                for a, b in cuts(times, k):
+                    sub = brick[:, a:].contiguous()
+                    kernel(*lay, sub, *st, n_events=b - a)
+                    plain(*lay, sub, *want, b - a)
+                    old_walk([((*lay, sub, *old), b - a)])
+                    launches += 1
+                torch.cuda.synchronize()
+                for x, y, z in zip(st, want, old):
+                    assert torch.equal(x, y) and torch.equal(x, z), (
+                        num_types, n, m, kernel.__name__)
+    counts = tally.launch_counts()
+    assert counts[k_a1.KERNEL] + counts[k_a2.KERNEL] == launches
 
 
 @pytest.mark.cuda

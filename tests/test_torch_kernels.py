@@ -3,6 +3,11 @@ CPU tensors) against the reference's Pallas kernels in interpret mode and
 against the sequential oracles — counts, ``ovf`` and the unpacked carried
 state compared bit for bit. The same numpy-made inputs feed both packages.
 
+Each case runs over today's small alphabet and, as further cases, over 300
+types (``torch_walk_cases``), more than four times the 64 buckets of the
+CUDA kernels' type index, with repeated-type episodes and the state carried
+across tie groups.
+
 The CUDA kernels themselves are held against the plain versions in
 ``test_torch_cuda.py`` (on the card only).
 """
@@ -18,6 +23,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import EpisodeBatch, EventStream, count_a1
 from repro_torch.kernels import a1_count as k_a1
 from repro_torch.kernels import ops, tally
+from torch_walk_cases import MANY_TYPES, walk_case
 
 # The plain versions step small tensors, one event at a time: intra-op
 # threads only contend with the other test processes.
@@ -56,21 +62,39 @@ def chunks(times, k):
     return list(zip(cuts[:-1], cuts[1:]))
 
 
-def both(types, times, a, b):
+def both(types, times, a, b, num_types=NUM_TYPES):
     t, tt = types[a:b], times[a:b]
-    return (EventStream(t, tt, NUM_TYPES), RefStream(t, tt, NUM_TYPES))
+    return (EventStream(t, tt, num_types), RefStream(t, tt, num_types))
 
 
-@pytest.mark.parametrize("n", [2, 3, 5])
-def test_a2_plain_matches_pallas_and_oracle(n):
-    types, times = tie_stream(10 + n)
-    et, tlo, thi = random_batch(n, m=37, n=n)  # M not a multiple of 128
+def case(seed_stream, seed_batch, n, num_types):
+    """(types, times, (et, tlo, thi)) of one case, M = 37 (not a multiple
+    of 128): today's inputs over the small alphabet, ``walk_case``'s over
+    ``MANY_TYPES``."""
+    if num_types == NUM_TYPES:
+        return (*tie_stream(seed_stream),
+                random_batch(seed_batch, m=37, n=n))
+    return walk_case(seed_stream, 37, n, num_types, 200)
+
+
+def many(ns, *extra):
+    """Parametrize rows over ``MANY_TYPES`` (ids end in ``-300types``)."""
+    return [pytest.param(n, MANY_TYPES, *extra,
+                         id=f"{n}-{MANY_TYPES}types") for n in ns]
+
+
+@pytest.mark.parametrize(
+    "n, num_types",
+    [pytest.param(n, NUM_TYPES, id=str(n)) for n in (2, 3, 5)]
+    + many((2, 3, 5, 8)))
+def test_a2_plain_matches_pallas_and_oracle(n, num_types):
+    types, times, (et, tlo, thi) = case(10 + n, n, n, num_types)
     eps = EpisodeBatch(et, tlo, thi).relaxed()
     ref_eps = RefBatch(et, tlo, thi).relaxed()
     st = ref_st = None
     tally.reset_counts()
     for a, b in chunks(times, 3):
-        s_port, s_ref = both(types, times, a, b)
+        s_port, s_ref = both(types, times, a, b, num_types)
         got, st = ops.a2_count_stateful(s_port, eps, state=st, device=CPU)
         want, ref_st = ref_ops.a2_count_stateful(s_ref, ref_eps,
                                                  state=ref_st,
@@ -81,23 +105,27 @@ def test_a2_plain_matches_pallas_and_oracle(n):
                                       np.asarray(ref_st.count))
     assert tally.plain_counts()["a2_count_state"] == 3
     assert tally.launch_counts() == {}
-    whole = RefStream(types, times, NUM_TYPES)
+    whole = RefStream(types, times, num_types)
     np.testing.assert_array_equal(got, count_a2_sequential(whole, ref_eps))
-    one_shot = ops.a2_count(EventStream(types, times, NUM_TYPES), eps,
+    if num_types == MANY_TYPES:
+        assert got.sum() > 0  # the motif's episodes complete
+    one_shot = ops.a2_count(EventStream(types, times, num_types), eps,
                             device=CPU)
     np.testing.assert_array_equal(one_shot, got)
 
 
 @pytest.mark.parametrize("lcap", [2, 4])
-@pytest.mark.parametrize("n", [2, 3, 5])
-def test_a1_plain_matches_pallas_and_oracle(n, lcap):
-    types, times = tie_stream(20 + n)
-    et, tlo, thi = random_batch(100 + n, m=37, n=n)
+@pytest.mark.parametrize(
+    "n, num_types, n_cuts",
+    [pytest.param(n, NUM_TYPES, 2, id=str(n)) for n in (2, 3, 5)]
+    + many((2, 3, 5, 8), 3))
+def test_a1_plain_matches_pallas_and_oracle(n, num_types, n_cuts, lcap):
+    types, times, (et, tlo, thi) = case(20 + n, 100 + n, n, num_types)
     eps = EpisodeBatch(et, tlo, thi)
     ref_eps = RefBatch(et, tlo, thi)
     st = ref_st = None
-    for a, b in chunks(times, 2):
-        s_port, s_ref = both(types, times, a, b)
+    for a, b in chunks(times, n_cuts):
+        s_port, s_ref = both(types, times, a, b, num_types)
         got, ovf, st = ops.a1_count_stateful(s_port, eps, state=st,
                                              lcap=lcap, device=CPU)
         want, want_ovf, ref_st = ref_ops.a1_count_stateful(
@@ -107,9 +135,11 @@ def test_a1_plain_matches_pallas_and_oracle(n, lcap):
         for name in ("s", "ptr", "count", "ovf"):
             np.testing.assert_array_equal(getattr(st, name).numpy(),
                                           np.asarray(getattr(ref_st, name)))
-    whole = EventStream(types, times, NUM_TYPES)
-    oracle = count_a1_sequential(RefStream(types, times, NUM_TYPES), ref_eps)
+    whole = EventStream(types, times, num_types)
+    oracle = count_a1_sequential(RefStream(types, times, num_types), ref_eps)
     np.testing.assert_array_equal(got[~ovf], oracle[~ovf])
+    if num_types == MANY_TYPES:
+        assert got.sum() > 0  # the motif's episodes complete
     # the public count_a1 recounts flagged episodes: exact everywhere
     np.testing.assert_array_equal(
         count_a1(whole, eps, lcap=lcap, device=CPU), oracle)
