@@ -5,33 +5,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
    ``sm_90a``, one process per source, all started together (build time,
-   ptxas register/spill summary, and K1's and K2's registers and spills
-   for each N and LCAP);
+   ptxas register/spill summary, the registers and spills of K1, K2, K6a
+   and K6b for each N and LCAP, the K6a/K6b spills at N <= 5 that K1/K2
+   lack, and K6a's and K6b's resident blocks per SM at N = 3);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
    bit for bit: K1 (A2 single-slot) and K2 (A1 bounded-list), the
-   type-indexed walk, also against the dense walk (a single-lane K6a/K6b
-   launch), at edge shapes (N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, M not a
-   multiple of 128, tie-heavy events over 4 types, state carried over two
-   chunks) and at what the type index treats specially (300 types, so its
-   64 buckets collide, repeated-type episodes, 1,100 events, M = 1, 33,
-   1000, state carried over 2 and 3 cuts between tie groups); K3 (A2
-   MapConcatenate) and K4 (A1 MapConcatenate, with and without its fold)
-   at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy
-   events, an occurrence ending exactly at τ+W on a segment boundary and a
-   stitch that goes unmatched — all of (a, c, b, f, ovf) compared; the fused multi-session
+   type-indexed walk, also against a single-lane K6a/K6b launch (the same
+   walk through the lane kernel), at edge shapes (N = 2, 3, 5, 8, LCAP =
+   1, 2, 4, 8, M not a multiple of 128, tie-heavy events over 4 types,
+   state carried over two chunks) and at what the type index treats
+   specially (300 types, so its 64 buckets collide, repeated-type
+   episodes, 1,100 events, M = 1, 33, 1000, state carried over 2 and 3
+   cuts between tie groups); K3 (A2 MapConcatenate) and K4 (A1
+   MapConcatenate, with and without its fold) at N = 2, 3, 5, 8, LCAP =
+   1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy events, an occurrence
+   ending exactly at τ+W on a segment boundary and a stitch that goes
+   unmatched — all of (a, c, b, f, ovf) compared; the fused multi-session
    kernels K6a, K6b and K6c (one launch for many counters' lanes) on lanes
    of unequal M (1, 127, 128, 129, 5000) and event counts (0, 1, 1024,
-   1025, 5600) at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8, against
-   the same lanes launched one by one through K1, K2 and K4 and against
-   their plain versions (the per-lane loops); the mesh-sharded kernels K5
-   (A2 and A1 kinds: one K3/K4 launch per shard, the cross-shard fold) on
-   d = 2, 4, 8 logical shards of the card at N = 2, 3, 5, 8, LCAP = 1, 2,
-   4, 8, P = d and 2d segments, tie-heavy events, an occurrence ending
-   exactly at τ+W on a shard boundary and doctored stitches that go
-   unmatched inside a shard's group and between two shards (the carried
-   flag), against their plain versions (every output) and the unsharded
-   K3/K4 on the same segments (counts and unflagged tuples); K6d (K5 over
-   many lanes) against lone K5 calls and its plain per-lane loop;
+   1025, 5600), given in the reverse of K6a's/K6b's heaviest-first order,
+   at N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, P = 1, 2, 8 (K6a/K6b also over
+   300 types, repeated-type episodes, the state carried over 3 cuts),
+   against the same lanes launched one by one through K1, K2 and K4 and
+   against their plain versions (the per-lane loops); the mesh-sharded
+   kernels K5 (A2 and A1 kinds: one K3/K4 launch per shard, the
+   cross-shard fold) on d = 2, 4, 8 logical shards of the card at N = 2,
+   3, 5, 8, LCAP = 1, 2, 4, 8, P = d and 2d segments, tie-heavy events, an
+   occurrence ending exactly at τ+W on a shard boundary and doctored
+   stitches that go unmatched inside a shard's group and between two
+   shards (the carried flag), against their plain versions (every output)
+   and the unsharded K3/K4 on the same segments (counts and unflagged
+   tuples); K6d (K5 over many lanes) against lone K5 calls and its plain
+   per-lane loop;
 3. the main paths on the card, each with the launch counts zeroed just
    before it and read just after; 10-s windows, interval (5, 10] ms,
    θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
@@ -80,13 +85,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    could take (its bound: each input read once, each output written once,
    and the compares these inputs need: the type compares on each (event,
    episode) pair whose event's type is one of the episode's, and the
-   window test at each level of the event's type; K1/K2's lines also
-   print the dense count of PR 11-14, a full step for every pair); K1
-   and K2 at the largest level-3 batches of the Sym26 and the 64-channel
-   ptpe runs, each in turns (new, old, old, new) with the dense walk on the
-   same inputs (a single-lane K6a/K6b launch); the fused kernels at path
-   C's largest group of each, beside the device time of the same lanes
-   launched one by one;
+   window test at each level of the event's type); K1 and K2 at the
+   largest level-3 batches of the Sym26 and the 64-channel ptpe runs
+   (also held against a single-lane K6a/K6b launch); the fused kernels at
+   path C's largest group of each, beside the device time of the same
+   lanes launched one by one (K6a/K6b: with their tiles per SM and
+   resident blocks per SM);
    K5 at path E's largest shapes beside the unsharded K4/K3 on the same
    segments, and K6d at path F's largest group beside the same lanes'
    lone K5 calls;
@@ -287,24 +291,26 @@ def max_abs_diff(torch, xs, ys) -> int:
                for x, y in zip(xs, ys))
 
 
-def compare_walks(torch, kernel, plain, old_walk, lay, st, ev, cuts):
-    """One K1/K2 kernel, its plain version and the dense walk (a single-lane
-    K6a/K6b launch) advance copies of the carried state ``st`` over the
-    chunks ``cuts`` of ``ev``, on the same CUDA tensors; returns the
-    largest absolute difference of the kernel's counts and state from the
-    other two."""
-    got, want, old = ([x.clone() for x in st] for _ in range(3))
+def compare_walks(torch, kernel, plain, lane_walk, lay, st, ev, cuts):
+    """One K1/K2 kernel, its plain version and a single-lane K6a/K6b launch
+    (the same walk through the lane kernel) advance copies of the carried
+    state ``st`` over the chunks ``cuts`` of ``ev``, on the same CUDA
+    tensors; returns the largest absolute difference of the kernel's
+    counts and state from the other two."""
+    got, want, lane = ([x.clone() for x in st] for _ in range(3))
     for a, b in zip(cuts[:-1], cuts[1:]):
         sub = ev[:, a:].contiguous()
         kernel(*lay, sub, *got, n_events=b - a)
         plain(*lay, sub, *want, b - a)
-        old_walk([((*lay, sub, *old), b - a)])
+        lane_walk([((*lay, sub, *lane), b - a)])
     torch.cuda.synchronize()
-    return max(max_abs_diff(torch, got, want), max_abs_diff(torch, got, old))
+    return max(max_abs_diff(torch, got, want),
+               max_abs_diff(torch, got, lane))
 
 
 def compare_k1(torch, ops, k_a2, eps, ev, cuts):
-    """K1 against its plain version and the dense walk (``compare_walks``)."""
+    """K1 against its plain version and a single-lane K6a launch
+    (``compare_walks``)."""
     from repro_torch.core import init_a2_state
     return compare_walks(
         torch, k_a2.a2_count_state, k_a2.a2_count_state_plain,
@@ -316,8 +322,8 @@ def compare_k1(torch, ops, k_a2, eps, ev, cuts):
 
 
 def compare_k2(torch, ops, k_a1, eps, lcap, ev, cuts):
-    """K2 against its plain version and the dense walk (``compare_walks``),
-    counts, ovf and the carried state compared."""
+    """K2 against its plain version and a single-lane K6b launch
+    (``compare_walks``), counts, ovf and the carried state compared."""
     from repro_torch.core import init_a1_state
     return compare_walks(
         torch, k_a1.a1_count_state, k_a1.a1_count_state_plain,
@@ -346,16 +352,16 @@ def edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
                        [0, types.size // 2, types.size])
         errs["a2_count_state"] = max(errs["a2_count_state"], d)
         if d:
-            fail(f"K1 differs from its plain version or the dense walk at "
-                 f"N={n}: {d}")
+            fail(f"K1 differs from its plain version or the single-lane "
+                 f"K6a at N={n}: {d}")
         for lcap in (1, 2, 4, 8):
             d = compare_k2(torch, ops, k_a1, eps, lcap, ev, cuts)
             errs["a1_count_state"] = max(errs["a1_count_state"], d)
             if d:
-                fail(f"K2 differs from its plain version or the dense walk "
-                     f"at N={n}, lcap={lcap}: {d}")
-        print(f"[smoke] K1/K2 == plain == dense walk at N={n}, M={eps.M}, "
-              f"lcap 1/2/4/8, {types.size} events in 2 chunks")
+                fail(f"K2 differs from its plain version or the "
+                     f"single-lane K6b at N={n}, lcap={lcap}: {d}")
+        print(f"[smoke] K1/K2 == plain == single-lane K6 at N={n}, "
+              f"M={eps.M}, lcap 1/2/4/8, {types.size} events in 2 chunks")
 
 
 def walk_stream(np, seed, n, num_types):
@@ -403,8 +409,9 @@ def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
     types (buckets collide), repeated-type episodes, ``WALK_EVENTS`` events
     (no multiple of 32; the 1,024-event chunk is crossed), M in ``WALK_M``,
     LCAP 1, 2, 4, 8, the state carried over 2 and 3 cuts that keep tie
-    groups whole; each held against its plain version and the dense walk.
-    K1 takes the 2-row event brick (no dup) in every other case."""
+    groups whole; each held against its plain version and a single-lane
+    K6a/K6b launch. K1 takes the 2-row event brick (no dup) in every other
+    case."""
     types, times, motif = walk_stream(np, 6, WALK_EVENTS, WALK_TYPES)
     ev = ops.event_brick(types, times, with_dup=True, device="cuda",
                          length=WALK_EVENTS + 64)
@@ -419,17 +426,18 @@ def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
                            ev[:2].contiguous() if i % 2 else ev, cuts)
             errs["a2_count_state"] = max(errs["a2_count_state"], d)
             if d:
-                fail(f"K1 differs from its plain version or the dense walk "
-                     f"at {WALK_TYPES} types, N={n}, M={m}, {k} cuts: {d}")
+                fail(f"K1 differs from its plain version or the "
+                     f"single-lane K6a at {WALK_TYPES} types, N={n}, M={m}, "
+                     f"{k} cuts: {d}")
             for lcap in (1, 2, 4, 8):
                 d = compare_k2(torch, ops, k_a1, eps, lcap, ev, cuts)
                 errs["a1_count_state"] = max(errs["a1_count_state"], d)
                 if d:
-                    fail(f"K2 differs from its plain version or the dense "
-                         f"walk at {WALK_TYPES} types, N={n}, M={m}, "
-                         f"lcap={lcap}, {k} cuts: {d}")
+                    fail(f"K2 differs from its plain version or the "
+                         f"single-lane K6b at {WALK_TYPES} types, N={n}, "
+                         f"M={m}, lcap={lcap}, {k} cuts: {d}")
             total += 1
-    print(f"[smoke] K1/K2 == plain == dense walk on {total} type-index "
+    print(f"[smoke] K1/K2 == plain == single-lane K6 on {total} type-index "
           f"cases: {WALK_TYPES} types (motif {motif.tolist()}), "
           f"{WALK_EVENTS} events, N 2/3/5/8, M {WALK_M}, lcap 1/2/4/8, 2 "
           f"and 3 cuts, repeated-type episodes")
@@ -520,56 +528,101 @@ def mapc_lane(np, ops, types, times, eps, p):
             ops.segment_bricks(wt, wtt, tau, "cuda"))
 
 
+def lane_chunks(np, times, n_cuts):
+    """A lane's ``n_cuts`` (start, stop) chunks, cut between tie groups
+    (``tie_cuts``); a lane too short to cut (fewer than 16 events) walks
+    its events in the first chunk and none after."""
+    k = len(times)
+    if k < 16:
+        return [(0, k)] + [(k, k)] * (n_cuts - 1)
+    b = tie_cuts(np, times, n_cuts)
+    return list(zip(b[:-1], b[1:]))
+
+
+def fused_state_edge(np, torch, ops, k_a1, k_a2, n, types, times, batches,
+                     n_cuts, with_plain, errs):
+    """K6a and K6b at N = ``n`` on lanes of ``batches`` (one per
+    ``LANE_M``) walking the first ``LANE_EVENTS`` events of (types, times),
+    the state carried over ``n_cuts`` cuts (``lane_chunks``): each held
+    against the same lanes launched one by one through K1/K2 and, for the
+    (kernel, LCAP) in ``with_plain``, against the plain per-lane loop (the
+    single launches are held against the plain versions above)."""
+    from repro_torch.core import init_a1_state, init_a2_state
+    chunks = [lane_chunks(np, times[:k], n_cuts) for k in LANE_EVENTS]
+    groups = {("a2_state_vmapped", 1): []}
+    groups.update({("a1_state_vmapped", lcap): [] for lcap in (1, 2, 4, 8)})
+    for eps, k in zip(batches, LANE_EVENTS):
+        ev = ops.event_brick(types[:k], times[:k], with_dup=True,
+                             device="cuda", length=k + 64)
+        groups[("a2_state_vmapped", 1)].append((
+            *ops.episode_layout(eps.relaxed(), True, "cuda"), ev,
+            *ops.a2_state_layout(init_a2_state(eps.relaxed(), "cuda"),
+                                 "cuda")))
+        lay1 = ops.episode_layout(eps, False, "cuda")
+        for lcap in (1, 2, 4, 8):
+            groups[("a1_state_vmapped", lcap)].append((
+                *lay1, ev, *ops.a1_state_layout(
+                    init_a1_state(eps, lcap, "cuda"), "cuda")))
+    for (name, lcap), lanes in groups.items():
+        kern = getattr(ops, name)
+        n_state, one, plain = (
+            (2, k_a2.a2_count_state, k_a2.a2_count_state_plain)
+            if name == "a2_state_vmapped" else
+            (4, k_a1.a1_count_state, k_a1.a1_count_state_plain))
+        got = [(args, 0) for args in lanes]
+        singles = clone_lanes(got, n_state)
+        plains = clone_lanes(got, n_state)
+        check_plain = (name, lcap) in with_plain
+        for c in range(n_cuts):
+            cut = [chunk[c] for chunk in chunks]
+
+            def at(lanes_, cut=cut):
+                return [((*args[:3], args[3][:, a:].contiguous(), *args[4:]),
+                         b - a) for (args, _), (a, b) in zip(lanes_, cut)]
+            kern(at(got))
+            for args, k in at(singles):
+                one(*args, n_events=k)
+            if check_plain:
+                for args, k in at(plains):
+                    plain(*args, k)
+        torch.cuda.synchronize()
+        d = lanes_err(torch, got, singles)
+        if check_plain:
+            d = max(d, lanes_err(torch, got, plains))
+        errs[name] = max(errs[name], d)
+        if d:
+            fail(f"{name} differs from its lanes' single launches or plain "
+                 f"versions at N={n}, lcap={lcap}, {n_cuts} cuts: {d}")
+
+
 def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
     """K6a, K6b and K6c on lanes of unequal M (1, 127, 128, 129, 5000) and
     event counts (0, 1, 1024, 1025, 5600), tie-heavy: each against the
     same lanes launched one by one through K1, K2 or K4 (at every N, LCAP
     and P) and against its plain version, the per-lane loop (at a subset,
     as the plain versions take seconds at these sizes: the single launches
-    are held against the plain versions above)."""
-    from repro_torch.core import init_a1_state, init_a2_state
+    are held against the plain versions above). K6a/K6b carry the state
+    over 2 cuts on 4 types and over 3 on ``WALK_TYPES`` types (the type
+    index's buckets collide; ``walk_batch``'s repeated-type episodes); the
+    lanes come in the reverse of their heaviest-first order."""
     types, times = tie_stream(np, 3, max(LANE_EVENTS), 4)
+    w_types, w_times, motif = walk_stream(np, 8, max(LANE_EVENTS),
+                                          WALK_TYPES)
     plain_k1, plain_k2 = {3, 8}, {(2, 1), (3, 8)}
     for n in (2, 3, 5, 8):
-        a2, a1 = [], {lcap: [] for lcap in (1, 2, 4, 8)}
-        for i, (m, k) in enumerate(zip(LANE_M, LANE_EVENTS)):
-            eps = random_batch(np, EpisodeBatch, 100 * n + i, m, n, 4)
-            ev = ops.event_brick(types[:k], times[:k], with_dup=True,
-                                 device="cuda", length=k + 64)
-            st = ops.a2_state_layout(init_a2_state(eps.relaxed(), "cuda"),
-                                     "cuda")
-            a2.append(((*ops.episode_layout(eps.relaxed(), True, "cuda"),
-                        ev, *st), k))
-            lay1 = ops.episode_layout(eps, False, "cuda")
-            for lcap, lanes in a1.items():
-                st = ops.a1_state_layout(init_a1_state(eps, lcap, "cuda"),
-                                         "cuda")
-                lanes.append(((*lay1, ev, *st), k))
-        groups = [("a2_state_vmapped", 1, a2, n in plain_k1)] + [
-            ("a1_state_vmapped", lcap, lanes, (n, lcap) in plain_k2)
-            for lcap, lanes in a1.items()]
-        for name, lcap, lanes, with_plain in groups:
-            kern = getattr(ops, name)
-            n_state, one, plain = (
-                (2, k_a2.a2_count_state, k_a2.a2_count_state_plain)
-                if name == "a2_state_vmapped" else
-                (4, k_a1.a1_count_state, k_a1.a1_count_state_plain))
-            singles = clone_lanes(lanes, n_state)
-            plains = clone_lanes(lanes, n_state)
-            kern(lanes)
-            for args, k in singles:
-                one(*args, n_events=k)
-            if with_plain:
-                for args, k in plains:
-                    plain(*args, k)
-            torch.cuda.synchronize()
-            d = lanes_err(torch, lanes, singles)
-            if with_plain:
-                d = max(d, lanes_err(torch, lanes, plains))
-            errs[name] = max(errs[name], d)
-            if d:
-                fail(f"{name} differs from its lanes' single launches or "
-                     f"plain versions at N={n}, lcap={lcap}: {d}")
+        small = [random_batch(np, EpisodeBatch, 100 * n + i, m, n, 4)
+                 for i, m in enumerate(LANE_M)]
+        with_plain = {("a1_state_vmapped", c) for m, c in plain_k2 if m == n}
+        if n in plain_k1:
+            with_plain.add(("a2_state_vmapped", 1))
+        fused_state_edge(np, torch, ops, k_a1, k_a2, n, types, times, small,
+                         2, with_plain, errs)
+        many = [walk_batch(np, EpisodeBatch, 300 * n + i, m, n, w_types,
+                           motif) for i, m in enumerate(LANE_M)]
+        fused_state_edge(
+            np, torch, ops, k_a1, k_a2, n, w_types, w_times, many, 3,
+            {("a2_state_vmapped", 1), ("a1_state_vmapped", 8)}
+            if n == 3 else set(), errs)
         # K6c: segmented lanes (P uniform), windows of unequal length
         for p in (1, 2, 8):
             lanes = []
@@ -596,10 +649,11 @@ def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
                     fail(f"a1_mapc_vmapped differs at N={n}, P={p}, "
                          f"lcap={lcap}: {d}")
         print(f"[smoke] K6a/K6b/K6c == per-lane K1/K2/K4 at N={n}, lanes M "
-              f"{LANE_M}, events {LANE_EVENTS}, lcap 1/2/4/8, P 1/2/8 "
-              f"(plain versions: K6a at N {sorted(plain_k1)}; K6b at "
-              f"(N, lcap) {sorted(plain_k2)}; "
-              f"K6c at N=3, lcap 4)")
+              f"{LANE_M}, events {LANE_EVENTS}, lcap 1/2/4/8, P 1/2/8; "
+              f"K6a/K6b over 4 types in 2 cuts and {WALK_TYPES} types in "
+              f"3 (plain versions: K6a at N {sorted(plain_k1)}; K6b at "
+              f"(N, lcap) {sorted(plain_k2)}; at {WALK_TYPES} types both "
+              f"at N=3, lcap 8; K6c at N=3, lcap 4)")
 
 
 def unflagged_diff(torch, got, one) -> int:
@@ -1587,6 +1641,25 @@ def summed_bound(parts) -> Bound:
     return roofline(sum(x.nbytes for x in parts), sum(x.ops for x in parts))
 
 
+def lane_grid_line(torch, k_a1, k_a2, name, sizes, n, lcap) -> str:
+    """How a K6a/K6b launch over lanes of ``sizes`` [(M, n_events)] fills
+    the card: its tiles (blocks) per SM against the blocks an SM holds at
+    once (the occupancy calculator's), and a lone K1/K2 launch of the
+    largest lane's."""
+    from repro_torch.kernels import cuda
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, tiles = cuda.tiled_lanes([list(x) for x in sizes], 0, 1)
+    resident = (k_a2.lanes_resident_blocks(n, "cuda")
+                if name == "a2_state_vmapped" else
+                k_a1.lanes_resident_blocks(n, lcap, "cuda"))
+    lone = -(-max(m for m, _ in sizes) // cuda.LANE_TILE)
+    return (f"{tiles} tiles of {cuda.LANE_TILE} episodes on {sms} SMs, "
+            f"{tiles / sms:.2f} a SM, in {tiles / (resident * sms):.2f} of "
+            f"a wave ({resident} resident blocks a SM at N={n}, "
+            f"LCAP={lcap}); a lone launch of the largest lane: {lone} "
+            f"tiles, {lone / sms:.2f} a SM")
+
+
 def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
     """K6a, K6b and K6c at path C's largest fused group of each (as the
     untimed replay captured it): held against the same lanes launched one
@@ -1685,8 +1758,13 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
                       f"path C's largest group, {n_lanes} lanes, {what}")
         print(f"[smoke] {name}: {n_lanes} lanes ({m_tot} episodes): device "
               f"{ms:.5f} ms fused against {single_ms:.5f} ms for the same "
-              f"lanes launched one by one through {single}; wrapper "
-              f"{wrapper_ms:.4f} ms; plain per-lane loop {plain_ms:.1f} ms")
+              f"lanes launched one by one through {single} "
+              f"({ms / single_ms:.3f} of it); wrapper {wrapper_ms:.4f} ms; "
+              f"plain per-lane loop {plain_ms:.1f} ms")
+        if name != "a1_mapc_vmapped":
+            print(f"[smoke] {name}: " + lane_grid_line(
+                torch, k_a1, k_a2, name, [(args[0].shape[1], k)
+                                          for args, k in lanes], n, lcap))
     return rows
 
 
@@ -1841,78 +1919,57 @@ def time_walks(np, torch, ops, k_a1, k_a2, shapes, lcap, errs):
     """K1 and K2 at each of ``shapes`` ({label: (A2 batch, A1 batch,
     window)}: the main paths' largest level-3 batches with their last
     window). Each is held against its plain version (run once, and timed)
-    and against the dense walk on the same inputs — a single-lane K6a/K6b
-    launch, which runs exactly that walk — then the device time of the
-    kernel and of the dense walk is taken in turns (new, old, old, new),
-    and the kernel's wrapper time. Returns {kernel: {label: (device ms,
-    launches recorded, wrapper ms, plain ms, Bound, what, dense walk
-    ms)}}."""
+    and against a single-lane K6a/K6b launch on the same inputs, then its
+    device time and wrapper time are taken. Returns {kernel: {label:
+    (device ms, launches recorded, wrapper ms, plain ms, Bound, what)}}."""
     from repro_torch.core import init_a1_state, init_a2_state
     out = {"a2_count_state": {}, "a1_count_state": {}}
     for label, (a2_eps, a1_eps, w) in shapes.items():
         n = len(w)
         ev = ops.event_brick(w.types, w.times, with_dup=True, device="cuda")
         kinds = (
-            ("a2_count_state", "a2_state_vmapped", a2_eps, 1,
+            ("a2_count_state", a2_eps, 1,
              ops.episode_layout(a2_eps.relaxed(), True, "cuda"),
              ops.a2_state_layout(init_a2_state(a2_eps.relaxed(), "cuda"),
                                  "cuda"),
              k_a2.a2_count_state, k_a2.a2_count_state_plain,
              k_a2.a2_count_state_lanes),
-            ("a1_count_state", "a1_state_vmapped", a1_eps, lcap,
+            ("a1_count_state", a1_eps, lcap,
              ops.episode_layout(a1_eps, False, "cuda"),
              ops.a1_state_layout(init_a1_state(a1_eps, lcap, "cuda"),
                                  "cuda"),
              k_a1.a1_count_state, k_a1.a1_count_state_plain,
              k_a1.a1_count_state_lanes))
-        for name, old_name, eps, cap, lay, st0, kernel, plain, lanes in kinds:
+        for name, eps, cap, lay, st0, kernel, plain, lanes in kinds:
             what = f"{label} N={eps.N} M={eps.M} LCAP={cap} events={n}"
-            got, want, old = ([x.clone() for x in st0] for _ in range(3))
+            got, want, lane = ([x.clone() for x in st0] for _ in range(3))
             kernel(*lay, ev, *got, n_events=n)
             plain_ms = cuda_median_ms(
                 torch, lambda: plain(*lay, ev, *want, n), 1)
-            lanes([((*lay, ev, *old), n)])
+            lanes([((*lay, ev, *lane), n)])
             torch.cuda.synchronize()
             d = max(max_abs_diff(torch, got, want),
-                    max_abs_diff(torch, got, old))
+                    max_abs_diff(torch, got, lane))
             errs[name] = max(errs[name], d)
             if d:
-                fail(f"{name} differs from its plain version or the dense "
-                     f"walk at {what}: {d}")
+                fail(f"{name} differs from its plain version or the "
+                     f"single-lane K6 at {what}: {d}")
 
-            def new_walk(st):
+            def walk(st):
                 kernel(*lay, ev, *st, n_events=n)
-
-            def old_walk(st):
-                lanes([((*lay, ev, *st), n)])
-            runs = {"new": [], "old": []}
-            for which in ("new", "old", "old", "new"):
-                fn, names = ((new_walk, DEVICE_KERNELS[name])
-                             if which == "new" else
-                             (old_walk, DEVICE_KERNELS[old_name]))
-                runs[which].append(device_ms(
-                    torch, fresh_calls(fn, st0, TIMED_LAUNCHES),
-                    TIMED_LAUNCHES, names))
+            ms, seen = device_ms(
+                torch, fresh_calls(walk, st0, TIMED_LAUNCHES),
+                TIMED_LAUNCHES, DEVICE_KERNELS[name])
             wrapper_ms = cuda_median_ms(
-                torch, fresh_calls(new_walk, st0, TIMED_LAUNCHES),
+                torch, fresh_calls(walk, st0, TIMED_LAUNCHES),
                 TIMED_LAUNCHES)
-            ms = statistics.mean(t for t, _ in runs["new"])
-            old_ms = statistics.mean(t for t, _ in runs["old"])
             b = bound(np, w.types, eps.etypes, cap, name)
-            dense = roofline(b.nbytes, n * eps.M * (
-                eps.N + 2 * (eps.N - 1) * cap))
-            print(f"[smoke] {name} at {what}: type-indexed walk {ms:.5f} ms "
-                  f"({runs['new'][0][0]:.5f}, {runs['new'][1][0]:.5f}) "
-                  f"against the dense walk (single-lane {old_name}) "
-                  f"{old_ms:.5f} ms ({runs['old'][0][0]:.5f}, "
-                  f"{runs['old'][1][0]:.5f}): {ms / old_ms:.3f} of it; "
-                  f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; "
-                  f"bound {b.ms:.5f} ms ({b.ops} int32 ops over "
+            print(f"[smoke] {name} at {what}: {ms:.5f} ms; wrapper "
+                  f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
+                  f"{b.ms:.5f} ms ({b.ops} int32 ops over "
                   f"{matching_pairs(np, w.types, eps.etypes)} matching "
-                  f"pairs; the dense count of PR 11-14, a full step for "
-                  f"every pair: {dense.ops} ops, {dense.ms:.5f} ms)")
-            out[name][label] = (ms, min(x for _, x in runs["new"]),
-                                wrapper_ms, plain_ms, b, what, old_ms)
+                  f"pairs)")
+            out[name][label] = (ms, seen, wrapper_ms, plain_ms, b, what)
     return out
 
 
@@ -1953,11 +2010,23 @@ def main() -> int:
     for src, rec in sorted(log.items()):
         print(f"[smoke]   {src}.cu: nvcc {rec['seconds']:.1f} s; "
               f"{ptxas_summary(rec['ptxas'])}")
-    for src, kernel in (("a2_count", "a2_state_kernel"),
-                        ("a1_count", "a1_state_kernel")):
-        print(f"[smoke]   {kernel} (type-indexed walk) {{N,LCAP: (registers, "
-              f"spill store bytes)}}: "
-              f"{ptxas_kernels(log[src]['ptxas'], kernel)}")
+    for src, kernel, lanes_kernel in (
+            ("a2_count", "a2_state_kernel", "a2_lanes_kernel"),
+            ("a1_count", "a1_state_kernel", "a1_lanes_kernel")):
+        single = ptxas_kernels(log[src]["ptxas"], kernel)
+        fused = ptxas_kernels(log[src]["ptxas"], lanes_kernel)
+        for name, regs in ((kernel, single), (lanes_kernel, fused)):
+            print(f"[smoke]   {name} {{N,LCAP: (registers, spill store "
+                  f"bytes)}}: {regs}")
+        added = sorted(k for k, (_, spill) in fused.items()
+                       if spill and int(k.split(",")[0]) <= 5
+                       and not single.get(k, (0, 0))[1])
+        print(f"[smoke]   {lanes_kernel} spills at N <= 5 that "
+              f"{kernel} lacks: {added or 'none'}")
+    print(f"[smoke]   resident blocks per SM at N=3: a2_lanes_kernel "
+          f"{k_a2.lanes_resident_blocks(3, 'cuda')}; a1_lanes_kernel "
+          + ", ".join(f"LCAP {c}: {k_a1.lanes_resident_blocks(3, c, 'cuda')}"
+                      for c in (1, 2, 4, 8)))
 
     errs = {k: 0 for k in KERNELS}
     t0 = time.perf_counter()
@@ -2075,7 +2144,7 @@ def main() -> int:
     walks = time_walks(np, torch, ops, k_a1, k_a2, {
         name: main_path_shapes(main_runs[name][0], main_runs[name][1][-1])
         for name in WALK_SHAPES}, args.lcap, errs)
-    rows = {k: by_shape[WALK_SHAPES[0]][:6] for k, by_shape in walks.items()}
+    rows = {k: by_shape[WALK_SHAPES[0]] for k, by_shape in walks.items()}
     hybrid, hwins, _ = main_runs["sym26-hybrid"]
     rows.update(time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hwins[-1],
                           restart_results, restart_windows, args.lcap, errs))

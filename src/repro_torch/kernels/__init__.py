@@ -20,12 +20,14 @@ Modules:
     (``a2_count.a2_count_state_lanes``) for K1, K6b
     (``a1_count.a1_count_state_lanes``) for K2 and K6c
     (``a1_count.a1_mapconcat_lanes``) for K4, in the same ``.cu`` files
-    and sharing their bodies; replace ``repro.kernels.ops``'s
-    ``a2_state_vmapped``, ``a1_state_vmapped`` and ``a1_mapc_vmapped``.
+    and sharing their bodies (K6a/K6b walk a flat, heaviest-first grid of
+    128-episode tiles over all lanes, ``csrc/lane_grid.cuh``); replace
+    ``repro.kernels.ops``'s ``a2_state_vmapped``, ``a1_state_vmapped``
+    and ``a1_mapc_vmapped``.
   ops — host↔kernel layout contract and the one-shot, stateful,
     segmented and fused (``*_vmapped``) wrappers.
   cuda — nvcc build at first use (``build/kernels/``), ctypes loading,
-    operand checks, lane tables.
+    operand checks, lane tables (``tiled_lanes``: K6a/K6b's tile order).
   tally — launch counts per kernel (``a2_count_state``, ``a1_count_state``,
     ``a2_mapconcat``, ``a1_mapconcat``, ``a2_state_vmapped``,
     ``a1_state_vmapped``, ``a1_mapc_vmapped``) and the fused launches'

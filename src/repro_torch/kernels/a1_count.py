@@ -49,7 +49,8 @@ KERNEL_LCAPS = (1, 2, 4, 8)  # ... and for these list capacities
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"a1_count_state": (
     _I, [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "a1_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P])}
+    "a1_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P]),
+    "a1_lanes_resident_blocks": (_I, [_I, _I, _I, ctypes.POINTER(_I)])}
 
 
 def a1_count_state_plain(et, tlo, thi, ev, s, ptr, cnt, ovf,
@@ -157,16 +158,30 @@ def a1_count_state_lanes(lanes) -> None:
         a1_count_state_lanes_plain(lanes)
         return
     lib = cuda.library("a1_count", _SIGNATURES)
-    rows = [[et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
-             s.data_ptr(), ptr.data_ptr(), cnt.data_ptr(), ovf.data_ptr(),
-             et.shape[1], ev.shape[1], n_events]
-            for (et, tlo, thi, ev, s, ptr, cnt, ovf), n_events in lanes]
+    rows, n_tiles = cuda.tiled_lanes(
+        [[et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
+          s.data_ptr(), ptr.data_ptr(), cnt.data_ptr(), ovf.data_ptr(),
+          et.shape[1], ev.shape[1], n_events]
+         for (et, tlo, thi, ev, s, ptr, cnt, ovf), n_events in lanes], 8, 10)
     table = cuda.lane_table(rows, dev)
     rc = lib.a1_count_state_lanes(
-        table.data_ptr(), len(lanes), max(r[8] for r in rows), n, lcap,
+        table.data_ptr(), len(rows), n_tiles, n, lcap,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, LANES_KERNEL, rc)
     record_launch(LANES_KERNEL, lanes=len(lanes))
+
+
+def lanes_resident_blocks(n_levels: int, lcap: int, device) -> int:
+    """K6b's resident blocks per SM at (``n_levels``, ``lcap``) on the
+    CUDA ``device`` (the occupancy calculator's answer for that
+    instantiation)."""
+    lib = cuda.library("a1_count", _SIGNATURES)
+    blocks = ctypes.c_int(0)
+    rc = lib.a1_lanes_resident_blocks(
+        n_levels, lcap, cuda.device_index(torch.device(device)),
+        ctypes.byref(blocks))
+    cuda.check_launch(lib, LANES_KERNEL, rc)
+    return blocks.value
 
 
 def a1_count_kernel(et, tlo, thi, ev, *, lcap: int = 4,

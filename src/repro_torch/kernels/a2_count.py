@@ -43,7 +43,8 @@ MAX_LEVELS = 8  # the CUDA kernel is instantiated for N = 2 .. MAX_LEVELS
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"a2_count_state": (
     _I, [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
-    "a2_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _P])}
+    "a2_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _P]),
+    "a2_lanes_resident_blocks": (_I, [_I, _I, ctypes.POINTER(_I)])}
 
 
 def a2_count_state_plain(et, tlo, thi, ev, s, cnt, n_events: int) -> None:
@@ -137,16 +138,28 @@ def a2_count_state_lanes(lanes) -> None:
         a2_count_state_lanes_plain(lanes)
         return
     lib = cuda.library("a2_count", _SIGNATURES)
-    rows = [[et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
-             s.data_ptr(), cnt.data_ptr(), et.shape[1], ev.shape[1],
-             n_events]
-            for (et, tlo, thi, ev, s, cnt), n_events in lanes]
+    rows, n_tiles = cuda.tiled_lanes(
+        [[et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
+          s.data_ptr(), cnt.data_ptr(), et.shape[1], ev.shape[1], n_events]
+         for (et, tlo, thi, ev, s, cnt), n_events in lanes], 6, 8)
     table = cuda.lane_table(rows, dev)
     rc = lib.a2_count_state_lanes(
-        table.data_ptr(), len(lanes), max(r[6] for r in rows), n,
+        table.data_ptr(), len(rows), n_tiles, n,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, LANES_KERNEL, rc)
     record_launch(LANES_KERNEL, lanes=len(lanes))
+
+
+def lanes_resident_blocks(n_levels: int, device) -> int:
+    """K6a's resident blocks per SM at ``n_levels`` on the CUDA ``device``
+    (the occupancy calculator's answer for that instantiation)."""
+    lib = cuda.library("a2_count", _SIGNATURES)
+    blocks = ctypes.c_int(0)
+    rc = lib.a2_lanes_resident_blocks(
+        n_levels, cuda.device_index(torch.device(device)),
+        ctypes.byref(blocks))
+    cuda.check_launch(lib, LANES_KERNEL, rc)
+    return blocks.value
 
 
 def a2_count_kernel(et, tlo, thi, ev, *, n_events: int | None = None):

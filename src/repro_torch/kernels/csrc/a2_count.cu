@@ -25,112 +25,75 @@
 // bound by that serial walk and by how many episodes (threads) there are
 // to hide its latency.
 //
-// Why the dense walk (a2_walk, kept for K6a) does more: every thread
-// steps every event, and nearly all of those steps are no-ops (a level-3
-// episode of a 26-neuron array holds 3 of 26 types).
+// Design of the walk (a2_walk_indexed), shared by K1 and K6a: one thread
+// per episode, 128 threads per block. The machine state lives in
+// registers (templated on N so every level loop unrolls). The block stages
+// chunks of events through shared memory with a type index beside them
+// (type_index.cuh): per 32-event group, one word per type bucket. A thread
+// ORs its level buckets' words of a group and visits the set bits in order
+// (__ffs), so it steps only the events of its own types (and of types that
+// share their buckets, which change nothing); the lanes of a warp read
+// positions of one group, in distinct banks. All levels advance from the
+// pre-event state, as the Pallas body does: the masks are computed before
+// any slot is written, which keeps repeated-type episodes (A->A) right.
+// The window test is one unsigned compare (type_index::in_window). The
+// state is read at the start and written back in place at the end, which
+// stands in for the Pallas call's input_output_aliases. Only the first
+// n_events events are walked (the rest are padding).
 //
-// Design of K1 (a2_walk_indexed): one thread per episode, 128 threads per
-// block. The machine state lives in registers (templated on N so every
-// level loop unrolls). The block stages chunks of events through shared
-// memory with a type index beside them (type_index.cuh): per 32-event
-// group, one word per type bucket. A thread ORs its level buckets' words
-// of a group and visits the set bits in order (__ffs), so it steps only
-// the events of its own types (and of types that share their buckets,
-// which change nothing); the lanes of a warp read positions of one group,
-// in distinct banks. All levels advance from the pre-event state, as the
-// Pallas body does: the masks are computed before any slot is written,
-// which keeps repeated-type episodes (A->A) right. The window test is one
-// unsigned compare (type_index::in_window). The state is read at the
-// start and written back in place at the end, which stands in for the
-// Pallas call's input_output_aliases. Only the first n_events events are
-// walked (the rest are padding).
-//
-// K6a runs the dense walk (a2_walk) for many counters in one launch: a
-// device table holds one descriptor per lane (its own tensors, m and
-// n_events), the lane is blockIdx.y and the episode tile blockIdx.x. Each
-// lane walks only its own events, so the vmap's padding of every brick to
-// the group's longest has no counterpart, and no operand is stacked or
-// scattered: every lane's state is advanced where it lives.
+// K6a (a2_lanes_kernel) runs that walk for many counters in one launch.
+// 1. Each lane walks only the events of its episodes' own types: a block
+//    stages its lane's chunks and builds the chunk's index beside them
+//    (16 KB of shared memory: types, times, index words), exactly as K1
+//    does. Each lane walks only its own n_events of its own brick, so the
+//    vmap's padding of every brick to the group's longest has no
+//    counterpart, and no operand is stacked or scattered: every lane's
+//    state is advanced where it lives.
+// 2. Occupancy: the walk is latency-bound (dependent branches and
+//    shared-memory reads, no bytes to stream), and what hides that latency
+//    is resident warps. A lone K1 launch at a 16k-episode batch has about
+//    one block (four warps) per SM; a group of 8 such lanes has 8x the
+//    blocks. __launch_bounds__(kThreads, kLaneMinBlocks) caps a thread at
+//    128 registers, so that at least 4 blocks (16 warps) stay resident a
+//    SM. ptxas gives the lane kernel more registers than K1's (its
+//    operands come from the lane table, not the parameter bank), below
+//    that cap at N = 3 and without a spill at any instantiation; a tighter
+//    cap, for more resident blocks, trades registers for spills and a
+//    slower walk. a2_lanes_resident_blocks reports what the card grants
+//    (chip_smoke.py prints it, with the registers and spills).
+// 3. A flat, heaviest-first grid (lane_grid.cuh): the wrapper orders the
+//    lanes by descending n_events x M and numbers their 128-episode tiles
+//    in that order; blockIdx.x is a tile, and its block finds its lane in
+//    the table. No block is launched for a lane shorter than the longest,
+//    and the longest blocks start first, so the tail is short. The order
+//    changes no result: the lanes are independent.
+// 4. The card's other units have no part here. Tensor cores: the work is
+//    integer compares in dependent chains, with no matrix product. TMA,
+//    cp.async and mbarrier double-buffering of the chunk stage: all blocks
+//    of a lane read the same chunk (8 KB: types and times) from L2, and a
+//    warp stages 8 of its 32-event groups, some 8 rounds of L2 loads
+//    (~5,000 cycles, an estimate), against ~120 visited steps a thread at
+//    ~700 cycles each (~80,000) for the chunk's walk at the Sym26 shape:
+//    overlapping the two could gain a few percent.
 
 #include <cuda_runtime.h>
 
+#include "lane_grid.cuh"
 #include "type_index.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 1024;          // events staged per chunk
+constexpr int kLaneMinBlocks = 4;     // resident blocks per SM asked of K6a
 constexpr int kNegInf = -(1 << 30);   // TIME_NEG_INF
 constexpr int kPadRow = -2;           // type of an inert level
 
-// t - s with two's-complement wraparound (signed overflow is undefined)
-__device__ __forceinline__ int delta(int t, int s) {
-  return static_cast<int>(static_cast<unsigned>(t) - static_cast<unsigned>(s));
-}
-
-// One thread's dense walk (K6a's): episode j of an m-episode batch over
-// the first n_events events, its state advanced in place. Every thread of
-// the block calls it (those with j >= m too: they take part in the staging
-// barriers and write nothing).
-template <int N>
-__device__ __forceinline__ void a2_walk(const int* __restrict__ et,
-                                        const int* __restrict__ tlo,
-                                        const int* __restrict__ thi,
-                                        const int* __restrict__ ev_types,
-                                        const int* __restrict__ ev_times,
-                                        int n_events, int* __restrict__ s,
-                                        int* __restrict__ cnt, int m, int j) {
-  __shared__ int sh_type[kChunk];
-  __shared__ int sh_time[kChunk];
-  const bool real = j < m;
-  int r_et[N], r_lo[N], r_hi[N], r_s[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    r_et[i] = real ? et[i * m + j] : kPadRow;
-    r_lo[i] = real ? tlo[i * m + j] : 0;
-    r_hi[i] = real ? thi[i * m + j] : 0;
-    r_s[i] = real ? s[i * m + j] : kNegInf;
-  }
-  int c = real ? cnt[j] : 0;
-
-  for (int base = 0; base < n_events; base += kChunk) {
-    const int len = min(kChunk, n_events - base);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int k = threadIdx.x; k < len; k += kThreads) {
-      sh_type[k] = ev_types[base + k];
-      sh_time[k] = ev_times[base + k];
-    }
-    __syncthreads();
-    for (int k = 0; k < len; ++k) {
-      const int e = sh_type[k];
-      const int t = sh_time[k];
-      bool adv[N];
-      adv[0] = r_et[0] == e;
-#pragma unroll
-      for (int i = 1; i < N; ++i) {
-        const int d = delta(t, r_s[i - 1]);
-        adv[i] = (r_et[i] == e) & (d > r_lo[i - 1]) & (d <= r_hi[i - 1]);
-      }
-      if (adv[N - 1]) {
-        ++c;
-#pragma unroll
-        for (int i = 0; i < N; ++i) r_s[i] = kNegInf;
-      } else {
-#pragma unroll
-        for (int i = 0; i < N - 1; ++i) r_s[i] = adv[i] ? t : r_s[i];
-      }
-    }
-  }
-
-  if (real) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) s[i * m + j] = r_s[i];
-    cnt[j] = c;
-  }
-}
-
-// K1's walk: as a2_walk, but each thread visits only the events whose type
-// bucket is one of its levels' (see the header and type_index.cuh).
+// One thread's walk: episode j of an m-episode batch over the first
+// n_events events, its state advanced in place; the thread visits only the
+// events whose type bucket is one of its levels' (see the header and
+// type_index.cuh). Every thread of the block calls it (those with j >= m
+// too: they take part in the staging barriers and write nothing).
 template <int N>
 __device__ __forceinline__ void a2_walk_indexed(
     const int* __restrict__ et, const int* __restrict__ tlo,
@@ -207,26 +170,30 @@ a2_state_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
                      blockIdx.x * kThreads + threadIdx.x);
 }
 
-// K6a: the lane-table form. Lane blockIdx.y's descriptor (int64 words):
-// et, tlo, thi, ev, s, cnt (device pointers), m, ep, n_events. Each lane
-// walks its own n_events of its own brick; a block past its lane's m has
-// nothing to do and leaves as a whole.
-constexpr int kLaneWords = 9;
+// K6a: the lane-table form. Descriptor of a lane (int64 words): et, tlo,
+// thi, ev, s, cnt (device pointers), m, ep, n_events, and its first tile.
+// The table lists the lanes heaviest first; blockIdx.x is a 128-episode
+// tile of one of them (lane_grid.cuh).
+constexpr int kLaneWords = 10;
+constexpr int kTile0Word = 9;
 
 template <int N>
-__global__ void __launch_bounds__(kThreads)
-a2_lanes_kernel(const long long* __restrict__ lanes) {
-  const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
-  const int m = static_cast<int>(d[6]);
-  if (static_cast<int>(blockIdx.x) * kThreads >= m) return;
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks)
+a2_lanes_kernel(const long long* __restrict__ lanes, int n_lanes) {
+  const int tile = blockIdx.x;
+  const long long* d =
+      lanes + static_cast<size_t>(lane_grid::find_lane(
+                  lanes, n_lanes, kLaneWords, kTile0Word, tile)) *
+                  kLaneWords;
   const int ep = static_cast<int>(d[7]);
   const int* ev = reinterpret_cast<const int*>(d[3]);
-  a2_walk<N>(reinterpret_cast<const int*>(d[0]),
-             reinterpret_cast<const int*>(d[1]),
-             reinterpret_cast<const int*>(d[2]), ev, ev + ep,
-             static_cast<int>(d[8]), reinterpret_cast<int*>(d[4]),
-             reinterpret_cast<int*>(d[5]), m,
-             blockIdx.x * kThreads + threadIdx.x);
+  a2_walk_indexed<N>(reinterpret_cast<const int*>(d[0]),
+                     reinterpret_cast<const int*>(d[1]),
+                     reinterpret_cast<const int*>(d[2]), ev, ev + ep,
+                     static_cast<int>(d[8]), reinterpret_cast<int*>(d[4]),
+                     reinterpret_cast<int*>(d[5]), static_cast<int>(d[6]),
+                     (tile - static_cast<int>(d[kTile0Word])) * kThreads +
+                         threadIdx.x);
 }
 
 template <int N>
@@ -240,11 +207,16 @@ cudaError_t launch(const int* et, const int* tlo, const int* thi,
 }
 
 template <int N>
-cudaError_t launch_lanes(const long long* lanes, int n_lanes, int max_m,
+cudaError_t launch_lanes(const long long* lanes, int n_lanes, int n_tiles,
                          cudaStream_t stream) {
-  const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes);
-  a2_lanes_kernel<N><<<grid, kThreads, 0, stream>>>(lanes);
+  a2_lanes_kernel<N><<<n_tiles, kThreads, 0, stream>>>(lanes, n_lanes);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t lanes_resident(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, a2_lanes_kernel<N>, kThreads, 0);
 }
 
 }  // namespace
@@ -273,24 +245,41 @@ int a2_count_state(const int* et, const int* tlo, const int* thi,
   }
 }
 
-// K6a: lanes is a device int64[n_lanes, 9] table (see a2_lanes_kernel);
-// max_m the largest m over the lanes. Advances every lane's s and cnt in
-// place in one launch. Returns 0 or a cudaError_t code.
-int a2_count_state_lanes(const long long* lanes, int n_lanes, int max_m,
+// K6a: lanes is a device int64[n_lanes, 10] table (see a2_lanes_kernel),
+// heaviest lane first, whose tiles number n_tiles in all. Advances every
+// lane's s and cnt in place in one launch. Returns 0 or a cudaError_t code.
+int a2_count_state_lanes(const long long* lanes, int n_lanes, int n_tiles,
                          int n_levels, int device, void* stream) {
-  if (n_lanes <= 0 || max_m <= 0) return 0;
-  if (n_lanes > 65535) return cudaErrorInvalidValue;
+  if (n_lanes <= 0 || n_tiles <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n_levels) {
-    case 2: return launch_lanes<2>(lanes, n_lanes, max_m, st);
-    case 3: return launch_lanes<3>(lanes, n_lanes, max_m, st);
-    case 4: return launch_lanes<4>(lanes, n_lanes, max_m, st);
-    case 5: return launch_lanes<5>(lanes, n_lanes, max_m, st);
-    case 6: return launch_lanes<6>(lanes, n_lanes, max_m, st);
-    case 7: return launch_lanes<7>(lanes, n_lanes, max_m, st);
-    case 8: return launch_lanes<8>(lanes, n_lanes, max_m, st);
+    case 2: return launch_lanes<2>(lanes, n_lanes, n_tiles, st);
+    case 3: return launch_lanes<3>(lanes, n_lanes, n_tiles, st);
+    case 4: return launch_lanes<4>(lanes, n_lanes, n_tiles, st);
+    case 5: return launch_lanes<5>(lanes, n_lanes, n_tiles, st);
+    case 6: return launch_lanes<6>(lanes, n_lanes, n_tiles, st);
+    case 7: return launch_lanes<7>(lanes, n_lanes, n_tiles, st);
+    case 8: return launch_lanes<8>(lanes, n_lanes, n_tiles, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K6a's resident blocks per SM at n_levels (the occupancy calculator's
+// answer for a2_lanes_kernel<n_levels> on ``device``), into *blocks.
+// Returns 0 or a cudaError_t code.
+int a2_lanes_resident_blocks(int n_levels, int device, int* blocks) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (n_levels) {
+    case 2: return lanes_resident<2>(blocks);
+    case 3: return lanes_resident<3>(blocks);
+    case 4: return lanes_resident<4>(blocks);
+    case 5: return lanes_resident<5>(blocks);
+    case 6: return lanes_resident<6>(blocks);
+    case 7: return lanes_resident<7>(blocks);
+    case 8: return lanes_resident<8>(blocks);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -123,6 +123,25 @@ def device_index(device: torch.device) -> int:
             else torch.cuda.current_device())
 
 
+LANE_TILE = 128  # episodes a block of the fused state kernels walks
+
+
+def tiled_lanes(rows: list[list[int]], m_col: int,
+                events_col: int) -> tuple[list[list[int]], int]:
+    """The fused state kernels' (K6a, K6b) flat grid: the lanes that have
+    work (M and n_events above 0; the others are left as they are),
+    heaviest first — n_events × M descending, ties in the order given —
+    each row extended by the index of its first ``LANE_TILE``-episode
+    tile. Returns (rows, tiles in all)."""
+    work = sorted((r for r in rows if r[m_col] > 0 and r[events_col] > 0),
+                  key=lambda r: -r[m_col] * r[events_col])
+    out, tiles = [], 0
+    for r in work:
+        out.append([*r, tiles])
+        tiles += -(-r[m_col] // LANE_TILE)
+    return out, tiles
+
+
 def lane_table(rows: list[list[int]], device: torch.device) -> torch.Tensor:
     """The fused launches' lane descriptors (one row of int64 words per
     lane: device pointers, then sizes), copied to ``device`` in one

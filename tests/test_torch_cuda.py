@@ -5,12 +5,14 @@ one). This file imports only the port, so it runs where JAX is absent:
 
 K1–K4 are held bit for bit (exact equality) against their plain PyTorch
 versions on the same CUDA tensors (K1 and K2, the type-indexed walk, also
-against the dense walk that single-lane K6a/K6b launches run, over the
-small alphabet and over 300 types, where the index's buckets collide), and
+against single-lane K6a/K6b launches, which run the same walk through the
+lane kernels, over the small alphabet and over 300 types, where the
+index's buckets collide), and
 the streaming miner on the card against the same miner on the CPU, with
 the ``ptpe`` and the default ``hybrid`` engine. The fused multi-session kernels K6a–K6c are held
 against lone K1, K2 and K4 launches (and the plain versions) on lanes of
-unequal M and event counts, and a two-session ``MiningService`` on the
+unequal M and event counts (K6a/K6b also over 300 types, with the state
+carried over 2 and 3 cuts), and a two-session ``MiningService`` on the
 card against standalone miners. The mesh-sharded K5 (both kinds) runs on
 2, 4 and 8 logical shards of the card against its plain version and the
 unsharded K4/K3 launch on the same segments, K6d against lone K5 calls,
@@ -27,9 +29,9 @@ from repro_torch.core import (EpisodeBatch, EventStream, StreamingMiner,
 from repro_torch.data import partition_windows, sym26
 from repro_torch.kernels import a1_count as k_a1
 from repro_torch.kernels import a2_count as k_a2
-from repro_torch.kernels import ops, tally
+from repro_torch.kernels import cuda, ops, tally
 from torch_walk_cases import NUM_TYPES as WALK_NUM_TYPES
-from torch_walk_cases import cuts, walk_case
+from torch_walk_cases import cuts, lane_cuts, lanes_case, walk_case
 
 NUM_TYPES = 4
 
@@ -92,12 +94,13 @@ def test_cuda_kernels_match_plain(card, lcap):
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_types", WALK_NUM_TYPES)
 def test_cuda_type_indexed_walk_matches_plain_and_old_walk(card, num_types):
-    """K1 and K2 against their plain versions and against the dense walk
-    (a single-lane K6a/K6b launch) on the same CUDA tensors, bit for bit:
-    N = 2, 3, 5, 8, M = 1, 33, 1000, LCAP = 1, 2, 4, 8, 1,100 events (no
-    multiple of 32, across the 1,024-event chunk), repeated-type episodes,
-    the state carried over 2 or 3 cuts between tie groups; K1 on the 2-row
-    event brick in every other case."""
+    """K1 and K2 against their plain versions and against a single-lane
+    K6a/K6b launch (the same walk through the lane kernel) on the same
+    CUDA tensors, bit for bit: N = 2, 3, 5, 8, M = 1, 33, 1000, LCAP = 1,
+    2, 4, 8, 1,100 events (no multiple of 32, across the 1,024-event
+    chunk), repeated-type episodes, the state carried over 2 or 3 cuts
+    between tie groups; K1 on the 2-row event brick in every other
+    case."""
     tally.reset_counts()
     launches = 0
     for n in (2, 3, 5, 8):
@@ -120,17 +123,17 @@ def test_cuda_type_indexed_walk_matches_plain_and_old_walk(card, num_types):
                       k_a1.a1_count_state, k_a1.a1_count_state_plain,
                       k_a1.a1_count_state_lanes, ev)
                      for lcap in (1, 2, 4, 8)]
-            for lay, st, kernel, plain, old_walk, brick in runs:
+            for lay, st, kernel, plain, lane_walk, brick in runs:
                 want = [x.clone() for x in st]
-                old = [x.clone() for x in st]
+                lane = [x.clone() for x in st]
                 for a, b in cuts(times, k):
                     sub = brick[:, a:].contiguous()
                     kernel(*lay, sub, *st, n_events=b - a)
                     plain(*lay, sub, *want, b - a)
-                    old_walk([((*lay, sub, *old), b - a)])
+                    lane_walk([((*lay, sub, *lane), b - a)])
                     launches += 1
                 torch.cuda.synchronize()
-                for x, y, z in zip(st, want, old):
+                for x, y, z in zip(st, want, lane):
                     assert torch.equal(x, y) and torch.equal(x, z), (
                         num_types, n, m, kernel.__name__)
     counts = tally.launch_counts()
@@ -234,27 +237,33 @@ def test_streaming_hybrid_on_card_equals_cpu(card):
 
 # ------------------------------------------------------------ K6 (fused)
 
-# lanes of unequal episode counts and event counts, N = 3 in every lane
+# lanes of unequal episode counts (K6c, K6d)
 LANE_M = (1, 127, 128, 129, 500)
-LANE_EVENTS = (0, 1, 1024, 1025, 3000)
+# K6a/K6b lanes of unequal episode and event counts; their heaviest-first
+# order (n_events x M, descending) is the reverse of this one
+STATE_LANE_M = (1, 127, 128, 129, 5000)
+STATE_LANE_EVENTS = (0, 1, 1024, 1025, 5600)
 
 
-def fused_lanes(card, n, lcap, seed=0):
+def fused_lanes(card, n, lcap, num_types, seed=0):
     """K1 and K2 lanes (kernel layout, fresh state) of unequal M and event
-    counts on one tie-heavy stream, the bricks padded past the events."""
-    types, times = tie_stream(seed, n=max(LANE_EVENTS))
-    a2, a1 = [], []
-    for i, (m, k) in enumerate(zip(LANE_M, LANE_EVENTS)):
-        eps = random_batch(seed + i, m=m, n=n)
+    counts on one tie-heavy stream (``lanes_case``), the bricks padded past
+    the events, and each lane's events."""
+    types, times, batches = lanes_case(seed, STATE_LANE_M,
+                                       STATE_LANE_EVENTS, n, num_types)
+    a2, a1, events = [], [], []
+    for (et, tlo, thi), k in zip(batches, STATE_LANE_EVENTS):
+        eps = EpisodeBatch(et, tlo, thi)
         ev = ops.event_brick(types[:k], times[:k], with_dup=True,
                              device=card, length=max(k, 1) + 64)
         lay2 = ops.episode_layout(eps.relaxed(), True, card)
         st2 = ops.a2_state_layout(init_a2_state(eps.relaxed(), card), card)
-        a2.append(((*lay2, ev, *st2), k))
+        a2.append((*lay2, ev, *st2))
         lay1 = ops.episode_layout(eps, False, card)
         st1 = ops.a1_state_layout(init_a1_state(eps, lcap, card), card)
-        a1.append(((*lay1, ev, *st1), k))
-    return a2, a1
+        a1.append((*lay1, ev, *st1))
+        events.append(times[:k])
+    return a2, a1, events
 
 
 def _clone_lanes(lanes, n_state):
@@ -264,34 +273,53 @@ def _clone_lanes(lanes, n_state):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lcap", [1, 4, 8])
-def test_cuda_fused_state_kernels_match_single_launches(card, lcap):
+@pytest.mark.parametrize("num_types", WALK_NUM_TYPES)
+def test_cuda_fused_state_kernels_match_single_launches(card, num_types,
+                                                         lcap):
     """K6a and K6b advance every lane exactly as a lone K1 or K2 launch
     does (and as the plain versions do), bit for bit, with one launch for
-    all lanes."""
-    a2, a1 = fused_lanes(card, 3, lcap)
-    a2_single, a1_single = _clone_lanes(a2, 2), _clone_lanes(a1, 4)
-    a2_plain, a1_plain = _clone_lanes(a2, 2), _clone_lanes(a1, 4)
-    tally.reset_counts()
-    ops.a2_state_vmapped(a2)
-    ops.a1_state_vmapped(a1)
-    assert tally.launch_counts() == {"a2_state_vmapped": 1,
-                                     "a1_state_vmapped": 1}
-    assert tally.lane_counts() == {"a2_state_vmapped": len(LANE_M),
-                                   "a1_state_vmapped": len(LANE_M)}
-    for args, k in a2_single:
-        k_a2.a2_count_state(*args, n_events=k)
-    for args, k in a1_single:
-        k_a1.a1_count_state(*args, n_events=k)
-    for args, k in a2_plain:
-        k_a2.a2_count_state_plain(*args, k)
-    for args, k in a1_plain:
-        k_a1.a1_count_state_plain(*args, k)
-    torch.cuda.synchronize()
-    for fused, single, plain in ((a2, a2_single, a2_plain),
-                                 (a1, a1_single, a1_plain)):
-        for (x, _), (y, _), (z, _) in zip(fused, single, plain):
-            for u, v, w in zip(x, y, z):
-                assert torch.equal(u, v) and torch.equal(u, w)
+    all lanes: over 4 types and over 300 (the type index's buckets
+    collide), repeated-type episodes, lanes of M 1, 127, 128, 129, 5000
+    and 0, 1, 1024, 1025, 5600 events, given in the reverse of their
+    heaviest-first order, the state carried over 2 and 3 cuts between tie
+    groups (a lane too short to cut walks its events in the first call
+    and none after)."""
+    sizes = [[i, m, k] for i, (m, k) in enumerate(zip(STATE_LANE_M,
+                                                      STATE_LANE_EVENTS))]
+    order = [r[0] for r in cuda.tiled_lanes(sizes, 1, 2)[0]]
+    assert order == [4, 3, 2, 1]  # the lane without events is left out
+    for n_cuts in (2, 3):
+        a2, a1, events = fused_lanes(card, 3, lcap, num_types, seed=n_cuts)
+        chunks = [lane_cuts(t, n_cuts) for t in events]
+        runs = ((a2, 2, ops.a2_state_vmapped, k_a2.a2_count_state,
+                 k_a2.a2_count_state_plain),
+                (a1, 4, ops.a1_state_vmapped, k_a1.a1_count_state,
+                 k_a1.a1_count_state_plain))
+        for lanes, n_state, fused, one, plain in runs:
+            got = _clone_lanes([(args, 0) for args in lanes], n_state)
+            single = _clone_lanes(got, n_state)
+            want = _clone_lanes(got, n_state)
+            tally.reset_counts()
+            for c in range(n_cuts):
+                cut = [chunk[c] for chunk in chunks]
+                fused([((*args[:3], args[3][:, a:].contiguous(),
+                         *args[4:]), b - a)
+                       for (args, _), (a, b) in zip(got, cut)])
+                for (args, _), (a, b) in zip(single, cut):
+                    one(*args[:3], args[3][:, a:].contiguous(), *args[4:],
+                        n_events=b - a)
+                for (args, _), (a, b) in zip(want, cut):
+                    plain(*args[:3], args[3][:, a:].contiguous(),
+                          *args[4:], b - a)
+            name = fused.__name__
+            assert tally.launch_counts()[name] == n_cuts
+            assert tally.lane_counts() == {name: n_cuts * len(STATE_LANE_M)}
+            torch.cuda.synchronize()
+            for (x, _), (y, _), (z, _) in zip(got, single, want):
+                for u, v, w in zip(x[-n_state:], y[-n_state:],
+                                   z[-n_state:]):
+                    assert torch.equal(u, v) and torch.equal(u, w), (
+                        num_types, lcap, n_cuts, name)
 
 
 @pytest.mark.cuda

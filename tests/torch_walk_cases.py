@@ -1,5 +1,6 @@
-"""Inputs of the K1/K2 cases, shared by ``test_torch_kernels.py`` (the port's
-plain versions against the reference's Pallas kernels in interpret mode) and
+"""Inputs of the K1/K2 cases and of the fused K6a/K6b lanes, shared by
+``test_torch_kernels.py`` and ``test_torch_lanes.py`` (the port's plain
+versions against the reference's Pallas kernels in interpret mode) and
 ``test_torch_cuda.py`` (the CUDA kernels on the card). Numpy only, so it
 runs where JAX is absent.
 
@@ -47,3 +48,27 @@ def cuts(times, k):
     dup flags stay exact (as the streaming holdback guarantees)."""
     b = chip_smoke.tie_cuts(np, times, k)
     return list(zip(b[:-1], b[1:]))
+
+
+def lanes_case(seed, lane_m, lane_events, n, num_types):
+    """Fused-kernel lanes: one stream of ``max(lane_events)`` events over
+    ``num_types`` types (as ``walk_case``'s), lane i walking its first
+    ``lane_events[i]`` events with ``lane_m[i]`` episodes of ``n`` levels
+    of its own. Returns (types, times, [(et, tlo, thi), ...])."""
+    k = max(lane_events)
+    if num_types > SMALL_TYPES:
+        types, times, motif = chip_smoke.walk_stream(np, seed, k, num_types)
+        return types, times, [
+            chip_smoke.walk_batch(np, lambda *a: a, seed + i, m, n, types,
+                                  motif) for i, m in enumerate(lane_m)]
+    types, times = chip_smoke.tie_stream(np, seed, k, num_types)
+    return types, times, [
+        chip_smoke.random_batch(np, lambda *a: a, seed + i, m, n, num_types)
+        for i, m in enumerate(lane_m)]
+
+
+def lane_cuts(times, k):
+    """A fused lane's ``k`` chunks (``chip_smoke.lane_chunks``): ``cuts``,
+    or, for a lane too short to cut, its events whole and then ``k - 1``
+    empty chunks."""
+    return chip_smoke.lane_chunks(np, times, k)
