@@ -20,7 +20,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    MapConcatenate, with and without its fold) at N = 2, 3, 5, 8, LCAP =
    1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy events, an occurrence
    ending exactly at τ+W on a segment boundary and a stitch that goes
-   unmatched — all of (a, c, b, f, ovf) compared; the fused multi-session
+   unmatched — all of (a, c, b, f, ovf) compared — and at what K4's type
+   index treats specially (300 types, repeated-type episodes, 1,100
+   events, N = 2, 3, 5, 8, M = 1, 33, 1000, P = 1, 2, 8, LCAP = 1, 2, 4,
+   8, K6c on lanes of those episodes against K4); the fused multi-session
    kernels K6a, K6b and K6c (one launch for many counters' lanes) on lanes
    of unequal M (1, 127, 128, 129, 5000) and event counts (0, 1, 1024,
    1025, 5600), given in the reverse of K6a's/K6b's heaviest-first order,
@@ -28,15 +31,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    300 types, repeated-type episodes, the state carried over 3 cuts),
    against the same lanes launched one by one through K1, K2 and K4 and
    against their plain versions (the per-lane loops); the mesh-sharded
-   kernels K5 (A2 and A1 kinds: one K3/K4 launch per shard, the
-   cross-shard fold) on d = 2, 4, 8 logical shards of the card at N = 2,
+   kernels K5 (A2 and A1 kinds: one K3/K4 Map launch per device over its
+   shards' segments, one group fold per device, then the cross-shard
+   fold) on d = 2, 4, 8 logical shards of the card at N = 2,
    3, 5, 8, LCAP = 1, 2, 4, 8, P = d and 2d segments, tie-heavy events, an
    occurrence ending exactly at τ+W on a shard boundary and doctored
    stitches that go unmatched inside a shard's group and between two
    shards (the carried flag), against their plain versions (every output)
    and the unsharded K3/K4 on the same segments (counts and unflagged
-   tuples); K6d (K5 over many lanes) against lone K5 calls and its plain
-   per-lane loop;
+   tuples); K5's fold launches of both libraries (the group fold, then
+   the cross-shard fold) against their plain versions on random Map
+   tuples, d = 1, 2, 4, 8, N = 2, 3, 5, 8;
+   K6d (K5 over many lanes) against lone K5 calls and its plain per-lane
+   loop;
 3. the main paths on the card, each with the launch counts zeroed just
    before it and read just after; 10-s windows, interval (5, 10] ms,
    θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
@@ -91,9 +98,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path C's largest group of each, beside the device time of the same
    lanes launched one by one (K6a/K6b: with their tiles per SM and
    resident blocks per SM);
-   K5 at path E's largest shapes beside the unsharded K4/K3 on the same
-   segments, and K6d at path F's largest group beside the same lanes'
-   lone K5 calls;
+   K4 at path A's largest commit with the share of (event, machine) pairs
+   whose type matches and the events its longest walk visits; K5 at path
+   E's largest shapes beside the unsharded K4/K3 on the same segments,
+   with its device launches a call by the profiler's count, and K6d at
+   path F's largest group beside the same lanes' lone K5 calls;
 5. a JSON line of kernel numbers (K1/K2 at the Sym26 shape), the
    ``nvidia-smi`` line, and last the device line ``{"ok": true, "device":
    {...}}``.
@@ -159,7 +168,8 @@ FUSED = ("a2_state_vmapped", "a1_state_vmapped", "a1_mapc_vmapped")
 # paths E and F: the mesh of logical shards of the card, and the fleet
 SHARDS = 4
 FLEET_SHARDED = ((26, 60, 8),)
-SHARDED = ("a1_mapc_shard", "a2_mapc_shard", "a1_mapc_sharded_vmapped")
+K5 = ("a1_mapc_shard", "a2_mapc_shard")
+SHARDED = K5 + ("a1_mapc_sharded_vmapped",)
 KERNELS = ("a2_count_state", "a1_count_state", "a2_mapconcat",
            "a1_mapconcat") + FUSED + SHARDED
 SOURCES = {
@@ -193,11 +203,13 @@ DEVICE_KERNELS = {"a2_count_state": ("a2_state_kernel",),
                   "a1_state_vmapped": ("a1_lanes_kernel",),
                   "a1_mapc_vmapped": ("a1_map_lanes_kernel",
                                       "fold_lanes_kernel")}
-# ... and per call of the sharded ones on d shards: {kernel: launches}
+# ... and per call of the sharded ones on d shards of one card: {kernel:
+# launches} (K5: one Map launch over every shard's segments, one group
+# fold and one cross-shard fold, whatever d)
 SHARDED_DEVICE_KERNELS = {
-    "a1_mapc_shard": lambda d: {"a1_map_kernel": d, "fold_kernel": d,
+    "a1_mapc_shard": lambda d: {"a1_map_kernel": 1, "fold_groups_kernel": 1,
                                 "stitch_shards_kernel": 1},
-    "a2_mapc_shard": lambda d: {"a2_map_kernel": d, "fold_kernel": d,
+    "a2_mapc_shard": lambda d: {"a2_map_kernel": 1, "fold_groups_kernel": 1,
                                 "stitch_shards_kernel": 1},
     "a1_mapc_sharded_vmapped": lambda d: {
         "a1_map_lanes_kernel": d, "fold_lanes_kernel": d,
@@ -503,6 +515,98 @@ def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
         fail("the doctored boundary raised no unmatched flag")
     print("[smoke] K3/K4 == plain on the τ+W straddler and on an unmatched "
           "stitch (flag raised)")
+
+
+def mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
+                     errs):
+    """K3 and K4 (K4 folded at LCAP 1, 2, 4, 8 and Map only at 8) on what
+    K4's type index treats specially: ``WALK_TYPES`` types (buckets
+    collide), ``walk_batch``'s repeated-type episodes, ``WALK_EVENTS``
+    events (the 1,024-event chunk is crossed where P = 1), N = 2, 3, 5, 8,
+    M in ``WALK_M``, P = 1, 2, 8 (each N takes every P over its three M);
+    then K6c on lanes of those episodes (P = 8) against the same lanes
+    through K4."""
+    from repro_torch.core import make_segments
+    types, times, motif = walk_stream(np, 7, WALK_EVENTS, WALK_TYPES)
+    stream = EventStream(types, times, WALK_TYPES)
+    for n in (2, 3, 5, 8):
+        batches = [walk_batch(np, EpisodeBatch, 40 * n + i, m, n, types,
+                              motif) for i, m in enumerate(WALK_M)]
+        for i, eps in enumerate(batches):
+            p = (1, 2, 8)[(n + i) % 3]
+            tau, wt, wtt = make_segments(stream, p, int(eps.max_span.max()))
+            compare_mapc(torch, ops, k_a1, k_a2, eps,
+                         ops.segment_bricks(wt, wtt, tau, "cuda"),
+                         (1, 2, 4, 8), errs,
+                         f"{WALK_TYPES} types, N={n}, M={eps.M}, P={p}")
+        lanes = [mapc_lane(np, ops, types, times, eps, 8) for eps in batches]
+        for lcap in (1, 8):
+            got = ops.a1_mapc_vmapped(lanes, lcap=lcap)
+            want = [k_a1.a1_mapconcat_kernel(*a, lcap=lcap) for a in lanes]
+            torch.cuda.synchronize()
+            d = max(max_abs_diff(torch, g, w) for g, w in zip(got, want))
+            errs["a1_mapc_vmapped"] = max(errs["a1_mapc_vmapped"], d)
+            if d:
+                fail(f"a1_mapc_vmapped differs from its lanes through K4 at "
+                     f"{WALK_TYPES} types, N={n}, lcap={lcap}: {d}")
+    print(f"[smoke] K3/K4 == plain on the type-index cases: {WALK_TYPES} "
+          f"types, repeated-type episodes, {WALK_EVENTS} events, N 2/3/5/8, "
+          f"M {WALK_M}, P 1/2/8, lcap 1/2/4/8 (K4 also Map only); K6c == "
+          f"per-lane K4 there at lcap 1/8")
+
+
+def random_maps(np, seed, p, k, m):
+    """Map tuples (a, c, b, ovf) [P, K, M] (numpy): most of segment q's b
+    values are the a of some phase of segment q + 1, the rest stitch
+    nothing; ovf set now and then."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 60, size=(p, k, m)).astype(np.int32)
+    c = rng.integers(0, 9, size=(p, k, m)).astype(np.int32)
+    b = rng.integers(60, 90, size=(p, k, m)).astype(np.int32)
+    for q in range(p - 1):
+        pick = rng.integers(0, k, size=(k, m))
+        hit = rng.random((k, m)) < 0.95
+        b[q] = np.where(hit, np.take_along_axis(a[q + 1], pick, 0), b[q])
+    ovf = (rng.random((p, k, m)) < 0.05).astype(np.int32)
+    return a, c, b, ovf
+
+
+def group_fold_edge(np, torch, k_a1, k_a2, errs):
+    """K5's fold launches of both libraries, the group fold
+    (``fold_groups_kernel``) and the cross-shard fold
+    (``stitch_shards_kernel``), against their plain versions, on random
+    Map tuples whose stitches go unmatched inside and between groups,
+    d = 1, 2, 4, 8, N = 2, 3, 5, 8, M = 300."""
+    m = 300
+    for d in (1, 2, 4, 8):
+        for n in (2, 3, 5, 8):
+            maps = tuple(torch.from_numpy(x).to("cuda") for x in
+                         random_maps(np, 10 * d + n, 2 * d, n, m))
+            want = k_a2.mapc_sharded_plain(maps, d)
+            want_groups = k_a2.mapc_group_fold_plain(maps, d)
+            tuples = torch.stack(maps).contiguous()
+            for kind, lib in (("a2_mapc_shard", k_a2._a2_lib),
+                              ("a1_mapc_shard", k_a1._a1_mapc_lib)):
+                pre = kind[:2]
+                shard = torch.empty((d, 4, n, m), dtype=torch.int32,
+                                    device="cuda")
+                sovf = torch.empty((d, m), dtype=torch.int32, device="cuda")
+                k_a2.mapc_group_fold(lib, f"{pre}_mapc_group_fold", tuples,
+                                     d, shard, sovf)
+                got = k_a2.mapc_shard_fold(lib, f"{pre}_mapc_shard_fold",
+                                           shard, sovf)
+                torch.cuda.synchronize()
+                e = max(max_abs_diff(torch, (shard, sovf), want_groups),
+                        max_abs_diff(torch, got, want))
+                errs[kind] = max(errs[kind], e)
+                if e:
+                    fail(f"{kind}'s folds differ from their plain versions "
+                         f"at d={d}, N={n}: {e}")
+            if not (bool(want[3].any()) and not bool(want[3].all())):
+                fail(f"the random Map tuples at d={d}, N={n} no longer mix "
+                     f"matched and unmatched stitches")
+    print("[smoke] K5's group fold and cross-shard fold == their plain "
+          f"versions, both libraries, d 1/2/4/8, N 2/3/5/8, M={m}")
 
 
 def clone_lanes(lanes, n_state):
@@ -1617,11 +1721,42 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
         row = (ms, seen, wrapper_ms, plain_ms,
                mapc_bound(np, seg_types(args[-1]), eps.etypes, cap),
                f"{what} N={eps.N} M={eps.M} LCAP={cap} P={p} LW={lw}")
+        share, longest, mean = mapc_walk_stats(np, args[-1].cpu().numpy(),
+                                               eps.etypes, eps.max_span)
         print(f"[smoke] a1_mapconcat at {row[-1]}: device {ms:.5f} ms, "
-              f"wrapper {wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms)")
+              f"wrapper {wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms); "
+              f"bound {row[4].ms:.7f} ms; (event, machine) pairs whose "
+              f"type matches: {share:.4f}; events a machine visits: "
+              f"{longest} at most, {mean:.1f} on average (of LW={lw})")
         k4.append((eps.M, row))
     rows["a1_mapconcat"] = max(k4, key=lambda x: x[0])[1]
     return rows
+
+
+def mapc_walk_stats(np, segs, et, w):
+    """K4's indexed walk over the segment brick ``segs`` [P, 5, LW] (on the
+    host) for the episodes ``et`` (M, N) of spans ``w`` (M,): the share of
+    (real event, machine) pairs whose event's type is one of the machine's
+    level types (the same for each of the N phases of a machine), and the
+    most and the mean events one (episode, segment) walk visits — the
+    events whose type bucket (type & 63, as csrc/type_index.cuh) is one of
+    its levels', up to the segment's τ_{p+1} + W (where the walk stops;
+    its stop at a crossing completion is not counted)."""
+    et = np.asarray(et, np.int64)
+    m = et.shape[0]
+    types, times, tau_hi = segs[:, 0, :], segs[:, 1, :], segs[:, 4, 0]
+    real = types >= 0
+    pairs = sum(matching_pairs(np, row[ok], et)
+                for row, ok in zip(types, real))
+    share = pairs / max(1, int(real.sum()) * m)
+    mask = np.zeros((m, 64), bool)
+    mask[np.arange(m)[:, None], et & 63] = True
+    visits = np.stack([
+        (mask[:, row & 63] & ok
+         & (tt <= hi + np.asarray(w, np.int64)[:, None])).sum(axis=1)
+        for row, ok, tt, hi in zip(types.astype(np.int64), real, times,
+                                   tau_hi.astype(np.int64))])
+    return share, int(visits.max()), float(visits.mean())
 
 
 def seg_types(segs):
@@ -1801,15 +1936,58 @@ def time_sharded_call(torch, name, d, kernel, plain, one, one_names, errs,
     kernel()  # warm
     names = SHARDED_DEVICE_KERNELS[name](d)
     ms, seen = device_ms(torch, kernel, TIMED_LAUNCHES, tuple(names), names)
-    stitch = [k for k in names if k.startswith("stitch")]
-    fold_ms, _ = device_ms(torch, kernel, TIMED_LAUNCHES, tuple(stitch),
-                           {k: names[k] for k in stitch})
+    folds = [k for k in names if "map" not in k]
+    fold_ms, _ = device_ms(torch, kernel, TIMED_LAUNCHES, tuple(folds),
+                           {k: names[k] for k in folds})
     wrapper_ms = cuda_median_ms(torch, kernel, TIMED_LAUNCHES)
     one_ms, _ = device_ms(torch, one, TIMED_LAUNCHES, tuple(one_names),
                           one_names)
-    print(f"[smoke] {name}: the cross-shard fold launch takes {fold_ms:.5f} "
-          f"of its {ms:.5f} device ms")
-    return ms, seen, wrapper_ms, one_ms, plain_ms
+    per_call, by_name = profiled_launches(torch, kernel, TIMED_LAUNCHES,
+                                          names)
+    if name in K5 and per_call > sum(names.values()):
+        fail(f"{name} put {per_call:.2f} launches a call on the card, more "
+             f"than its {sum(names.values())}: {by_name}")
+    print(f"[smoke] {name}: the fold launches ({', '.join(folds)}) take "
+          f"{fold_ms:.5f} of its {ms:.5f} device ms; {per_call:.2f} device "
+          f"launches a call by the profiler's count ({by_name} over "
+          f"{TIMED_LAUNCHES} calls)")
+    return ms, seen, wrapper_ms, one_ms, plain_ms, per_call
+
+
+def profiled_launches(torch, fn, n, expect=None) -> tuple[float, dict]:
+    """The device work ``n`` back-to-back calls of ``fn`` put on the card,
+    by the profiler's records: kernels, copies and fills per call, and the
+    records by name. One call runs in a warm-up cycle of the trace before
+    the ``n`` recorded ones. With ``expect`` ({kernel name: launches per
+    call}), a trace that holds fewer than ``n`` times that of a kernel
+    (CUPTI has dropped records) is taken again, up to
+    ``PROFILE_ATTEMPTS`` times, so the count returned is complete; a
+    launch beyond the expected ones is counted, never hidden."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for calls in (1, n):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name = collections.Counter()
+        for e in prof.key_averages():
+            # the schedule's step annotation is no device work
+            if (e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")):
+                key = e.key.replace("(anonymous namespace)::", "")
+                by_name[key.split("(")[0][-60:]] += e.count
+        if all(sum(v for k, v in by_name.items() if name in k) >= n * per
+               for name, per in (expect or {}).items()):
+            break
+        print(f"[smoke] the profiler recorded {dict(by_name)} over {n} "
+              f"calls, fewer than {expect} a call; tracing again")
+    return sum(by_name.values()) / n, dict(by_name)
 
 
 def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
@@ -1832,7 +2010,7 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
     if p % d:
         fail(f"path E's commit shape cuts into {p} segments")
     n, m = frag.eps.N, frag.eps.M
-    ms, seen, wrapper_ms, one_ms, plain_ms = time_sharded_call(
+    ms, seen, wrapper_ms, one_ms, plain_ms, per_call = time_sharded_call(
         torch, "a1_mapc_shard", d,
         lambda: k_a1.a1_mapconcat_sharded(*args, lcap=lcap, devices=mesh),
         lambda: k_a1.a1_mapconcat_sharded_plain(*args, lcap=lcap,
@@ -1844,7 +2022,7 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
         ms, seen, wrapper_ms, plain_ms,
         shard_bound(np, seg_types(args[-1]), frag.eps.etypes, lcap, d),
         f"path E largest mapconcatenate counter, {d} shards, N={n} M={m} "
-        f"LCAP={lcap} P={p} LW={lw}", one_ms)
+        f"LCAP={lcap} P={p} LW={lw}", one_ms, per_call)
 
     i = max(range(len(restart_results)),
             key=lambda j: restart_results[j].stats[2].num_candidates)
@@ -1852,7 +2030,7 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
     args = ops.mapc_inputs(restart_windows[i], cand3.relaxed(), 8, True,
                            "cuda")
     p, _, lw = args[-1].shape
-    ms, seen, wrapper_ms, one_ms, plain_ms = time_sharded_call(
+    ms, seen, wrapper_ms, one_ms, plain_ms, per_call = time_sharded_call(
         torch, "a2_mapc_shard", d,
         lambda: k_a2.a2_mapconcat_sharded(*args, devices=mesh),
         lambda: k_a2.a2_mapconcat_sharded_plain(*args, devices=mesh),
@@ -1863,36 +2041,38 @@ def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,
         ms, seen, wrapper_ms, plain_ms,
         shard_bound(np, seg_types(args[-1]), cand3.etypes, 1, d),
         f"path E restart window {i} level-3 A2 batch, {d} shards, N=3 "
-        f"M={cand3.M} P={p} LW={lw}", one_ms)
+        f"M={cand3.M} P={p} LW={lw}", one_ms, per_call)
 
     if "a1_mapc_sharded_vmapped" not in recorder_f.best:
         fail("path F captured no K6d group")
     (n_lanes, m_tot), lanes, kw = recorder_f.best["a1_mapc_sharded_vmapped"]
     cap = kw["lcap"]
     n, p = lanes[0][0].shape[0], lanes[0][5].shape[0]
-    ms, seen, wrapper_ms, one_ms, plain_ms = time_sharded_call(
+    ms, seen, wrapper_ms, one_ms, plain_ms, per_call = time_sharded_call(
         torch, "a1_mapc_sharded_vmapped", d,
         lambda: ops.a1_mapc_sharded_vmapped(lanes, lcap=cap, devices=mesh),
         lambda: k_a1.a1_mapconcat_sharded_lanes_plain(lanes, lcap=cap,
                                                       devices=mesh),
         lambda: [k_a1.a1_mapconcat_sharded(*a, lcap=cap, devices=mesh)
                  for a in lanes],
-        {"a1_map_kernel": d * n_lanes, "fold_kernel": d * n_lanes,
-         "stitch_shards_kernel": n_lanes}, errs, "path F's largest group")
+        {"a1_map_kernel": n_lanes, "fold_groups_kernel": n_lanes,
+         "stitch_shards_kernel": n_lanes}, errs,
+        "path F's largest group")
     rows["a1_mapc_sharded_vmapped"] = (
         ms, seen, wrapper_ms, plain_ms,
         summed_bound([shard_bound(np, seg_types(a[5]), lane_types(a[0]),
                                   cap, d) for a in lanes]),
         f"path F's largest group, {n_lanes} lanes, {d} shards, N={n} "
         f"LCAP={cap} P={p}, M {[a[0].shape[1] for a in lanes]}, LW "
-        f"{[a[5].shape[2] for a in lanes]}", one_ms)
+        f"{[a[5].shape[2] for a in lanes]}", one_ms, per_call)
     for k in SHARDED:
         print(f"[smoke] {k}: device {rows[k][0]:.5f} ms against "
-              f"{rows[k][6]:.5f} ms one by one ("
+              f"{rows[k][6]:.5f} ms one by one "
+              f"({rows[k][0] / rows[k][6]:.3f} of it; "
               + ("the same lanes' lone K5 calls"
                  if k == "a1_mapc_sharded_vmapped" else
                  "the unsharded launch on the same segments") + ")")
-    return {k: v[:6] for k, v in rows.items()}
+    return {k: v[:6] + v[7:] for k, v in rows.items()}
 
 
 def main_path_shapes(miner, window):
@@ -2034,9 +2214,12 @@ def main() -> int:
     walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
     mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
                      errs)
+    mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
+                     errs)
     fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
     sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
                         EventStream, errs)
+    group_fold_edge(np, torch, k_a1, k_a2, errs)
     sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs)
     print(f"[smoke] phase 2 (kernels against plain versions): "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2154,18 +2337,22 @@ def main() -> int:
                              restart_windows, recorder_f, args.lcap, errs))
     kernels = []
     for k in KERNELS:
-        ms, seen, wrapper_ms, plain_ms, b, what = rows[k]
+        ms, seen, wrapper_ms, plain_ms, b, what, *per_call = rows[k]
         print(f"[smoke] {k} at {what}: device {ms:.5f} ms (mean of the "
               f"{seen} launches the profiler recorded of {TIMED_LAUNCHES} "
               f"back-to-back calls), wrapper "
               f"{wrapper_ms:.4f} ms (median call, CUDA events), plain "
               f"{plain_ms:.1f} ms; bound {b.ms:.5f} ms by {b.by} "
-              f"({b.nbytes} B, {b.ops} int32 ops); launches {launches[k]}")
+              f"({b.nbytes} B, {b.ops} int32 ops); launches {launches[k]}"
+              + (f" (tally), {per_call[0]:.2f} device launches a call "
+                 f"(profiler)" if per_call else ""))
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k][0],
                         "replaces": SOURCES[k][1], "launches": launches[k],
                         "max_abs_err": errs[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b.ms,
                         "bound_by": b.by, "library_ms": None})
+        if per_call:  # the tally counts K5 by shard group, K6d by shard
+            kernels[-1]["device_launches_per_call"] = per_call[0]
     print(f"[smoke] phase 4 (timing): {time.perf_counter() - t0:.1f} s")
     print(f"[smoke] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

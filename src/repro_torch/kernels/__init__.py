@@ -14,7 +14,13 @@ Modules:
     segment-parallel bounded-list MapConcatenate (``a1_mapconcat_kernel``),
     source ``csrc/a1_mapconcat.cu``; replaces
     ``repro.kernels.a1_count.a1_mapconcat_kernel``. K3 and K4 share
-    ``csrc/mapc_common.cuh`` (stitch zones, segment staging, fold launch).
+    ``csrc/mapc_common.cuh`` (stitch zones, segment staging, fold
+    launches); K1, K2 and K4 walk each machine over the events of its own
+    types through ``csrc/type_index.cuh``.
+  K5 — the mesh-sharded MapConcatenate (``a1_count.a1_mapconcat_sharded``,
+    ``a2_count.a2_mapconcat_sharded``): one K3/K4 Map launch per distinct
+    device over its shards' segments and one group fold launch, then the
+    cross-shard fold (three launches a call on one card); replaces ``repro.kernels.ops._mapc_sharded_fn``.
   K6 — the fused multi-session launches: one launch advances many
     counters' lanes through a device table of per-lane descriptors, K6a
     (``a2_count.a2_count_state_lanes``) for K1, K6b

@@ -32,13 +32,10 @@ import ctypes
 
 import torch
 
-from repro_torch.core.count_a1 import step_bounded_list
-from repro_torch.core.events import TIME_NEG_INF
-
 from . import cuda
-from .a2_count import (check_mapc_operands, copy_outs, device_of,
-                       mapc_fold_plain, mapc_launch, mapc_map_scan,
-                       mapc_shard_fold, mapc_sharded, mapc_sharded_plain)
+from .a2_count import (GROUP_SIGNATURES, check_mapc_operands, device_of,
+                       mapc_call, mapc_fold_plain, mapc_launch,
+                       mapc_map_scan, mapc_sharded, mapc_sharded_plain)
 from .tally import record_launch, record_plain
 
 KERNEL = "a1_count_state"
@@ -61,6 +58,8 @@ def a1_count_state_plain(et, tlo, thi, ev, s, ptr, cnt, ovf,
     An episode none of whose levels has the event's type is left as it is
     by the step, so each event steps only the episodes that hold its type
     (gathered once per type)."""
+    from repro_torch.core.count_a1 import step_bounded_list
+
     by_type = {}
     for e, t, d in zip(ev[0, :n_events].tolist(), ev[1, :n_events].tolist(),
                        ev[2, :n_events].tolist()):
@@ -187,6 +186,8 @@ def lanes_resident_blocks(n_levels: int, lcap: int, device) -> int:
 def a1_count_kernel(et, tlo, thi, ev, *, lcap: int = 4,
                     n_events: int | None = None):
     """Fresh machines: (counts i32[M], ovf i32[M]) of ``et``'s episodes."""
+    from repro_torch.core.events import TIME_NEG_INF
+
     n, m = et.shape
     dev = et.device
     s = torch.full((n, lcap, m), int(TIME_NEG_INF), dtype=torch.int32,
@@ -215,9 +216,8 @@ _MAPC_SIGNATURES = {"a1_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
          _P, _I, _P]),
     "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _P]),
-    "a1_mapc_shard_fold": (
-    _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]),
-    "a1_mapc_shard_fold_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P])}
+    "a1_mapc_shard_fold_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P]),
+    **{f"a1_{fn}": sig for fn, sig in GROUP_SIGNATURES.items()}}
 
 
 def _a1_mapc_step(state, e, t, dup, et, tlo, thi):
@@ -225,6 +225,8 @@ def _a1_mapc_step(state, e, t, dup, et, tlo, thi):
     (``_a1_mapc_body`` before gating; ``core.count_a1.step_bounded_list``
     with a phase axis): every level reads the pre-event state, a
     completion stores nothing and resets the lists."""
+    from repro_torch.core.events import TIME_NEG_INF
+
     s, ptr, ovf = state
     q, k, n, lcap = s.shape
     neg = int(TIME_NEG_INF)
@@ -256,6 +258,8 @@ def a1_mapconcat_plain(et, tlo, thi, cum, w, segs, *, lcap: int,
     """Plain PyTorch version of K4 (the Map step — the port of the
     reference's ``_segment_scan`` over every segment — then the fold
     unless ``fold`` is False); same contract and outputs as the kernel."""
+    from repro_torch.core.events import TIME_NEG_INF
+
     p = segs.shape[0]
     n, m = et.shape
     dev = et.device
@@ -273,6 +277,10 @@ def a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, lcap: int = 4,
                         fold: bool = True):
     """K4: segment-parallel bounded-list MapConcatenate.
 
+    Each segment's real events must be in time order, as
+    ``ops.segment_bricks`` checks: the CUDA walk ends a machine at its
+    first event past tau_{p+1} + W (the plain version walks every event).
+
     Returns, with ``fold``, the stitched (a, c, b, f) i32[N, M] — row 0 of
     ``c`` is the count; an episode needs the exact recount iff
     ``f[0] | ovf`` — and ovf i32[M]; without it, the per-segment
@@ -287,9 +295,8 @@ def a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, lcap: int = 4,
         record_plain(MAPC_KERNEL)
         return a1_mapconcat_plain(et, tlo, thi, cum, w, segs, lcap=lcap,
                                   fold=fold)
-    lib = cuda.library("a1_mapconcat", _MAPC_SIGNATURES)
-    return mapc_launch(lib, "a1_mapconcat", MAPC_KERNEL, et, tlo, thi, cum,
-                       w, segs, fold, lcap)
+    return mapc_launch(_a1_mapc_lib(), "a1_mapconcat", MAPC_KERNEL, et, tlo,
+                       thi, cum, w, segs, fold, lcap)
 
 
 def a1_mapconcat_lanes_plain(lanes, *, lcap: int) -> list[tuple]:
@@ -349,13 +356,13 @@ def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
 #
 # Port of ``repro/kernels/ops.py::_mapc_sharded_fn`` (kind "a1") and of
 # ``a1_mapc_sharded_vmapped`` (the same with a leading session axis). The
-# sharded call itself is ``a2_count.mapc_sharded``: one K4 launch per
-# shard on its device, the tuples gathered on the operands' device, one
-# cross-shard fold launch. K6d runs one K6c lane-table launch per shard
-# over every lane's group of that shard, then one lane-table launch of the
+# sharded call itself is ``a2_count.mapc_sharded``: one K4 Map launch per
+# distinct device over its shards' segments and one group fold launch,
+# then the cross-shard fold. K6d runs one K6c lane-table launch per shard over
+# every lane's group of that shard, then one lane-table launch of the
 # cross-shard fold (``csrc/mapc_common.cuh``).
 
-SHARD_KERNEL = "a1_mapc_shard"  # one per shard launch: d per call
+SHARD_KERNEL = "a1_mapc_shard"  # one per shard group: d per call
 SHARDED_LANES_KERNEL = "a1_mapc_sharded_vmapped"  # K6d, one per shard
 SHARD_FOLD_LANES = "mapc_shard_fold_lanes"  # K6d's fold launch
 
@@ -377,32 +384,31 @@ def a1_mapconcat_sharded_plain(et, tlo, thi, cum, w, segs, *, lcap: int,
 def a1_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, lcap: int,
                          devices):
     """K5, bounded-list kind: ``segs``' P segments split into len(devices)
-    contiguous groups (P a multiple of the device count), one K4 launch
-    (Map and fold) per group on its device, the groups' stitched tuples
-    folded on the operands' device with each group's flag carried.
-    Returns (a, c, b, f) i32[N, M] and ovf i32[M] (OR over the groups),
-    the reference's ``a1_mapconcat_sharded_tuples`` contract: row 0 of
-    ``c`` is the count and the episode needs the exact recount iff
-    ``f[0] | ovf``. The counts equal the unsharded K4's; a flagged
-    episode's ``c`` may differ, as the fold tree differs."""
+    contiguous groups (P a multiple of the device count); one K4 Map
+    launch per distinct device over its groups, then the group and
+    cross-shard folds on the operands' device with each group's flag
+    carried (``a2_count.mapc_sharded``). Returns (a, c, b, f) i32[N, M]
+    and ovf i32[M] (OR over the groups), the reference's
+    ``a1_mapconcat_sharded_tuples`` contract: row 0 of ``c`` is the count
+    and the episode needs the exact recount iff ``f[0] | ovf``. The
+    counts equal the unsharded K4's; a flagged episode's ``c`` may
+    differ, as the fold tree differs. Each segment's real events must be in
+    time order, as for ``a1_mapconcat_kernel``."""
     n, _, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
     dev = et.device
     if lcap < 1:
         raise ValueError("lcap must be at least 1")
     _check_envelope(dev, n, lcap)
     if dev.type == "cpu":
-        def run(lay, s, outs):
-            record_plain(SHARD_KERNEL)
-            copy_outs(outs, a1_mapconcat_plain(*lay, s, lcap=lcap))
+        def map_step(operands, s, tuples):
+            tuples.copy_(torch.stack(a1_mapconcat_plain(
+                *operands, s, lcap=lcap, fold=False)))
     else:
-        def run(lay, s, outs):
-            mapc_launch(_a1_mapc_lib(), "a1_mapconcat", SHARD_KERNEL, *lay,
-                        s, True, lcap, outs=outs)
-    return mapc_sharded(
-        et, tlo, thi, cum, w, segs, devices, run,
-        lambda shard, sovf: mapc_shard_fold(_a1_mapc_lib,
-                                            "a1_mapc_shard_fold", shard,
-                                            sovf))
+        def map_step(operands, s, tuples):
+            mapc_call(_a1_mapc_lib(), "a1_mapconcat", operands, s, (lcap,),
+                      tuples)
+    return mapc_sharded(et, tlo, thi, cum, w, segs, devices, SHARD_KERNEL,
+                        map_step, _a1_mapc_lib, "a1")
 
 
 def a1_mapconcat_sharded_lanes_plain(lanes, *, lcap: int, devices):

@@ -1,8 +1,9 @@
 """K1: the carried A2 (single-slot) counter — the CUDA kernel's wrapper and
 its plain PyTorch version; K6a, its fused multi-session form
 (``a2_count_state_lanes``); K3, the single-slot MapConcatenate; and K5's
-single-slot kind (``a2_mapconcat_sharded``) with the cross-shard fold that
-K5 and K6d share (``mapc_sharded``, ``mapc_shard_fold``).
+single-slot kind (``a2_mapconcat_sharded``) with the sharded call and the
+folds that both kinds of K5 share (``mapc_sharded``, ``mapc_group_fold``,
+``mapc_shard_fold``; the last also K6d's).
 
 Port of ``repro/kernels/a2_count.py::a2_count_state_kernel`` (Pallas) and
 its fresh-state wrapper ``a2_count_kernel``. The CUDA source is
@@ -30,9 +31,6 @@ import ctypes
 
 import torch
 
-from repro_torch.core.count_a2 import step_single_slot
-from repro_torch.core.events import PAD_TYPE, TIME_NEG_INF
-
 from . import cuda
 from .tally import record_launch, record_plain
 
@@ -54,6 +52,8 @@ def a2_count_state_plain(et, tlo, thi, ev, s, cnt, n_events: int) -> None:
     An episode none of whose levels has the event's type is left as it is
     by the step, so each event steps only the episodes that hold its type
     (gathered once per type)."""
+    from repro_torch.core.count_a2 import step_single_slot
+
     by_type = {}
     for e, t in zip(ev[0, :n_events].tolist(), ev[1, :n_events].tolist()):
         if e not in by_type:
@@ -164,6 +164,8 @@ def lanes_resident_blocks(n_levels: int, device) -> int:
 
 def a2_count_kernel(et, tlo, thi, ev, *, n_events: int | None = None):
     """Fresh machines: counts (i32[M]) of ``et``'s episodes over ``ev``."""
+    from repro_torch.core.events import TIME_NEG_INF
+
     n, m = et.shape
     s = torch.full((n, m), int(TIME_NEG_INF), dtype=torch.int32,
                    device=et.device)
@@ -191,11 +193,15 @@ MAPC_KERNEL = "a2_mapconcat"
 SEG_TYPE, SEG_TIME, SEG_DUP, SEG_TAU_LO, SEG_TAU_HI = range(5)
 SEG_ROWS = 5
 
+# the folds of K5, exported by both segmented libraries
+GROUP_SIGNATURES = {
+    "mapc_shard_fold": (
+        _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]),
+    "mapc_group_fold": (_I, [_P, _I, _I, _I, _I, _P, _P, _I, _P])}
 _MAPC_SIGNATURES = {"a2_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
          _I, _P]),
-    "a2_mapc_shard_fold": (
-    _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P])}
+    **{f"a2_{fn}": sig for fn, sig in GROUP_SIGNATURES.items()}}
 
 
 def check_mapc_operands(et, tlo, thi, cum, w, segs):
@@ -230,6 +236,7 @@ def mapc_map_scan(et, tlo, thi, cum, w, segs, state, step):
     ``(state', raw_complete[Q, K])``. An event outside a machine's window
     leaves its state as it was. Returns (state, a, count, b), the last
     three [P, K, M]."""
+    from repro_torch.core.events import PAD_TYPE
     from repro_torch.core.mapconcat import stitch_zones
 
     n, m = et.shape
@@ -282,6 +289,8 @@ def mapc_map_scan(et, tlo, thi, cum, w, segs, state, step):
 def _a2_mapc_step(state, e, t, dup, et, tlo, thi):
     """The raw single-slot step on [Q, K, N] state (``_a2_mapc_body``
     before gating): every level reads the pre-event state."""
+    from repro_torch.core.events import TIME_NEG_INF
+
     (s,) = state
     q, k, n = s.shape
     tb = t[:, None, None]
@@ -335,6 +344,8 @@ def mapc_shard_fold_plain(shard, sovf):
 def a2_mapconcat_plain(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     """Plain PyTorch version of K3 (Map step, then the fold unless
     ``fold`` is False); same contract and outputs as the kernel."""
+    from repro_torch.core.events import TIME_NEG_INF
+
     p = segs.shape[0]
     n, m = et.shape
     s0 = torch.full((p * m, n, n), int(TIME_NEG_INF), dtype=torch.int32,
@@ -345,28 +356,36 @@ def a2_mapconcat_plain(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     return mapc_fold_plain(a, c, b, ovf) if fold else (a, c, b, ovf)
 
 
-def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
-                fold: bool, *extra, outs=None) -> tuple:
-    """Run one segmented CUDA launch (K3 or K4): allocate the [4, P, K, M]
-    Map scratch and, with ``fold``, the stitched outputs (or write them to
-    ``outs``: a, c, b, f [K, M] and ovf [M], contiguous, on the operands'
-    device); ``extra`` are the kernel-specific ints after ``n_levels``.
-    Returns the outputs as the plain versions do."""
+def mapc_call(lib, fn: str, operands, segs, extra, tuples, outs=None):
+    """One segmented CUDA call (K3 or K4) on ``operands`` (et, tlo, thi,
+    cum, w) and ``segs``: the Map launch into ``tuples`` ([4, P, K, M])
+    and, with ``outs`` (a, c, b, f [K, M] and ovf [M]), the fold launch
+    into them; every tensor contiguous, on the operands' device.
+    ``extra`` are the kernel-specific ints after ``n_levels``. Raises on
+    a failed launch."""
+    et = operands[0]
     n, m = et.shape
     p, _, lw = segs.shape
     dev = et.device
-    tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
-    if fold and outs is None:
-        outs = ([torch.empty((n, m), dtype=torch.int32, device=dev)
-                 for _ in range(4)]
-                + [torch.empty(m, dtype=torch.int32, device=dev)])
     rc = getattr(lib, fn)(
-        et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), cum.data_ptr(),
-        w.data_ptr(), segs.data_ptr(), p, lw, m, n, *extra, int(fold),
-        tuples.data_ptr(),
-        *((o.data_ptr() for o in outs) if fold else [None] * 5),
+        *(x.data_ptr() for x in operands), segs.data_ptr(), p, lw, m, n,
+        *extra, int(outs is not None), tuples.data_ptr(),
+        *((o.data_ptr() for o in outs) if outs is not None else [None] * 5),
         cuda.device_index(dev), cuda.stream_handle(dev))
-    cuda.check_launch(lib, kernel, rc)
+    cuda.check_launch(lib, fn, rc)
+
+
+def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
+                fold: bool, *extra) -> tuple:
+    """K3's or K4's launch (``mapc_call``) with its Map scratch and, with
+    ``fold``, its stitched outputs allocated here, counted as one launch
+    of ``kernel``. Returns the outputs as the plain versions do."""
+    n, m = et.shape
+    p = segs.shape[0]
+    dev = et.device
+    tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
+    outs = _fold_outs(n, m, dev) if fold else None
+    mapc_call(lib, fn, (et, tlo, thi, cum, w), segs, extra, tuples, outs)
     record_launch(kernel)
     return tuple(outs) if fold else tuple(tuples.unbind(0))
 
@@ -379,16 +398,21 @@ def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
 # which each device runs one K3/K4 launch on its contiguous group of P/d
 # segments, all-gathers the d stitched tuples and folds them with
 # ``fold_pair`` over the device axis. The reference drives its devices
-# from one process; so does the port: one K3/K4 launch per shard on the
-# shard's device and current stream, the tuples copied to the caller's
-# device (``Tensor.copy_``: a peer copy between cards, nothing at all for
-# a shard on the caller's device, whose launch writes its slot of the
-# gathered tensor directly), and one launch of the cross-shard fold
-# (``csrc/mapc_common.cuh``), which carries each shard's flag — the
-# segment fold launch cannot, as segments carry none.
+# from one process; so does the port, by device rather than by shard:
+# each distinct device runs one Map launch over the segments of every
+# shard it holds, on its current stream, and one launch that folds each
+# of its groups into that group's slot (``mapc_group_fold``; on the
+# operands' device straight into the gathered slots). The other devices'
+# slots are copied to the operands' device once every device's launches
+# are enqueued (``Tensor.to``: a peer copy between cards), and the
+# cross-shard fold (``mapc_shard_fold``) stitches the groups there: three
+# launches a call on one card, whatever d. The group fold and the
+# cross-shard fold are in ``csrc/mapc_common.cuh``; the latter carries
+# each group's flag, which the segment fold of K3/K4 cannot, as segments
+# carry none.
 
-SHARD_KERNEL = "a2_mapc_shard"  # one per shard launch: d per call
-SHARD_FOLD = "mapc_shard_fold"  # the cross-shard fold launch (K5)
+SHARD_KERNEL = "a2_mapc_shard"  # one per shard group: d per call
+SHARD_FOLD = "mapc_shard_fold"  # the call's cross-shard fold
 
 
 def device_of(dev) -> torch.device:
@@ -400,47 +424,69 @@ def device_of(dev) -> torch.device:
     return dev
 
 
-def mapc_sharded(et, tlo, thi, cum, w, segs, devices, run_shard, fold):
-    """The sharded segmented call of K5's two kinds — their CUDA launches,
-    and for CPU tensors their plain calls shard by shard. Shard q runs
-    ``run_shard(episode operands, segs group, outs)`` on ``devices[q]``:
-    the episode operands copied there once per distinct device, the q-th
-    contiguous group of P/d segments, and ``outs`` the (a, c, b, f [K, M],
-    ovf [M]) it writes there — its slots of the gathered shard [d, 4, K, M]
-    and sovf [d, M] on the operands' device when the shard's device is that
-    one, else scratch copied into them afterwards. ``fold(shard, sovf)``
-    then stitches them; its (a, c, b, f, ovf) is returned."""
-    n, m, p, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
-    home = et.device
-    devs = [device_of(x) for x in devices]
-    d = len(devs)
-    if d < 1 or p % d:
-        raise ValueError(f"{p} segments do not split over {d} devices")
-    if any(x.type != home.type for x in devs):
-        raise ValueError(f"the mesh {devs} and the operands ({home}) must "
-                         f"be of one device type")
-    shard = torch.empty((d, 4, n, m), dtype=torch.int32, device=home)
-    sovf = torch.empty((d, m), dtype=torch.int32, device=home)
-    lay = {home: (et, tlo, thi, cum, w)}
-    pl = p // d
-    for q, sd in enumerate(devs):
-        if sd not in lay:
-            lay[sd] = tuple(x.to(sd) for x in lay[home])
-        seg_q = segs[q * pl:(q + 1) * pl]
-        if sd == home:
-            run_shard(lay[sd], seg_q, (*shard[q].unbind(0), sovf[q]))
-            continue
-        loc = torch.empty((4, n, m), dtype=torch.int32, device=sd)
-        lovf = torch.empty(m, dtype=torch.int32, device=sd)
-        run_shard(lay[sd], seg_q.to(sd), (*loc.unbind(0), lovf))
-        shard[q].copy_(loc)
-        sovf[q].copy_(lovf)
-    return fold(shard, sovf)
+def shard_groups(devices) -> dict:
+    """The shards of each distinct device in ``devices`` (shard q on
+    ``devices[q]``): {device: [q, ...]}, devices in order of first
+    appearance."""
+    groups = {}
+    for q, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(q)
+    return groups
 
 
-def copy_outs(outs, got) -> None:
-    for o, x in zip(outs, got):
-        o.copy_(x)
+def mapc_group_fold_plain(maps, groups: int):
+    """Plain version of the group fold: the Map step's per-segment tuples
+    ``maps`` ((a, c, b, ovf) [P, K, M]) cut into ``groups`` contiguous
+    groups, each folded with the plain segment fold (what one shard's
+    K3/K4 launch with its fold returns). Returns shard [groups, 4, K, M]
+    (a, c, b, f) and sovf [groups, M]."""
+    p = maps[0].shape[0]
+    if groups < 1 or p % groups:
+        raise ValueError(f"{p} segments do not split into {groups} groups")
+    pl = p // groups
+    folded = [mapc_fold_plain(*(x[g * pl:(g + 1) * pl] for x in maps))
+              for g in range(groups)]
+    return (torch.stack([torch.stack(f[:4]) for f in folded]),
+            torch.stack([f[4] for f in folded]))
+
+
+def mapc_sharded_plain(maps, d: int):
+    """The plain sharded call on the Map step's per-segment tuples ``maps``
+    ((a, c, b, ovf) [P, K, M]): the group fold, then the plain cross-shard
+    fold. The Map step is per segment, so mapping every segment in one
+    pass and cutting the tuples into groups afterwards is the same
+    arithmetic as mapping each group on its own device."""
+    return mapc_shard_fold_plain(*mapc_group_fold_plain(maps, d))
+
+
+def _fold_outs(n: int, m: int, dev) -> list:
+    return ([torch.empty((n, m), dtype=torch.int32, device=dev)
+             for _ in range(4)]
+            + [torch.empty(m, dtype=torch.int32, device=dev)])
+
+
+def mapc_group_fold(lib_of, fn: str, tuples, groups: int, shard,
+                    sovf) -> None:
+    """K5's group fold: the Map scratch ``tuples`` [4, P, K, M] of
+    ``groups`` contiguous groups folded into ``shard`` [groups, 4, K, M]
+    and ``sovf`` [groups, M] on the same device — the CUDA launch ``fn``
+    of the library ``lib_of()`` for CUDA tensors, the plain version for
+    CPU tensors."""
+    _, p, n, m = tuples.shape
+    dev = tuples.device
+    cuda.check_operand("tuples", tuples, (4, p, n, m), dev)
+    cuda.check_operand("shard", shard, (groups, 4, n, m), dev)
+    cuda.check_operand("sovf", sovf, (groups, m), dev)
+    if dev.type == "cpu":
+        got, got_ovf = mapc_group_fold_plain(tuples.unbind(0), groups)
+        shard.copy_(got)
+        sovf.copy_(got_ovf)
+        return
+    lib = lib_of()
+    rc = getattr(lib, fn)(tuples.data_ptr(), p, groups, m, n,
+                          shard.data_ptr(), sovf.data_ptr(),
+                          cuda.device_index(dev), cuda.stream_handle(dev))
+    cuda.check_launch(lib, fn, rc)
 
 
 def mapc_shard_fold(lib_of, fn: str, shard, sovf) -> tuple:
@@ -455,9 +501,7 @@ def mapc_shard_fold(lib_of, fn: str, shard, sovf) -> tuple:
         record_plain(SHARD_FOLD)
         return mapc_shard_fold_plain(shard, sovf)
     lib = lib_of()
-    outs = ([torch.empty((n, m), dtype=torch.int32, device=dev)
-             for _ in range(4)]
-            + [torch.empty(m, dtype=torch.int32, device=dev)])
+    outs = _fold_outs(n, m, dev)
     rc = getattr(lib, fn)(shard.data_ptr(), sovf.data_ptr(), d, m, n,
                           *(o.data_ptr() for o in outs),
                           cuda.device_index(dev), cuda.stream_handle(dev))
@@ -466,27 +510,65 @@ def mapc_shard_fold(lib_of, fn: str, shard, sovf) -> tuple:
     return tuple(outs)
 
 
-def _a2_lib():
-    return cuda.library("a2_mapconcat", _MAPC_SIGNATURES)
-
-
-def mapc_sharded_plain(maps, d: int):
-    """The plain sharded call on the Map step's per-segment tuples ``maps``
-    ((a, c, b, ovf) [P, K, M]): each of the d contiguous segment groups
-    folded with the plain segment fold (what one shard's K3/K4 launch
-    returns), then the plain cross-shard fold. The Map step is per
-    segment, so mapping every segment in one pass and cutting the tuples
-    into groups afterwards is the same arithmetic as mapping each group on
-    its own device."""
-    p = maps[0].shape[0]
+def mapc_sharded(et, tlo, thi, cum, w, segs, devices, kernel: str,
+                 map_step, lib_of, prefix: str):
+    """The sharded segmented call of K5's two kinds (``prefix`` "a1" or
+    "a2"): their CUDA launches, and for CPU tensors their plain versions,
+    through the same grouping by device (``shard_groups``). Shard q holds
+    the q-th contiguous group of P/d segments and lives on
+    ``devices[q]``. ``map_step(operands, segs, tuples)`` runs K3's or
+    K4's Map step on the episode operands (copied once to each device
+    other than theirs) over ``segs`` into the scratch ``tuples`` [4, P',
+    K, M]: each device's once, over the segments of all its shards, in
+    shard order. Counts ``kernel`` once per shard group (d per call, as
+    the reference counts it). Returns the stitched (a, c, b, f) i32[K, M]
+    and ovf i32[M]."""
+    n, m, p, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    home = et.device
+    devs = [device_of(x) for x in devices]
+    d = len(devs)
     if d < 1 or p % d:
         raise ValueError(f"{p} segments do not split over {d} devices")
+    if any(x.type != home.type for x in devs):
+        raise ValueError(f"the mesh {devs} and the operands ({home}) must "
+                         f"be of one device type")
+    record = record_plain if home.type == "cpu" else record_launch
+    operands = (et, tlo, thi, cum, w)
     pl = p // d
-    groups = [mapc_fold_plain(*(x[q * pl:(q + 1) * pl] for x in maps))
-              for q in range(d)]
-    shard = torch.stack([torch.stack(g[:4]) for g in groups])
-    sovf = torch.stack([g[4] for g in groups])
-    return mapc_shard_fold_plain(shard, sovf)
+    shard = torch.empty((d, 4, n, m), dtype=torch.int32, device=home)
+    sovf = torch.empty((d, m), dtype=torch.int32, device=home)
+    gather = []
+    for dev, qs in shard_groups(devs).items():
+        here = operands if dev == home else tuple(x.to(dev)
+                                                  for x in operands)
+        run = qs == list(range(qs[0], qs[-1] + 1))  # a slice of segs
+        if run:
+            seg = segs[qs[0] * pl:(qs[-1] + 1) * pl].to(dev)
+        else:
+            seg = torch.cat([segs[q * pl:(q + 1) * pl] for q in qs]).to(dev)
+        tuples = torch.empty((4, len(qs) * pl, n, m), dtype=torch.int32,
+                             device=dev)
+        map_step(here, seg, tuples)
+        if dev == home and run:  # fold straight into the groups' slots
+            slot = shard[qs[0]:qs[-1] + 1], sovf[qs[0]:qs[-1] + 1]
+        else:
+            slot = (torch.empty((len(qs), 4, n, m), dtype=torch.int32,
+                                device=dev),
+                    torch.empty((len(qs), m), dtype=torch.int32, device=dev))
+            gather.append((qs, *slot))
+        mapc_group_fold(lib_of, f"{prefix}_mapc_group_fold", tuples,
+                        len(qs), *slot)
+        for _ in qs:
+            record(kernel)
+    # every device's launches are enqueued; now gather the other slots
+    for qs, got, got_ovf in gather:
+        shard[qs] = got.to(home)
+        sovf[qs] = got_ovf.to(home)
+    return mapc_shard_fold(lib_of, f"{prefix}_mapc_shard_fold", shard, sovf)
+
+
+def _a2_lib():
+    return cuda.library("a2_mapconcat", _MAPC_SIGNATURES)
 
 
 def a2_mapconcat_sharded_plain(et, tlo, thi, cum, w, segs, *, devices):
@@ -500,30 +582,27 @@ def a2_mapconcat_sharded_plain(et, tlo, thi, cum, w, segs, *, devices):
 
 def a2_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, devices):
     """K5, single-slot kind: ``segs``' P segments split into len(devices)
-    contiguous groups, one K3 launch (Map and fold) per group on its
-    device, the groups' stitched tuples folded on the operands' device.
+    contiguous groups; one K3 Map launch per distinct device over its
+    groups, then the group and cross-shard folds (``mapc_sharded``).
     Returns (a, c, b, f) i32[N, M] and ovf i32[M] (zero), the reference's
     ``a2_mapconcat_sharded_tuples`` contract; for a stream the
     unsharded K3 stitches without a flag, the counts are the same."""
     n, _, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
     dev = et.device
     if dev.type == "cpu":
-        def run(lay, s, outs):
-            record_plain(SHARD_KERNEL)
-            copy_outs(outs, a2_mapconcat_plain(*lay, s))
+        def map_step(operands, s, tuples):
+            tuples.copy_(torch.stack(a2_mapconcat_plain(*operands, s,
+                                                        fold=False)))
     elif dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     elif not 2 <= n <= MAX_LEVELS:
         raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
                          f"got {n}")
     else:
-        def run(lay, s, outs):
-            mapc_launch(_a2_lib(), "a2_mapconcat", SHARD_KERNEL, *lay, s,
-                        True, outs=outs)
-    return mapc_sharded(
-        et, tlo, thi, cum, w, segs, devices, run,
-        lambda shard, sovf: mapc_shard_fold(_a2_lib, "a2_mapc_shard_fold",
-                                            shard, sovf))
+        def map_step(operands, s, tuples):
+            mapc_call(_a2_lib(), "a2_mapconcat", operands, s, (), tuples)
+    return mapc_sharded(et, tlo, thi, cum, w, segs, devices, SHARD_KERNEL,
+                        map_step, _a2_lib, "a2")
 
 
 def a2_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, fold: bool = True):
@@ -544,6 +623,5 @@ def a2_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     if not 2 <= n <= MAX_LEVELS:
         raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
                          f"got {n}")
-    lib = cuda.library("a2_mapconcat", _MAPC_SIGNATURES)
-    return mapc_launch(lib, "a2_mapconcat", MAPC_KERNEL, et, tlo, thi, cum,
-                       w, segs, fold)
+    return mapc_launch(_a2_lib(), "a2_mapconcat", MAPC_KERNEL, et, tlo, thi,
+                       cum, w, segs, fold)

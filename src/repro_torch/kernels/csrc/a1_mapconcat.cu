@@ -1,15 +1,17 @@
 // K4: segment-parallel MapConcatenate with bounded-list (A1) machines, for
-// Hopper (sm_90a); K6c, its fused multi-session form; and the cross-shard
-// fold of its mesh-sharded forms K5 (A1) and K6d.
+// Hopper (sm_90a); K6c, its fused multi-session form; and the folds of its
+// mesh-sharded forms K5 (A1) and K6d.
 //
 // Replaces: src/repro/kernels/a1_count.py::a1_mapconcat_kernel (Pallas, TPU;
 // body _a1_mapc_body, grid step _a1_mapc_kernel, fused fold
 // a2_count.py::_mapc_fold_and_emit); K6c replaces
 // src/repro/kernels/ops.py::a1_mapc_vmapped (jax.vmap of that kernel over a
-// leading session axis). K5 (ops.py::_mapc_sharded_fn, kind "a1") and K6d
-// (ops.py::a1_mapc_sharded_vmapped) run this file's launches on each
-// shard's segment group and stitch the shards with the fold launches of
-// mapc_common.cuh (a1_mapc_shard_fold, a1_mapc_shard_fold_lanes).
+// leading session axis). K5 (ops.py::_mapc_sharded_fn, kind "a1") runs
+// this file's Map launch once per device over the segments of every shard
+// it holds, then the group and cross-shard folds of mapc_common.cuh
+// (a1_mapc_group_fold, a1_mapc_shard_fold); K6d
+// (ops.py::a1_mapc_sharded_vmapped) runs K6c on each shard's segment group
+// and a1_mapc_shard_fold_lanes.
 //
 // What it computes: for M episodes, P time segments and K = N phases, the
 // bounded-list machine of K2 (csrc/a1_count.cu) started cum[k] ticks before
@@ -19,28 +21,41 @@
 //
 // What bounds it on the card: not bytes. Each machine reads its segment's
 // window (LW events, three rows) and its episode's bounds once and writes
-// four ints; the work is P*K*M machines x LW events x (N + 2(N-1)LCAP)
-// int32 compares, a chain of dependent steps per machine. With one thread
-// per machine it is bound by that serial walk, and at the streaming path's
-// sizes (M <= a few hundred episodes) by how few threads there are to hide
-// its latency: the launch is latency-bound, a later PR's work.
+// four ints. An event changes a machine only if its type is one of the
+// episode's level types and it falls in the machine's window, so the work
+// these inputs need is, per segment and phase machine, K2's (csrc/
+// a1_count.cu) on the matching events: N type compares, and the window
+// test at each level of the event's type, in a chain of dependent steps
+// per machine. At the streaming path's sizes (M <= a few hundred episodes,
+// P = 8) a launch has a few blocks of one to four warps: it is bound by the
+// longest machine's chain of visited events and by how few warps there are
+// to hide each step's latency.
 //
 // Design: Map launch on a grid (episode tile, phase, segment), 128 threads
 // per block, one thread per machine; a block shares its phase and segment,
-// so the segment's (type, time, dup) chunks are staged through shared
-// memory and read as broadcasts. The window length LW is unbounded: the
-// chunks walk any window (the TPU's VMEM cap MAX_SEG_BRICK_LW has no
-// counterpart here). Lists, pointers and bounds live in registers,
-// templated on N and LCAP; the slot at the pointer is selected by unrolled
-// compares, as in K2. Gating is _a1_mapc_body's: an event outside the
-// machine's window (t <= start, t > tau_{p+1} + w, or after the b-crossing)
-// or a padding event changes nothing, so it is skipped; otherwise all
-// levels advance from the pre-event state, a completing event stores
-// nothing (and cannot raise ovf) and resets the lists. A block stops early
-// once every machine in it has crossed. The Map launch writes
-// (a, count, b, ovf) to a [4, P, K, M] scratch; the fold launch stitches
-// it. Called without the fold, the launch leaves the per-segment tuples
-// for the caller's Concatenate tree (the mapconcatenate engine).
+// so it stages the segment's (type, time, dup) rows in 1,024-event chunks
+// through shared memory and builds K2's type index beside each chunk
+// (type_index.cuh: per 32-event group one word per type bucket, 20 KB of
+// shared memory in all). A thread ORs its N level buckets' words of a
+// group and visits the set bits in order (__ffs), so it steps only the
+// events of its own types (and of types that share their buckets, which
+// change nothing). The window length LW is unbounded: the chunks walk any
+// window (the TPU's VMEM cap MAX_SEG_BRICK_LW has no counterpart here).
+// Lists, pointers and bounds live in registers, templated on N and LCAP;
+// the slot at the pointer is selected by unrolled compares, as in K2.
+// Gating is _a1_mapc_body's: a padding event or one at or before the
+// machine's start changes nothing and is skipped; on a visited event the
+// witness test runs only for the levels whose type is the event's, and all
+// levels advance from the pre-event state (masks first, then writes), which
+// keeps repeated-type episodes right; the window test is one unsigned
+// compare (type_index::in_window). A completing event stores nothing (and
+// cannot raise ovf) and resets the lists. A machine ends at its crossing
+// completion or at the first visited event past tau_{p+1} + w (a window's
+// events are in time order), and a block stops staging once every machine
+// in it has ended. The Map launch writes (a, count, b, ovf) to a
+// [4, P, K, M] scratch; the fold launch stitches it. Called without the
+// fold, the launch leaves the per-segment tuples for the caller's
+// Concatenate tree (the mapconcatenate engine).
 //
 // K6c runs the same Map and fold bodies for many counters' commits in one
 // Map launch and one fold launch: a device lane table holds each lane's
@@ -49,35 +64,44 @@
 // its own window length LW, so no brick is padded to the group's longest.
 
 #include "mapc_common.cuh"
+#include "type_index.cuh"
 
 namespace {
 
 using namespace mapc;
 
 // Machine (episode j, phase k, segment p of P) of an m-episode batch: walk
-// segment p's window and write its (a, count, b, ovf) into the Map scratch.
-// Every thread of the block calls it (those with j >= m too: they take
-// part in the barriers and write nothing). The single and the lane-table
-// entry points share it.
+// segment p's window on the type index and write its (a, count, b, ovf)
+// into the Map scratch. Every thread of the block calls it (those with
+// j >= m too: they take part in the staging barriers, visit nothing and
+// write nothing). The single and the lane-table entry points share it.
 template <int N, int L>
 __device__ __forceinline__ void a1_map_body(
     const int* __restrict__ et, const int* __restrict__ tlo,
     const int* __restrict__ thi, const int* __restrict__ cum,
     const int* __restrict__ wspan, const int* __restrict__ segs, int lw,
     int m, int j, int k, int p, int P, int* __restrict__ tuples) {
+  using type_index::kBuckets;
+  using type_index::kWarpSize;
   __shared__ int sh_type[kChunk];
   __shared__ int sh_time[kChunk];
   __shared__ int sh_dup[kChunk];
+  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
   const bool real = j < m;
   const int* seg = segs + static_cast<size_t>(p) * kSegRows * lw;
 
-  int r_et[N], r_lo[N], r_hi[N], r_p[N];
+  int r_et[N], r_b[N], r_lo[N], r_hi[N], r_p[N];
+  int r_base[N];
+  unsigned r_span[N];
   int r_s[N][L];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     r_et[i] = real ? et[i * m + j] : kPadRow;
+    r_b[i] = type_index::bucket(r_et[i]);
     r_lo[i] = real ? tlo[i * m + j] : 0;
     r_hi[i] = real ? thi[i * m + j] : 0;
+    r_base[i] = static_cast<int>(static_cast<unsigned>(r_lo[i]) + 1u);
+    r_span[i] = type_index::window_span(r_lo[i], r_hi[i]);
     r_p[i] = 0;
 #pragma unroll
     for (int l = 0; l < L; ++l) r_s[i][l] = kNegInf;
@@ -85,55 +109,78 @@ __device__ __forceinline__ void a1_map_body(
   Zones z;
   z.init(seg[kRowTauLo * lw], seg[kRowTauHi * lw], real ? wspan[j] : 0,
          real ? cum[k * m + j] : 0);
+  // the machine has crossed, or a visited event lies past its window's end
+  // (a window's events are in time order): no later event can change it
+  bool ended = !real;
   int o = 0;
 
   for (int base = 0; base < lw; base += kChunk) {
     // every thread is done with the previous chunk; stop when every
-    // machine of the block has crossed into the next segment
-    if (__syncthreads_and(z.done || !real)) break;
-    const int len = stage_chunk<true>(seg, lw, base, sh_type, sh_time,
-                                      sh_dup);
+    // machine of the block has ended
+    if (__syncthreads_and(ended)) break;
+    const int len = min(kChunk, lw - base);
+    type_index::stage_chunk<kThreads>(
+        seg + kRowType * lw, seg + kRowTime * lw, seg + kRowDup * lw, base,
+        len, sh_type, sh_time, sh_dup, sh_bits);
     __syncthreads();
-    for (int q = 0; q < len; ++q) {
-      const int e = sh_type[q];
-      const int t = sh_time[q];
-      if (e == kPadType || !z.in_window(t)) continue;
-      const bool dup = sh_dup[q] != 0;
-      bool adv[N];
-      adv[0] = r_et[0] == e;
-#pragma unroll
-      for (int i = 1; i < N; ++i) {
-        bool witness = false;
-#pragma unroll
-        for (int l = 0; l < L; ++l) {
-          const int d = delta(t, r_s[i - 1][l]);
-          witness |= (d > r_lo[i - 1]) & (d <= r_hi[i - 1]);
+    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
+    for (int g = 0; g < n_groups && !ended; ++g) {
+      unsigned word = type_index::group_word<N>(sh_bits, g, r_b);
+      while (word) {
+        const int q = g * kWarpSize + __ffs(word) - 1;
+        word &= word - 1u;
+        const int e = sh_type[q];
+        if (e == kPadType) continue;
+        const int t = sh_time[q];
+        if (t > z.tau_hi + z.w) {
+          ended = true;
+          break;
         }
-        adv[i] = (r_et[i] == e) & witness;
-      }
-      if (adv[N - 1]) {
+        if (t <= z.start) continue;
+        const bool dup = sh_dup[q] != 0;
+        bool adv[N];
+        adv[0] = r_et[0] == e;
 #pragma unroll
-        for (int i = 0; i < N; ++i) {
-          r_p[i] = 0;
+        for (int i = 1; i < N; ++i) {
+          bool witness = false;
+          if (r_et[i] == e) {
+            const unsigned tb = static_cast<unsigned>(t) -
+                                static_cast<unsigned>(r_base[i - 1]);
 #pragma unroll
-          for (int l = 0; l < L; ++l) r_s[i][l] = kNegInf;
+            for (int l = 0; l < L; ++l)
+              witness |= type_index::in_window(tb, r_s[i - 1][l],
+                                               r_span[i - 1]);
+          }
+          adv[i] = witness;
         }
-        z.complete(t);
-      } else {
+        if (adv[N - 1]) {
 #pragma unroll
-        for (int i = 0; i < N - 1; ++i) {
-          if (adv[i]) {
-            int v = kNegInf;
+          for (int i = 0; i < N; ++i) {
+            r_p[i] = 0;
 #pragma unroll
-            for (int l = 0; l < L; ++l) {
-              if (l == r_p[i]) {
-                v = r_s[i][l];
-                r_s[i][l] = t;
+            for (int l = 0; l < L; ++l) r_s[i][l] = kNegInf;
+          }
+          z.complete(t);
+          if (z.done) {
+            ended = true;
+            break;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < N - 1; ++i) {
+            if (adv[i]) {
+              int v = kNegInf;
+#pragma unroll
+              for (int l = 0; l < L; ++l) {
+                if (l == r_p[i]) {
+                  v = r_s[i][l];
+                  r_s[i][l] = t;
+                }
               }
+              o |= (v > kNegInf) & (delta(t, v) <= r_hi[i]) &
+                   ((r_lo[i] > 0) | dup);
+              r_p[i] = (r_p[i] + 1 == L) ? 0 : r_p[i] + 1;
             }
-            o |= (v > kNegInf) & (delta(t, v) <= r_hi[i]) &
-                 ((r_lo[i] > 0) | dup);
-            r_p[i] = (r_p[i] + 1 == L) ? 0 : r_p[i] + 1;
           }
         }
       }
@@ -317,6 +364,17 @@ int a1_mapc_shard_fold_lanes(const long long* lanes, int n_lanes, int d,
                              void* stream) {
   return mapc::shard_fold_lanes(lanes, n_lanes, d, max_m, n_levels,
                                 device, stream);
+}
+
+// K5's group fold (mapc_common.cuh): tuples int32[4, p, n_levels, m], the
+// Map scratch of ``groups`` groups of p / groups segments; each group folded
+// into shard int32[groups, 4, n_levels, m] (a, c, b, f) and sovf
+// int32[groups, m]. Returns 0 or a cudaError_t code.
+int a1_mapc_group_fold(const int* tuples, int p, int groups, int m,
+                       int n_levels, int* shard, int* sovf, int device,
+                       void* stream) {
+  return mapc::group_fold(tuples, p, groups, m, n_levels, shard, sovf,
+                          device, stream);
 }
 
 const char* kernel_error_string(int code) {

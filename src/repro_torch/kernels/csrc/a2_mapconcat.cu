@@ -4,8 +4,9 @@
 // Replaces: src/repro/kernels/a2_count.py::a2_mapconcat_kernel (Pallas,
 // TPU; body _a2_mapc_body, grid step _a2_mapc_kernel, fused fold
 // _mapc_fold_and_emit). K5 (src/repro/kernels/ops.py::_mapc_sharded_fn,
-// kind "a2") runs this file's launch on each shard's segment group and
-// stitches the shards with a2_mapc_shard_fold (mapc_common.cuh).
+// kind "a2") runs this file's Map launch once per device over the segments
+// of every shard it holds, then the group and cross-shard folds
+// (a2_mapc_group_fold, a2_mapc_shard_fold; mapc_common.cuh).
 //
 // What it computes: K1's single-slot machine (csrc/a2_count.cu) run as
 // K = N phase-shifted machines per (episode, time segment), gated by the
@@ -20,7 +21,8 @@
 // machine; with one thread per machine it is bound by that serial walk and
 // by the number of machines there are to hide its latency.
 //
-// Design: as K4 (csrc/a1_mapconcat.cu) with one slot per level: grid
+// Design: K4's (csrc/a1_mapconcat.cu) without its type index — every
+// event of the window is stepped — and with one slot per level: grid
 // (episode tile, phase, segment), one thread per machine, the segment's
 // (type, time) chunks staged through shared memory for any window length,
 // state in registers templated on N, every level advancing from the
@@ -62,8 +64,7 @@ a2_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
 
   for (int base = 0; base < lw; base += kChunk) {
     if (__syncthreads_and(z.done || !real)) break;
-    const int len = stage_chunk<false>(seg, lw, base, sh_type, sh_time,
-                                       nullptr);
+    const int len = stage_chunk(seg, lw, base, sh_type, sh_time);
     __syncthreads();
     for (int q = 0; q < len; ++q) {
       const int e = sh_type[q];
@@ -150,6 +151,17 @@ int a2_mapc_shard_fold(const int* shard, const int* sovf, int d, int m,
                        int n_levels, int* a, int* c, int* b, int* f,
                        int* ovf, int device, void* stream) {
   return mapc::shard_fold(shard, sovf, d, m, n_levels, a, c, b, f, ovf,
+                          device, stream);
+}
+
+// K5's group fold (mapc_common.cuh): tuples int32[4, p, n_levels, m], the
+// Map scratch of ``groups`` groups of p / groups segments; each group folded
+// into shard int32[groups, 4, n_levels, m] (a, c, b, f) and sovf
+// int32[groups, m]. Returns 0 or a cudaError_t code.
+int a2_mapc_group_fold(const int* tuples, int p, int groups, int m,
+                       int n_levels, int* shard, int* sovf, int device,
+                       void* stream) {
+  return mapc::group_fold(tuples, p, groups, m, n_levels, shard, sovf,
                           device, stream);
 }
 

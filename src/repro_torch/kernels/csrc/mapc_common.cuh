@@ -1,7 +1,7 @@
 // Shared pieces of the segmented MapConcatenate kernels K3
 // (a2_mapconcat.cu) and K4 (a1_mapconcat.cu): the segment brick layout,
 // the stitch zones, the fold launch that stitches the segments' tuples, and
-// the cross-shard fold of their mesh-sharded forms K5 and K6d.
+// the group and cross-shard folds of their mesh-sharded forms K5 and K6d.
 //
 // Layout (all int32):
 //   segs   [P, 5, LW]  rows: types, times, dup, tau_p, tau_{p+1}; the two
@@ -75,78 +75,56 @@ struct Zones {
   }
 };
 
-// Stage one chunk of segment p's events into shared memory. Returns the
-// chunk length. The caller brackets it with __syncthreads.
-template <bool kDup>
+// Stage one chunk of segment p's (type, time) rows into shared memory
+// (K3's dense walk; K4 stages through type_index.cuh). Returns the chunk
+// length. The caller brackets it with __syncthreads.
 __device__ __forceinline__ int stage_chunk(const int* seg, int lw, int base,
-                                           int* sh_type, int* sh_time,
-                                           int* sh_dup) {
+                                           int* sh_type, int* sh_time) {
   const int len = min(kChunk, lw - base);
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     sh_type[i] = seg[kRowType * lw + base + i];
     sh_time[i] = seg[kRowTime * lw + base + i];
-    if constexpr (kDup) sh_dup[i] = seg[kRowDup * lw + base + i];
   }
   return len;
 }
 
-// Fold launch: thread j folds segments 0..P-1 of episode j left to right.
-// Left machine k's b is matched against the right segment's a values; the
-// lowest matching k' wins, an unmatched machine takes the k' = 0 entries and
-// sets its flag (fold_pair_unrolled, bit for bit). Segment tuples carry no
-// flag of their own, so only the carried flag and the match decide f.
+// One stitch step of episode j's phase tuples (fold_pair's rule, bit for
+// bit): left machine k takes the lowest right machine k' whose a equals its
+// b, or falls through to k' = 0 unmatched; its count adds the right one's,
+// its b moves on, and f |= f_right[k'] | !matched.
 template <int K>
-__device__ __forceinline__ void fold_body(const int* __restrict__ tuples,
-                                          int p, int m, int j, bool with_ovf,
-                                          int* __restrict__ out_a,
-                                          int* __restrict__ out_c,
-                                          int* __restrict__ out_b,
-                                          int* __restrict__ out_f,
-                                          int* __restrict__ out_ovf) {
-  if (j >= m) return;
-  const size_t plane = static_cast<size_t>(p) * K * m;  // one field
-  const int* ta = tuples;
-  const int* tc = tuples + plane;
-  const int* tb = tuples + 2 * plane;
-  const int* to = tuples + 3 * plane;
-  int ca[K], cc[K], cb[K];
-  bool cf[K];
-  int o = 0;
+__device__ __forceinline__ void stitch(int (&cc)[K], int (&cb)[K],
+                                       bool (&cf)[K], const int (&ra)[K],
+                                       const int (&rc)[K],
+                                       const int (&rb)[K],
+                                       const bool (&rf)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    ca[k] = ta[k * m + j];
-    cc[k] = tc[k * m + j];
-    cb[k] = tb[k * m + j];
-    cf[k] = false;
-    if (with_ovf) o |= to[k * m + j];
-  }
-  for (int q = 1; q < p; ++q) {
-    const size_t off = static_cast<size_t>(q) * K * m + j;
-    int ra[K], rc[K], rb[K];
+    bool matched = false;
+    int gc = rc[0], gb = rb[0];
+    bool gf = rf[0];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ra[k] = ta[off + k * m];
-      rc[k] = tc[off + k * m];
-      rb[k] = tb[off + k * m];
-      if (with_ovf) o |= to[off + k * m];
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      bool matched = false;
-      int gc = rc[0], gb = rb[0];
-#pragma unroll
-      for (int kp = K - 1; kp >= 0; --kp) {
-        if (cb[k] == ra[kp]) {
-          matched = true;
-          gc = rc[kp];
-          gb = rb[kp];
-        }
+    for (int kp = K - 1; kp >= 0; --kp) {
+      if (cb[k] == ra[kp]) {
+        matched = true;
+        gc = rc[kp];
+        gb = rb[kp];
+        gf = rf[kp];
       }
-      cc[k] += gc;
-      cb[k] = gb;
-      cf[k] = cf[k] || !matched;
     }
+    cc[k] += gc;
+    cb[k] = gb;
+    cf[k] = cf[k] || gf || !matched;
   }
+}
+
+// Write episode j's stitched tuple: a/c/b/f [K, M] (f as 0/1), ovf [M].
+template <int K>
+__device__ __forceinline__ void store_tuple(
+    const int (&ca)[K], const int (&cc)[K], const int (&cb)[K],
+    const bool (&cf)[K], int o, int m, int j, int* __restrict__ out_a,
+    int* __restrict__ out_c, int* __restrict__ out_b,
+    int* __restrict__ out_f, int* __restrict__ out_ovf) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     out_a[k * m + j] = ca[k];
@@ -157,14 +135,64 @@ __device__ __forceinline__ void fold_body(const int* __restrict__ tuples,
   out_ovf[j] = o != 0;
 }
 
+// Fold launch body: thread j folds episode j's Map tuples of segments
+// [q0, q1) left to right and writes the stitched tuple. ``plane`` is one
+// field's stride (P * K * m for a [4, P, K, M] scratch); segment q's
+// tuples start at q * K * m. Segment tuples carry no flag of their own, so
+// only the match decides f (fold_pair_unrolled, bit for bit); with_ovf
+// ORs plane 3 into ovf.
+template <int K>
+__device__ __forceinline__ void fold_body(const int* __restrict__ tuples,
+                                          size_t plane, int q0, int q1,
+                                          int m, int j, bool with_ovf,
+                                          int* __restrict__ out_a,
+                                          int* __restrict__ out_c,
+                                          int* __restrict__ out_b,
+                                          int* __restrict__ out_f,
+                                          int* __restrict__ out_ovf) {
+  if (j >= m) return;
+  const int* ta = tuples;
+  const int* tc = tuples + plane;
+  const int* tb = tuples + 2 * plane;
+  const int* to = tuples + 3 * plane;
+  const size_t first = static_cast<size_t>(q0) * K * m + j;
+  int ca[K], cc[K], cb[K];
+  bool cf[K], none[K];
+  int o = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ca[k] = ta[first + k * m];
+    cc[k] = tc[first + k * m];
+    cb[k] = tb[first + k * m];
+    cf[k] = false;
+    none[k] = false;
+    if (with_ovf) o |= to[first + k * m];
+  }
+  for (int q = q0 + 1; q < q1; ++q) {
+    const size_t off = static_cast<size_t>(q) * K * m + j;
+    int ra[K], rc[K], rb[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ra[k] = ta[off + k * m];
+      rc[k] = tc[off + k * m];
+      rb[k] = tb[off + k * m];
+      if (with_ovf) o |= to[off + k * m];
+    }
+    stitch<K>(cc, cb, cf, ra, rc, rb, none);
+  }
+  store_tuple<K>(ca, cc, cb, cf, o, m, j, out_a, out_c, out_b, out_f,
+                 out_ovf);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const int* __restrict__ tuples, int p, int m, bool with_ovf,
             int* __restrict__ out_a, int* __restrict__ out_c,
             int* __restrict__ out_b, int* __restrict__ out_f,
             int* __restrict__ out_ovf) {
-  fold_body<K>(tuples, p, m, blockIdx.x * kThreads + threadIdx.x, with_ovf,
-               out_a, out_c, out_b, out_f, out_ovf);
+  fold_body<K>(tuples, static_cast<size_t>(p) * K * m, 0, p, m,
+               blockIdx.x * kThreads + threadIdx.x, with_ovf, out_a, out_c,
+               out_b, out_f, out_ovf);
 }
 
 // Lane table of the fused multi-session segmented launch (K6c): one
@@ -187,8 +215,9 @@ template <int K>
 __global__ void __launch_bounds__(kThreads)
 fold_lanes_kernel(const long long* __restrict__ lanes, int p) {
   const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
-  fold_body<K>(lane_ptr<const int>(d, kLaneTuples), p,
-               static_cast<int>(d[kLaneM]),
+  const int m = static_cast<int>(d[kLaneM]);
+  fold_body<K>(lane_ptr<const int>(d, kLaneTuples),
+               static_cast<size_t>(p) * K * m, 0, p, m,
                blockIdx.x * kThreads + threadIdx.x, true,
                lane_ptr<int>(d, kLaneA), lane_ptr<int>(d, kLaneC),
                lane_ptr<int>(d, kLaneB), lane_ptr<int>(d, kLaneF),
@@ -207,25 +236,30 @@ cudaError_t launch_fold(const int* tuples, int p, int m, bool with_ovf,
 
 // ---------------------------------------------------------------- K5, K6d
 //
-// Cross-shard fold of the mesh-sharded MapConcatenate (K5; replaces the
+// The folds of the mesh-sharded MapConcatenate (K5; they replace the
 // all_gather-then-fold_pair tail of src/repro/kernels/ops.py::
-// _mapc_sharded_fn). Each shard (device) has run K3 or K4 on its contiguous
-// segment group; its stitched (a, c, b, f) and ovf are gathered on the
-// caller's device as
-//   shard [d, 4, K, M]  a, c, b, f of shard q (f: its in-group flag)
-//   sovf  [d, M]        ovf of shard q
-// Thread j folds shards 0..d-1 of episode j left to right with fold_pair's
-// rule (src/repro/core/mapconcat.py:170), bit for bit: the carry starts
-// from shard 0's tuple and flag; left machine k takes the lowest right
-// machine k' whose a equals its b, or falls through to k' = 0 unmatched,
-// and f |= f_right[k'] | !matched. This is where fold_body above differs:
-// Map segments carry no flag, so fold_body starts every flag at false and
-// reads plane 3 as ovf; a shard's tuple carries its own flag in plane 3,
-// and dropping it would lose an unmatched stitch inside a shard. ovf is
-// OR'd over the shards.
+// _mapc_sharded_fn). Shard q's group is the q-th contiguous run of P/d
+// segments. Each device runs one Map launch (K3's or K4's) over the
+// segments of every shard it holds, then fold_groups_kernel, which folds
+// each group's segments (fold_body: flags start false, ovf OR'd) into that
+// group's slot of
+//   shard [d, 4, K, M]  a, c, b, f of group q (f: its in-group flag)
+//   sovf  [d, M]        ovf of group q
+// The caller gathers the slots on the operands' device (on that device
+// the groups fold straight into them), and stitch_shards_kernel folds the
+// groups there: three launches a call on one card, whatever d.
 //
-// What bounds it: bytes. Each thread reads 4*K*d + d ints and writes
-// 4*K + 1; the compares (K*K per shard) are few. One launch per call.
+// The cross-shard step is fold_pair's rule (src/repro/core/mapconcat.py:
+// 170), bit for bit: the carry starts from group 0's tuple and flag, and a
+// group's flag is carried (stitch). This is where the segment fold differs:
+// Map segments carry no flag, so fold_body starts every flag at false and
+// reads plane 3 as ovf; a group's tuple carries its own flag, and dropping
+// it would lose an unmatched stitch inside a group. ovf is OR'd over the
+// groups.
+//
+// What bounds them: bytes. A thread reads its episode's 4*K ints of every
+// segment (or 4*K + 1 of every group) and writes 4*K + 1; the compares (K*K
+// per stitch) are few.
 template <int K>
 __device__ __forceinline__ void shard_fold_body(const int* __restrict__ shard,
                                                 const int* __restrict__ sovf,
@@ -259,33 +293,10 @@ __device__ __forceinline__ void shard_fold_body(const int* __restrict__ shard,
       rf[k] = s[3 * plane + k * m] != 0;
     }
     o |= sovf[static_cast<size_t>(q) * m + j];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      bool matched = false;
-      int gc = rc[0], gb = rb[0];
-      bool gf = rf[0];
-#pragma unroll
-      for (int kp = K - 1; kp >= 0; --kp) {
-        if (cb[k] == ra[kp]) {
-          matched = true;
-          gc = rc[kp];
-          gb = rb[kp];
-          gf = rf[kp];
-        }
-      }
-      cc[k] += gc;
-      cb[k] = gb;
-      cf[k] = cf[k] || gf || !matched;
-    }
+    stitch<K>(cc, cb, cf, ra, rc, rb, rf);
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    out_a[k * m + j] = ca[k];
-    out_c[k * m + j] = cc[k];
-    out_b[k * m + j] = cb[k];
-    out_f[k * m + j] = cf[k] ? 1 : 0;
-  }
-  out_ovf[j] = o != 0;
+  store_tuple<K>(ca, cc, cb, cf, o, m, j, out_a, out_c, out_b, out_f,
+                 out_ovf);
 }
 
 template <int K>
@@ -297,6 +308,23 @@ stitch_shards_kernel(const int* __restrict__ shard,
                      int* __restrict__ out_ovf) {
   shard_fold_body<K>(shard, sovf, d, m, blockIdx.x * kThreads + threadIdx.x,
                      out_a, out_c, out_b, out_f, out_ovf);
+}
+
+// The group fold: Map tuples [4, P, K, M] of ``groups`` groups of P/groups
+// segments; group blockIdx.y folded into shard [groups, 4, K, M] and sovf
+// [groups, M] (its slots).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+fold_groups_kernel(const int* __restrict__ tuples, int p, int groups,
+                   int m, int* __restrict__ shard, int* __restrict__ sovf) {
+  const int g = blockIdx.y;
+  const int pl = p / groups;
+  const size_t plane = static_cast<size_t>(K) * m;
+  int* out = shard + 4 * plane * g;
+  fold_body<K>(tuples, static_cast<size_t>(p) * K * m, g * pl, (g + 1) * pl,
+               m, blockIdx.x * kThreads + threadIdx.x, true, out,
+               out + plane, out + 2 * plane, out + 3 * plane,
+               sovf + static_cast<size_t>(g) * m);
 }
 
 // Lane table of K6d's fold launch (K5 over a session axis): one descriptor
@@ -338,6 +366,15 @@ cudaError_t launch_shard_fold_lanes(const long long* lanes, int n_lanes,
                                     int d, int max_m, cudaStream_t st) {
   const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes);
   stitch_shard_lanes_kernel<K><<<grid, kThreads, 0, st>>>(lanes, d);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_group_fold(const int* tuples, int p, int groups, int m,
+                              int* shard, int* sovf, cudaStream_t st) {
+  const dim3 grid((m + kThreads - 1) / kThreads, groups);
+  fold_groups_kernel<K><<<grid, kThreads, 0, st>>>(tuples, p, groups, m,
+                                                   shard, sovf);
   return cudaGetLastError();
 }
 
@@ -384,6 +421,30 @@ inline int shard_fold_lanes(const long long* lanes, int n_lanes, int d,
     case 8: return launch_shard_fold_lanes<8>(lanes, n_lanes, d, max_m, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+inline int group_fold(const int* tuples, int p, int groups, int m,
+                      int n_levels, int* shard, int* sovf, int device,
+                      void* stream) {
+  if (m <= 0 || groups <= 0) return 0;
+  if (p % groups || groups > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GROUP_FOLD_CASE(NL)                                               \
+  case NL:                                                                \
+    return launch_group_fold<NL>(tuples, p, groups, m, shard, sovf, st);
+  switch (n_levels) {
+    GROUP_FOLD_CASE(2)
+    GROUP_FOLD_CASE(3)
+    GROUP_FOLD_CASE(4)
+    GROUP_FOLD_CASE(5)
+    GROUP_FOLD_CASE(6)
+    GROUP_FOLD_CASE(7)
+    GROUP_FOLD_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef GROUP_FOLD_CASE
 }
 
 // Map launch geometry: x = episode tile, y = phase, z = segment.

@@ -268,10 +268,17 @@ def segment_bricks(wt, wtt, tau, device, length: int | None = None):
     streaming commits pass their shape buckets). The CUDA kernels stage a
     segment's events through shared memory in chunks, so they take any LW:
     there is no admission bound like the reference's ``MAX_SEG_BRICK_LW``,
-    which is a TPU VMEM budget."""
+    which is a TPU VMEM budget. Each window's real events must be in time
+    order (raises otherwise): K4's walk ends a machine at its first event
+    past tau_{p+1} + W."""
     wt = np.asarray(wt, np.int32)
     wtt = np.asarray(wtt, np.int32)
     p, lw = wt.shape
+    real = wt != PAD_TYPE
+    latest = np.maximum.accumulate(
+        np.where(real, wtt, np.iinfo(np.int32).min), axis=1)
+    if (real & (wtt < latest)).any():
+        raise ValueError("a segment window's events are not in time order")
     lwp = max(lw, 1) if length is None else length
     ev = np.zeros((p, 5, lwp), np.int32)
     ev[:, 0, :] = PAD_TYPE

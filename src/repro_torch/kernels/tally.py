@@ -5,11 +5,13 @@ launches its CUDA kernel, and nowhere else; a run of its plain PyTorch
 version on CPU tensors adds one to ``plain_calls{kernel=<name>}`` instead.
 The fused multi-session wrappers (K6) also add their lane count to
 ``kernel_lanes{kernel=<name>}`` (``plain_lanes`` for the plain version).
-The mesh-sharded MapConcatenate (K5) counts each shard's launch, so d per
-call as the reference counts it (``a1_mapc_shard``, ``a2_mapc_shard``),
-and its cross-shard fold launch (``mapc_shard_fold``); K6d counts its
-per-shard lane-table launches (``a1_mapc_sharded_vmapped``) and its fold
-launch (``mapc_shard_fold_lanes``). A one-shot sharded count that the
+The mesh-sharded MapConcatenate (K5) counts one per shard group, so d per
+call as the reference counts it (``a1_mapc_shard``, ``a2_mapc_shard``;
+the device launches are one Map launch and one group fold launch per
+distinct device), and one per call for its cross-shard fold
+(``mapc_shard_fold``); K6d counts its per-shard lane-table launches
+(``a1_mapc_sharded_vmapped``) and its fold launch
+(``mapc_shard_fold_lanes``). A one-shot sharded count that the
 reference's rule sends to the single-device launch (fewer than two
 devices, or too short a stream) adds one to ``mapc_shard_single_total``
 besides that launch's own count.

@@ -13,9 +13,13 @@ the ``ptpe`` and the default ``hybrid`` engine. The fused multi-session kernels 
 against lone K1, K2 and K4 launches (and the plain versions) on lanes of
 unequal M and event counts (K6a/K6b also over 300 types, with the state
 carried over 2 and 3 cuts), and a two-session ``MiningService`` on the
-card against standalone miners. The mesh-sharded K5 (both kinds) runs on
-2, 4 and 8 logical shards of the card against its plain version and the
-unsharded K4/K3 launch on the same segments, K6d against lone K5 calls,
+card against standalone miners. K4's type-indexed walk (and K6c, which
+runs it) is held against the plain version and the lanes one by one on the
+300-type walk cases. The mesh-sharded K5 (both kinds) runs on 2, 4 and 8
+logical shards of the card against its plain version and the unsharded
+K4/K3 launch on the same segments, in three device launches a call by
+the profiler's count; its fold launches (group fold, cross-shard fold)
+against their plain versions; K6d against lone K5 calls,
 and the ``hybrid`` streaming miner on a 4-shard mesh against the same
 miner without one.
 """
@@ -30,8 +34,12 @@ from repro_torch.data import partition_windows, sym26
 from repro_torch.kernels import a1_count as k_a1
 from repro_torch.kernels import a2_count as k_a2
 from repro_torch.kernels import cuda, ops, tally
+from torch_walk_cases import MANY_TYPES, MAPC_WALK_CASES, MAPC_WALK_EVENTS
 from torch_walk_cases import NUM_TYPES as WALK_NUM_TYPES
-from torch_walk_cases import cuts, lane_cuts, lanes_case, walk_case
+from torch_walk_cases import (cuts, lane_cuts, lanes_case, map_tuples,
+                              walk_case)
+
+import chip_smoke  # noqa: E402  (on the path through torch_walk_cases)
 
 NUM_TYPES = 4
 
@@ -323,6 +331,39 @@ def test_cuda_fused_state_kernels_match_single_launches(card, num_types,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,m,p,lcap", MAPC_WALK_CASES)
+def test_cuda_k4_walk_cases_match_plain(card, n, m, p, lcap):
+    """K4 on the type index's hard cases (300 types, so its buckets
+    collide, and repeated-type episodes), folded and Map only, against its
+    plain version; K6c on lanes of such episodes against the same lanes
+    through K4, bit for bit."""
+    from repro_torch.core import make_segments
+    types, times, arrays = walk_case(40 + n, m, n, MANY_TYPES,
+                                     MAPC_WALK_EVENTS)
+    eps = EpisodeBatch(*arrays)
+    tau, wt, wtt = make_segments(EventStream(types, times, MANY_TYPES), p,
+                                 int(eps.max_span.max()))
+    lay = ops.mapconcat_layout(eps, False, card)
+    segs = ops.segment_bricks(wt, wtt, tau, card)
+    for fold in (True, False):
+        got = k_a1.a1_mapconcat_kernel(*lay, segs, lcap=lcap, fold=fold)
+        want = k_a1.a1_mapconcat_plain(*lay, segs, lcap=lcap, fold=fold)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), fold
+    lanes = []  # unequal M and window lengths, P segments each
+    for i, lane_m in enumerate((1, m, 130)):
+        _, _, arrays = walk_case(40 + n, lane_m, n, MANY_TYPES,
+                                 MAPC_WALK_EVENTS)
+        k = 130 * (i + 1)
+        lanes.append(chip_smoke.mapc_lane(np, ops, types[:k], times[:k],
+                                          EpisodeBatch(*arrays), p))
+    for args, got in zip(lanes, ops.a1_mapc_vmapped(lanes, lcap=lcap)):
+        want = k_a1.a1_mapconcat_kernel(*args, lcap=lcap)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("num_segments", [1, 2, 8])
 def test_cuda_fused_mapconcat_matches_single_launches(card, num_segments):
     """K6c gives each lane the (a, c, b, f, ovf) a lone K4 launch gives it,
@@ -427,6 +468,64 @@ def test_cuda_sharded_kernels_match_plain(card, d):
     assert launches[k_a1.SHARD_KERNEL] == d * calls
     assert launches[k_a2.SHARD_KERNEL] == d * 4
     assert launches[k_a2.SHARD_FOLD] == calls + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_cuda_k5_folds_match_plain(card, d):
+    """K5's fold launches of both libraries — the group fold, and the
+    cross-shard fold of its slots — equal their plain versions on Map
+    tuples whose stitches go unmatched inside and between groups."""
+    for n in (2, 3, 5, 8):
+        maps = tuple(torch.from_numpy(x).to(card)
+                     for x in map_tuples(10 * d + n, 2 * d, n, 300))
+        want = k_a2.mapc_sharded_plain(maps, d)
+        want_groups = k_a2.mapc_group_fold_plain(maps, d)
+        tuples = torch.stack(maps).contiguous()
+        for pre, lib in (("a2", k_a2._a2_lib), ("a1", k_a1._a1_mapc_lib)):
+            shard = torch.empty((d, 4, n, 300), dtype=torch.int32,
+                                device=card)
+            sovf = torch.empty((d, 300), dtype=torch.int32, device=card)
+            k_a2.mapc_group_fold(lib, f"{pre}_mapc_group_fold", tuples, d,
+                                 shard, sovf)
+            got = k_a2.mapc_shard_fold(lib, f"{pre}_mapc_shard_fold", shard,
+                                       sovf)
+            for x, y in zip((shard, sovf), want_groups):
+                assert torch.equal(x, y), (pre, n, "group fold")
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (pre, n, "cross-shard fold")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_cuda_k5_launches_per_call(card, d):
+    """On one card K5 (both kinds) puts three kernels on the device a
+    call — one Map launch over every shard's segments, one group fold and
+    one cross-shard fold — and nothing else, by the profiler's count,
+    whatever d; the tally still counts d shard groups and one fold a
+    call."""
+    eps, segs = mapc_case(card, 7 * d, 3, 200, 2 * d)
+    mesh = [card] * d
+    lay1 = ops.mapconcat_layout(eps, False, card)
+    lay2 = ops.mapconcat_layout(eps.relaxed(), True, card)
+    calls = (lambda: k_a1.a1_mapconcat_sharded(*lay1, segs, lcap=4,
+                                               devices=mesh),
+             lambda: k_a2.a2_mapconcat_sharded(*lay2, segs, devices=mesh))
+    maps = ("void a1_map_kernel<3, 4>", "void a2_map_kernel<3>")
+    for map_kernel, shard_kernel, call in zip(
+            maps, (k_a1.SHARD_KERNEL, k_a2.SHARD_KERNEL), calls):
+        call()  # warm: build and load
+        torch.cuda.synchronize()
+        tally.reset_counts()
+        for _ in range(5):
+            call()
+        assert tally.launch_counts() == {shard_kernel: 5 * d,
+                                         k_a2.SHARD_FOLD: 5}
+        per_call, by_name = chip_smoke.profiled_launches(torch, call, 5)
+        assert by_name == {map_kernel: 5,
+                           "void mapc::fold_groups_kernel<3>": 5,
+                           "void mapc::stitch_shards_kernel<3>": 5}, by_name
+        assert per_call == 3
 
 
 @pytest.mark.cuda

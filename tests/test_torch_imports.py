@@ -1,0 +1,25 @@
+"""Each module of the port's kernel layer imports first, on its own, in a
+fresh interpreter: no import cycle between ``repro_torch.kernels`` and
+``repro_torch.core`` (whose package imports ``core.streaming``, which uses
+``kernels.ops``)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.mark.parametrize("module", ["a1_count", "a2_count", "ops", "cuda",
+                                    "tally"])
+def test_kernel_module_imports_first(module):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    run = subprocess.run(
+        [sys.executable, "-c", f"import repro_torch.kernels.{module}"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr

@@ -5,7 +5,9 @@ XLA host devices (``XLA_FLAGS`` must precede the jax import, as in
 ``a1_mapconcat_sharded_tuples``, ``a2_mapconcat_sharded_tuples`` and
 ``a1_mapc_sharded_vmapped`` (Pallas in interpret mode under ``shard_map``)
 at d = 2, 4 and 8 devices, and the port's K5 and K6d wrappers — their plain
-versions, on d logical CPU shards — on the same numpy-made inputs.
+versions, on d logical CPU shards (K5 also under two interleaved device
+names, so that each holds several groups) — on the same numpy-made
+inputs.
 
 Tolerance: exact equality of every integer of (a, c, b, f, ovf), flagged
 entries included: both fold the segments within a device, then the
@@ -83,23 +85,27 @@ SCRIPT = textwrap.dedent("""
     for d in (2, 4, 8):
         p, lcap = 2 * d, (1 if d == 4 else 4)
         cpus = ["cpu"] * d
+        mixed = ["cpu", "cpu:0"] * (d // 2)
         res = {"a1": 0, "a2": 0, "lanes": 0, "flags": 0, "ovf": 0}
         for case, doctor in (("clean", None), ("inner", 0),
                              ("cross", 1)):
             rsegs, segs = bricks(d, p, w, doctor)
-            want = ref_ops.a1_mapconcat_sharded_tuples(
+            want1 = ref_ops.a1_mapconcat_sharded_tuples(
                 *rl1, rsegs, n_levels=K, lcap=lcap, interpret=True,
                 num_devices=d)
-            got = k_a1.a1_mapconcat_sharded(*l1, segs, lcap=lcap,
-                                            devices=cpus)
-            res["a1"] += diff(got, want)
-            res["flags"] += int(got[3][0].sum())
-            res["ovf"] += int(got[4].sum())
-            want = ref_ops.a2_mapconcat_sharded_tuples(
+            want2 = ref_ops.a2_mapconcat_sharded_tuples(
                 *rl2, rsegs, n_levels=K, interpret=True, num_devices=d)
-            got = k_a2.a2_mapconcat_sharded(*l2, segs, devices=cpus)
-            res["a2"] += diff(got, want)
-            res["flags"] += int(got[3][0].sum())
+            # one device name, then two interleaved ones (the groups of
+            # each folded on their own and gathered)
+            for devs in (cpus, mixed):
+                got = k_a1.a1_mapconcat_sharded(*l1, segs, lcap=lcap,
+                                                devices=devs)
+                res["a1"] += diff(got, want1)
+                res["flags"] += int(got[3][0].sum())
+                res["ovf"] += int(got[4].sum())
+                got = k_a2.a2_mapconcat_sharded(*l2, segs, devices=devs)
+                res["a2"] += diff(got, want2)
+                res["flags"] += int(got[3][0].sum())
         # K6d: three lanes (three streams, the same P, LW padded alike so
         # the reference can stack them; the port's lanes need not be)
         lw = 1 + max(ref_mapc.make_segments(stream(10 * d + s, p), p, w)[1]

@@ -1,8 +1,9 @@
-"""Inputs of the K1/K2 cases and of the fused K6a/K6b lanes, shared by
-``test_torch_kernels.py`` and ``test_torch_lanes.py`` (the port's plain
-versions against the reference's Pallas kernels in interpret mode) and
-``test_torch_cuda.py`` (the CUDA kernels on the card). Numpy only, so it
-runs where JAX is absent.
+"""Inputs of the K1/K2 cases, of the fused K6a/K6b lanes and of K4's walk
+cases, shared by ``test_torch_kernels.py``, ``test_torch_lanes.py`` and
+``test_torch_mapc_walk.py`` (the port's plain versions against the
+reference's Pallas kernels in interpret mode) and ``test_torch_cuda.py``
+(the CUDA kernels on the card). Numpy only, so it runs where JAX is
+absent.
 
 Two alphabets: a small one (4 types: long tie groups, repeated-type episodes
 such as A→A common) and ``MANY_TYPES`` = 300, more than four times the 64
@@ -22,6 +23,11 @@ import chip_smoke  # noqa: E402  (the repository root's smoke script)
 SMALL_TYPES = 4
 MANY_TYPES = chip_smoke.WALK_TYPES
 NUM_TYPES = (SMALL_TYPES, MANY_TYPES)
+# K4's walk cases (N, M, P segments, LCAP): ``walk_case``'s stream of
+# ``MAPC_WALK_EVENTS`` events over ``MANY_TYPES`` types (buckets collide)
+# with its motif episodes (repeated types among them), cut into P segments
+MAPC_WALK_CASES = ((2, 9, 8, 1), (3, 33, 2, 4), (5, 17, 1, 2), (8, 9, 8, 8))
+MAPC_WALK_EVENTS = 400
 
 
 def walk_case(seed, m, n, num_types, n_events):
@@ -72,3 +78,10 @@ def lane_cuts(times, k):
     or, for a lane too short to cut, its events whole and then ``k - 1``
     empty chunks."""
     return chip_smoke.lane_chunks(np, times, k)
+
+
+def map_tuples(seed, p, k, m):
+    """K5's fold inputs: Map tuples (a, c, b, ovf) [P, K, M] whose stitches
+    mostly match the next segment's a and go unmatched now and then
+    (``chip_smoke.random_maps``)."""
+    return chip_smoke.random_maps(np, seed, p, k, m)
