@@ -17,10 +17,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    specially (300 types, so its 64 buckets collide, repeated-type
    episodes, 1,100 events, M = 1, 33, 1000, state carried over 2 and 3
    cuts between tie groups); K3 (A2 MapConcatenate) and K4 (A1
-   MapConcatenate, with and without its fold) at N = 2, 3, 5, 8, LCAP =
+   MapConcatenate), both on the type-indexed walk, each with and without
+   its fold, at N = 2, 3, 5, 8, LCAP =
    1, 2, 4, 8, P = 1, 2, 8 segments, tie-heavy events, an occurrence
    ending exactly at τ+W on a segment boundary and a stitch that goes
-   unmatched — all of (a, c, b, f, ovf) compared — and at what K4's type
+   unmatched — all of (a, c, b, f, ovf) compared — and at what their type
    index treats specially (300 types, repeated-type episodes, 1,100
    events, N = 2, 3, 5, 8, M = 1, 33, 1000, P = 1, 2, 8, LCAP = 1, 2, 4,
    8, K6c on lanes of those episodes against K4); the fused multi-session
@@ -42,8 +43,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    tuples); K5's fold launches of both libraries (the group fold, then
    the cross-shard fold) against their plain versions on random Map
    tuples, d = 1, 2, 4, 8, N = 2, 3, 5, 8;
-   K6d (K5 over many lanes) against lone K5 calls and its plain per-lane
-   loop;
+   K6d (K5 over many lanes: one K6c Map launch and one lane group fold
+   per device, then the cross-shard fold) against lone K5 calls and its
+   plain per-lane loop;
 3. the main paths on the card, each with the launch counts zeroed just
    before it and read just after; 10-s windows, interval (5, 10] ms,
    θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
@@ -98,11 +100,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    path C's largest group of each, beside the device time of the same
    lanes launched one by one (K6a/K6b: with their tiles per SM and
    resident blocks per SM);
-   K4 at path A's largest commit with the share of (event, machine) pairs
-   whose type matches and the events its longest walk visits; K5 at path
-   E's largest shapes beside the unsharded K4/K3 on the same segments,
-   with its device launches a call by the profiler's count, and K6d at
-   path F's largest group beside the same lanes' lone K5 calls;
+   K3 at path B's largest level-3 A2 batch (beside K4 at LCAP 1 on the
+   same segments) and K4 at path A's largest commit, each with the share
+   of (event, machine) pairs whose type matches and the events its
+   longest walk visits; K5 at path E's largest shapes beside the
+   unsharded K4/K3 on the same segments, and K6d at path F's largest
+   group beside the same lanes' lone K5 calls, both with their kernel
+   launches a call by the profiler's count;
 5. a JSON line of kernel numbers (K1/K2 at the Sym26 shape), the
    ``nvidia-smi`` line, and last the device line ``{"ok": true, "device":
    {...}}``.
@@ -202,17 +206,17 @@ DEVICE_KERNELS = {"a2_count_state": ("a2_state_kernel",),
                   "a2_state_vmapped": ("a2_lanes_kernel",),
                   "a1_state_vmapped": ("a1_lanes_kernel",),
                   "a1_mapc_vmapped": ("a1_map_lanes_kernel",
-                                      "fold_lanes_kernel")}
+                                      "fold_groups_lanes_kernel")}
 # ... and per call of the sharded ones on d shards of one card: {kernel:
-# launches} (K5: one Map launch over every shard's segments, one group
-# fold and one cross-shard fold, whatever d)
+# launches} (K5 and K6d: one Map launch over every shard's segments, one
+# group fold and one cross-shard fold, whatever d)
 SHARDED_DEVICE_KERNELS = {
     "a1_mapc_shard": lambda d: {"a1_map_kernel": 1, "fold_groups_kernel": 1,
                                 "stitch_shards_kernel": 1},
     "a2_mapc_shard": lambda d: {"a2_map_kernel": 1, "fold_groups_kernel": 1,
                                 "stitch_shards_kernel": 1},
     "a1_mapc_sharded_vmapped": lambda d: {
-        "a1_map_lanes_kernel": d, "fold_lanes_kernel": d,
+        "a1_map_lanes_kernel": 1, "fold_groups_lanes_kernel": 1,
         "stitch_shard_lanes_kernel": 1}}
 # launches each sharded path must make
 REQUIRED_E = ("a1_mapc_shard", "mapc_shard_fold")
@@ -456,19 +460,32 @@ def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
 
 
 def compare_mapc(torch, ops, k_a1, k_a2, eps, segs, lcaps, errs, what):
-    """K3 (A2) and K4 (A1, folded and Map only) against their plain
-    versions on the same CUDA tensors; every output compared."""
+    """K3 (A2) and K4 (A1), each folded and Map only (K4's Map only at the
+    last LCAP), against their plain versions on the same CUDA tensors;
+    every output compared. The folded K3 comes first, then K4 folded at
+    each LCAP. Where both are compared, the plain folded tuples are the
+    plain fold of the plain Map step's (what the plain version computes
+    with its fold), so the Map step runs once."""
     lay2 = ops.mapconcat_layout(eps.relaxed(), True, "cuda")
     lay1 = ops.mapconcat_layout(eps, False, "cuda")
+    maps2 = k_a2.a2_mapconcat_plain(*lay2, segs, fold=False)
     pairs = [("a2_mapconcat", k_a2.a2_mapconcat_kernel(*lay2, segs),
-              k_a2.a2_mapconcat_plain(*lay2, segs))]
+              k_a2.mapc_fold_plain(*maps2))]
     for lcap in lcaps:
-        for fold in (True, False) if lcap == lcaps[-1] else (True,):
+        if lcap != lcaps[-1]:
             pairs.append(("a1_mapconcat",
-                          k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap,
-                                                   fold=fold),
-                          k_a1.a1_mapconcat_plain(*lay1, segs, lcap=lcap,
-                                                  fold=fold)))
+                          k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap),
+                          k_a1.a1_mapconcat_plain(*lay1, segs, lcap=lcap)))
+            continue
+        maps1 = k_a1.a1_mapconcat_plain(*lay1, segs, lcap=lcap, fold=False)
+        pairs += [("a1_mapconcat",
+                   k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap),
+                   k_a2.mapc_fold_plain(*maps1)),
+                  ("a1_mapconcat",
+                   k_a1.a1_mapconcat_kernel(*lay1, segs, lcap=lcap,
+                                            fold=False), maps1)]
+    pairs.append(("a2_mapconcat",
+                  k_a2.a2_mapconcat_kernel(*lay2, segs, fold=False), maps2))
     torch.cuda.synchronize()
     for k, got, want in pairs:
         d = max_abs_diff(torch, got, want)
@@ -491,7 +508,7 @@ def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
             compare_mapc(torch, ops, k_a1, k_a2, eps, segs, (1, 2, 4, 8),
                          errs, f"N={n}, P={p}")
         print(f"[smoke] K3/K4 == plain at N={n}, M={eps.M}, P 1/2/8, lcap "
-              f"1/2/4/8 (K4 also Map only), {types.size} events")
+              f"1/2/4/8 (K3, K4 also Map only), {types.size} events")
     # an occurrence from exactly τ=50 to exactly τ+W, a tie group on the
     # boundary (the reference suite's straddler), and a doctored boundary
     # row whose stitch goes unmatched
@@ -551,7 +568,7 @@ def mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
                      f"{WALK_TYPES} types, N={n}, lcap={lcap}: {d}")
     print(f"[smoke] K3/K4 == plain on the type-index cases: {WALK_TYPES} "
           f"types, repeated-type episodes, {WALK_EVENTS} events, N 2/3/5/8, "
-          f"M {WALK_M}, P 1/2/8, lcap 1/2/4/8 (K4 also Map only); K6c == "
+          f"M {WALK_M}, P 1/2/8, lcap 1/2/4/8 (K3, K4 also Map only); K6c == "
           f"per-lane K4 there at lcap 1/8")
 
 
@@ -1690,7 +1707,8 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
     cand3 = candidates.join_next_level(restart_results[i].frequent[1])
     w_b = restart_windows[i]
     rows = {}
-    args = ops.mapc_inputs(w_b, cand3.relaxed(), 8, True, "cuda")
+    rel = cand3.relaxed()
+    args = ops.mapc_inputs(w_b, rel, 8, True, "cuda")
     ms, seen, wrapper_ms, plain_ms = time_mapc_call(
         torch, k_a2.a2_mapconcat_kernel, k_a2.a2_mapconcat_plain, args, {},
         "path B's level-3 A2 batch", errs, "a2_mapconcat")
@@ -1700,6 +1718,16 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
                                        cand3.etypes, 1),
                             f"path B window {i} level-3 A2 batch N=3 "
                             f"M={cand3.M} P={p} LW={lw}")
+    print_walk(np, "a2_mapconcat", rows["a2_mapconcat"], args[-1], rel)
+    # K4 at LCAP 1 on the same batch and segments: K3's machine with the
+    # live-eviction flag and the dup row
+    args1 = ops.mapc_inputs(w_b, cand3, 8, False, "cuda")
+    k4_ms, _ = device_ms(
+        torch, lambda: k_a1.a1_mapconcat_kernel(*args1, lcap=1),
+        TIMED_LAUNCHES, DEVICE_KERNELS["a1_mapconcat"])
+    print(f"[smoke] a2_mapconcat: device {ms:.5f} ms against "
+          f"{k4_ms:.5f} ms for K4 at LCAP 1 on the same batch and segments "
+          f"({ms / k4_ms:.3f} of it)")
 
     frag = max((f for _, frags in hybrid._exact.values() for f in frags
                 if f.engine == "mapconcatenate"),
@@ -1721,20 +1749,28 @@ def time_mapc(np, torch, ops, k_a1, k_a2, hybrid, hybrid_window,
         row = (ms, seen, wrapper_ms, plain_ms,
                mapc_bound(np, seg_types(args[-1]), eps.etypes, cap),
                f"{what} N={eps.N} M={eps.M} LCAP={cap} P={p} LW={lw}")
-        share, longest, mean = mapc_walk_stats(np, args[-1].cpu().numpy(),
-                                               eps.etypes, eps.max_span)
-        print(f"[smoke] a1_mapconcat at {row[-1]}: device {ms:.5f} ms, "
-              f"wrapper {wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms); "
-              f"bound {row[4].ms:.7f} ms; (event, machine) pairs whose "
-              f"type matches: {share:.4f}; events a machine visits: "
-              f"{longest} at most, {mean:.1f} on average (of LW={lw})")
+        print_walk(np, "a1_mapconcat", row, args[-1], eps)
         k4.append((eps.M, row))
     rows["a1_mapconcat"] = max(k4, key=lambda x: x[0])[1]
     return rows
 
 
+def print_walk(np, name, row, segs, eps):
+    """Print one K3/K4 timing ``row`` (``time_mapc``) at its segment brick
+    ``segs`` for the episodes ``eps`` with the walk's statistics
+    (``mapc_walk_stats``)."""
+    ms, _, wrapper_ms, plain_ms, b, what = row
+    share, longest, mean = mapc_walk_stats(np, segs.cpu().numpy(),
+                                           eps.etypes, eps.max_span)
+    print(f"[smoke] {name} at {what}: device {ms:.5f} ms, wrapper "
+          f"{wrapper_ms:.4f} ms (plain {plain_ms:.1f} ms); bound "
+          f"{b.ms:.7f} ms; (event, machine) pairs whose type matches: "
+          f"{share:.4f}; events a machine visits: {longest} at most, "
+          f"{mean:.1f} on average (of LW={segs.shape[2]})")
+
+
 def mapc_walk_stats(np, segs, et, w):
-    """K4's indexed walk over the segment brick ``segs`` [P, 5, LW] (on the
+    """K3's and K4's indexed walk over the segment brick ``segs`` [P, 5, LW] (on the
     host) for the episodes ``et`` (M, N) of spans ``w`` (M,): the share of
     (real event, machine) pairs whose event's type is one of the machine's
     level types (the same for each of the N phases of a machine), and the
@@ -1812,6 +1848,9 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
             lcap = kw["lcap"]
             n, p = lanes[0][0].shape[0], lanes[0][5].shape[0]
 
+            def refill():
+                pass
+
             def fused():
                 return ops.a1_mapc_vmapped(lanes, lcap=lcap)
 
@@ -1842,16 +1881,23 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
                               (k_a1.a1_count_state, k_a1.a1_count_state_plain))
             n = lanes[0][0][0].shape[0]
             lcap = 1 if n_state == 2 else lanes[0][0][4].shape[1]
-            fresh = iter([clone_lanes(lanes, n_state)
-                          for _ in range(3 * TIMED_LAUNCHES + 4)])
+            pool = []
+
+            def refill():
+                """Copies for every call of the next measurement, made
+                ahead so no timed call clones: ``device_ms`` may take up
+                to ``PROFILE_ATTEMPTS`` traces of ``TIMED_LAUNCHES``
+                calls each."""
+                pool[:] = [clone_lanes(lanes, n_state)
+                           for _ in range(PROFILE_ATTEMPTS * TIMED_LAUNCHES)]
 
             def fused():
-                out = next(fresh)
+                out = pool.pop()
                 kern(out)
                 return out
 
             def one_by_one():
-                out = next(fresh)
+                out = pool.pop()
                 for args, k in out:
                     one(*args, n_events=k)
                 return out
@@ -1864,6 +1910,7 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
 
             def diff(a, b):
                 return lanes_err(torch, a, b)
+            refill()
             got, want = fused(), one_by_one()
             torch.cuda.synchronize()
             d = diff(got, want)
@@ -1877,9 +1924,12 @@ def time_fused(np, torch, ops, k_a1, k_a2, recorder, errs):
         if d:
             fail(f"{name} differs from its lanes' single launches at path "
                  f"C's largest group: {d}")
+        refill()
         ms, seen = device_ms(torch, fused, TIMED_LAUNCHES,
                              DEVICE_KERNELS[name])
+        refill()
         wrapper_ms = cuda_median_ms(torch, fused, TIMED_LAUNCHES)
+        refill()
         single_ms, _ = device_ms(torch, one_by_one, TIMED_LAUNCHES,
                                  DEVICE_KERNELS[single], per_call=len(lanes))
         plain_out = []
@@ -1944,8 +1994,8 @@ def time_sharded_call(torch, name, d, kernel, plain, one, one_names, errs,
                           one_names)
     per_call, by_name = profiled_launches(torch, kernel, TIMED_LAUNCHES,
                                           names)
-    if name in K5 and per_call > sum(names.values()):
-        fail(f"{name} put {per_call:.2f} launches a call on the card, more "
+    if per_call > sum(names.values()):
+        fail(f"{name} put {per_call:.2f} kernels a call on the card, more "
              f"than its {sum(names.values())}: {by_name}")
     print(f"[smoke] {name}: the fold launches ({', '.join(folds)}) take "
           f"{fold_ms:.5f} of its {ms:.5f} device ms; {per_call:.2f} device "
@@ -1956,9 +2006,10 @@ def time_sharded_call(torch, name, d, kernel, plain, one, one_names, errs,
 
 def profiled_launches(torch, fn, n, expect=None) -> tuple[float, dict]:
     """The device work ``n`` back-to-back calls of ``fn`` put on the card,
-    by the profiler's records: kernels, copies and fills per call, and the
-    records by name. One call runs in a warm-up cycle of the trace before
-    the ``n`` recorded ones. With ``expect`` ({kernel name: launches per
+    by the profiler's records: kernel launches per call (copies and fills,
+    ``Memcpy``/``Memset`` records, left out), and every record by name
+    (copies and fills too). One call runs in a warm-up cycle of the trace
+    before the ``n`` recorded ones. With ``expect`` ({kernel name: launches per
     call}), a trace that holds fewer than ``n`` times that of a kernel
     (CUPTI has dropped records) is taken again, up to
     ``PROFILE_ATTEMPTS`` times, so the count returned is complete; a
@@ -1987,7 +2038,9 @@ def profiled_launches(torch, fn, n, expect=None) -> tuple[float, dict]:
             break
         print(f"[smoke] the profiler recorded {dict(by_name)} over {n} "
               f"calls, fewer than {expect} a call; tracing again")
-    return sum(by_name.values()) / n, dict(by_name)
+    kernels = sum(v for k, v in by_name.items()
+                  if not k.startswith(("Memcpy", "Memset")))
+    return kernels / n, dict(by_name)
 
 
 def time_sharded(np, torch, ops, k_a1, k_a2, miner_e, window_e,

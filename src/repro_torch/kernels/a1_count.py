@@ -29,13 +29,16 @@ its end, which stands in for the Pallas call's ``input_output_aliases``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import cuda
 from .a2_count import (GROUP_SIGNATURES, check_mapc_operands, device_of,
-                       mapc_call, mapc_fold_plain, mapc_launch,
-                       mapc_map_scan, mapc_sharded, mapc_sharded_plain)
+                       group_segments, group_slots, mapc_call,
+                       mapc_fold_plain, mapc_group_fold, mapc_launch,
+                       mapc_map_scan, mapc_shard_fold_plain, mapc_sharded,
+                       mapc_sharded_plain, shard_groups)
 from .tally import record_launch, record_plain
 
 KERNEL = "a1_count_state"
@@ -215,7 +218,7 @@ MAPC_LANES_KERNEL = "a1_mapc_vmapped"  # K6c, after the reference's vmap
 _MAPC_SIGNATURES = {"a1_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
          _P, _I, _P]),
-    "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _P]),
+    "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "a1_mapc_shard_fold_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P]),
     **{f"a1_{fn}": sig for fn, sig in GROUP_SIGNATURES.items()}}
 
@@ -305,18 +308,12 @@ def a1_mapconcat_lanes_plain(lanes, *, lcap: int) -> list[tuple]:
     return [a1_mapconcat_plain(*args, lcap=lcap) for args in lanes]
 
 
-def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
-    """K6c: many counters' segmented commits (K4, Map and fold) in one Map
-    launch and one fold launch. ``lanes`` is a list of ``(et, tlo, thi,
-    cum, w, segs)``, each lane K4's operands with its own M and window
-    length LW; every lane has the same N and P segments and lives on one
-    device. Returns each lane's (a, c, b, f, ovf), equal to a lone K4
-    call's."""
-    if not lanes:
-        return []
+def _check_lanes(lanes, lcap: int):
+    """Raise unless every lane holds K4's operands and the lanes share N, P
+    and the device; returns (N, P, device, each lane's M)."""
     n, _, p, _ = check_mapc_operands(*lanes[0])
     dev = lanes[0][0].device
-    for args in lanes:
+    for args in lanes[1:]:
         ln, _, lp, _ = check_mapc_operands(*args)
         if (ln, lp) != (n, p) or args[0].device != dev:
             raise ValueError("the lanes of one fused launch must share N, "
@@ -324,30 +321,58 @@ def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
     if lcap < 1:
         raise ValueError("lcap must be at least 1")
     _check_envelope(dev, n, lcap)
+    return n, p, dev, [args[0].shape[1] for args in lanes]
+
+
+def _carve(shapes, dev) -> list[torch.Tensor]:
+    """Int32 tensors of ``shapes``, views carved back to back from one new
+    buffer on ``dev`` (one allocation for a fused call's many lanes)."""
+    sizes = [math.prod(s) for s in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    return [x.view(s) for x, s in zip(flat.split(sizes), shapes)]
+
+
+def _lane_outputs(n: int, ms, dev) -> list[tuple]:
+    """Each lane's (a, c, b, f) i32[N, M] and ovf i32[M], carved from one
+    buffer. They are views of it, so a caller that keeps one keeps the
+    call's outputs (a few ints a lane), never its Map scratch."""
+    views = iter(_carve([s for m in ms for s in [(n, m)] * 4 + [(m,)]],
+                        dev))
+    return [tuple(next(views) for _ in range(5)) for _ in ms]
+
+
+def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
+    """K6c: many counters' segmented commits (K4, Map and fold) in one Map
+    launch and one fold launch. ``lanes`` is a list of ``(et, tlo, thi,
+    cum, w, segs)``, each lane K4's operands with its own M and window
+    length LW; every lane has the same N and P segments and lives on one
+    device. Returns each lane's (a, c, b, f, ovf), equal to a lone K4
+    call's (on the card, views of one output buffer of the call)."""
+    if not lanes:
+        return []
+    n, p, dev, ms = _check_lanes(lanes, lcap)
     if dev.type == "cpu":
         record_plain(MAPC_LANES_KERNEL, lanes=len(lanes))
         return a1_mapconcat_lanes_plain(lanes, lcap=lcap)
-    lib = cuda.library("a1_mapconcat", _MAPC_SIGNATURES)
-    outs, rows = [], []
-    for et, tlo, thi, cum, w, segs in lanes:
-        m = et.shape[1]
-        tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
-        out = tuple(torch.empty((n, m), dtype=torch.int32, device=dev)
-                    for _ in range(4)) + (
-            torch.empty(m, dtype=torch.int32, device=dev),)
-        outs.append((tuples, out))
-        rows.append([x.data_ptr() for x in (et, tlo, thi, cum, w, segs,
-                                              tuples, *out)]
-                    + [m, segs.shape[2]])
+    lib = _a1_mapc_lib()
+    outs = _lane_outputs(n, ms, dev)
+    # every lane's [4, P, N, M] Map scratch, back to back
+    scratch = torch.empty(4 * p * n * sum(ms), dtype=torch.int32,
+                          device=dev)
+    at, rows = scratch.data_ptr(), []
+    for args, out, m in zip(lanes, outs, ms):
+        rows.append([*(x.data_ptr() for x in args), at,
+                     *(o.data_ptr() for o in out), m, args[5].shape[2]])
+        at += 16 * p * n * m
     table = cuda.lane_table(rows, dev)
     rc = lib.a1_mapconcat_lanes(
-        table.data_ptr(), len(lanes), p, max(r[12] for r in rows), n, lcap,
+        table.data_ptr(), len(lanes), p, 1, max(ms), n, lcap,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, MAPC_LANES_KERNEL, rc)
     record_launch(MAPC_LANES_KERNEL, lanes=len(lanes))
     # dropping the Map scratch and the table here is safe: the caching
     # allocator hands a freed block out again only in stream order
-    return [out for _, out in outs]
+    return outs
 
 
 # --------------------------------------------------------------------------
@@ -358,9 +383,11 @@ def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
 # ``a1_mapc_sharded_vmapped`` (the same with a leading session axis). The
 # sharded call itself is ``a2_count.mapc_sharded``: one K4 Map launch per
 # distinct device over its shards' segments and one group fold launch,
-# then the cross-shard fold. K6d runs one K6c lane-table launch per shard over
-# every lane's group of that shard, then one lane-table launch of the
-# cross-shard fold (``csrc/mapc_common.cuh``).
+# then the cross-shard fold. K6d groups the shards by device the same way:
+# per distinct device one K6c Map launch over every lane's segments of the
+# shards it holds and one lane-table group fold into the lanes' slots,
+# then one lane-table launch of the cross-shard fold
+# (``csrc/mapc_common.cuh``): three launches a call on one card.
 
 SHARD_KERNEL = "a1_mapc_shard"  # one per shard group: d per call
 SHARDED_LANES_KERNEL = "a1_mapc_sharded_vmapped"  # K6d, one per shard
@@ -418,21 +445,26 @@ def a1_mapconcat_sharded_lanes_plain(lanes, *, lcap: int, devices):
 
 
 def a1_mapconcat_sharded_lanes(lanes, *, lcap: int, devices) -> list:
-    """K6d: many counters' sharded commits (K5, bounded-list kind) in one
-    K6c launch per shard and one cross-shard fold launch. ``lanes`` is a
-    list of ``(et, tlo, thi, cum, w, segs)``, K4's operands, each lane
-    with its own M and window length; every lane has the same N and P
-    segments (a multiple of the device count) and lives on one device.
-    Returns each lane's (a, c, b, f, ovf), equal to a lone K5 call's."""
+    """K6d: many counters' sharded commits (K5, bounded-list kind) at
+    once. ``lanes`` is a list of ``(et, tlo, thi, cum, w, segs)``, K4's
+    operands, each lane with its own M and window length; every lane has
+    the same N and P segments (a multiple of the device count) and lives
+    on one device. Shard q holds the q-th contiguous group of P/d segments
+    of every lane. As K5 (``a2_count.mapc_sharded``), by device: each
+    distinct device runs one Map launch over every lane's segments of the
+    shards it holds and one launch that folds each lane's groups into its
+    slots (on the lanes' device straight into the gathered ones), sharing
+    one lane table; the other devices' slots are copied to the lanes'
+    device once every launch is enqueued, and one launch stitches every
+    lane's groups there. CPU tensors take the same steps in their plain
+    versions. Returns each lane's (a, c, b, f, ovf), equal to a lone K5
+    call's (on the card, views of one output buffer of the call). On the
+    card the tally counts ``SHARDED_LANES_KERNEL`` d times a call (once per
+    shard group, as the reference counts it) and ``SHARD_FOLD_LANES``
+    once; a CPU call counts one plain run of each."""
     if not lanes:
         return []
-    n, _, p, _ = check_mapc_operands(*lanes[0])
-    home = lanes[0][0].device
-    for args in lanes:
-        ln, _, lp, _ = check_mapc_operands(*args)
-        if (ln, lp) != (n, p) or args[0].device != home:
-            raise ValueError("the lanes of one fused launch must share N, "
-                             "P and the device")
+    n, p, home, ms = _check_lanes(lanes, lcap)
     devs = [device_of(x) for x in devices]
     d = len(devs)
     if d < 1 or p % d:
@@ -440,62 +472,76 @@ def a1_mapconcat_sharded_lanes(lanes, *, lcap: int, devices) -> list:
     if any(x.type != home.type for x in devs):
         raise ValueError(f"the mesh {devs} and the lanes ({home}) must be "
                          f"of one device type")
-    if lcap < 1:
-        raise ValueError("lcap must be at least 1")
-    _check_envelope(home, n, lcap)
-    if home.type == "cpu":
+    cpu = home.type == "cpu"
+    if cpu:
         record_plain(SHARDED_LANES_KERNEL, lanes=len(lanes))
         record_plain(SHARD_FOLD_LANES)
-        return a1_mapconcat_sharded_lanes_plain(lanes, lcap=lcap,
-                                                devices=devs)
-    lib = _a1_mapc_lib()
+    else:
+        lib = _a1_mapc_lib()
+        outs = _lane_outputs(n, ms, home)
     pl = p // d
-    ms = [args[0].shape[1] for args in lanes]
-    gathered = [(torch.empty((d, 4, n, m), dtype=torch.int32, device=home),
-                 torch.empty((d, m), dtype=torch.int32, device=home))
-                for m in ms]
-    lay = {home: [args[:5] for args in lanes]}
-    for q, sd in enumerate(devs):
-        if sd not in lay:
-            lay[sd] = [tuple(x.to(sd) for x in ops_) for ops_ in lay[home]]
-        # rows hold raw pointers: ``keep`` holds their tensors until the
-        # launch is enqueued, ``later`` the copies to the gathered slots
-        rows, keep, later = [], [], []
-        for i, (args, m) in enumerate(zip(lanes, ms)):
-            seg_q = args[5][q * pl:(q + 1) * pl]
-            shard, sovf = gathered[i]
-            if sd == home:
-                outs = (*shard[q].unbind(0), sovf[q])
-            else:
-                seg_q = seg_q.to(sd)
-                loc = torch.empty((4, n, m), dtype=torch.int32, device=sd)
-                outs = (*loc.unbind(0),
-                        torch.empty(m, dtype=torch.int32, device=sd))
-                later += [(shard[q], loc), (sovf[q], outs[4])]
-            tuples = torch.empty((4, pl, n, m), dtype=torch.int32,
-                                 device=sd)
-            keep += [seg_q, tuples, *outs]
-            rows.append([x.data_ptr() for x in (*lay[sd][i], seg_q, tuples,
-                                                  *outs)]
-                        + [m, seg_q.shape[2]])
-        table = cuda.lane_table(rows, sd)
+    # each lane's gathered group slots: shard [d, 4, N, M], sovf [d, M]
+    views = iter(_carve([s for m in ms for s in ((d, 4, n, m), (d, m))],
+                        home))
+    gathered = [(next(views), next(views)) for _ in ms]
+    # the cross-shard fold's lane table (csrc/mapc_common.cuh)
+    stitch = ([] if cpu else
+              [[shard.data_ptr(), sovf.data_ptr(),
+                *(o.data_ptr() for o in out), m]
+               for (shard, sovf), out, m in zip(gathered, outs, ms)])
+    stitch_at = None  # (table, byte offset) of ``stitch`` on the card
+    gather = []
+    for dev, qs in shard_groups(devs).items():
+        g = len(qs)
+        here, slots = [], []
+        for args, (shard, sovf) in zip(lanes, gathered):
+            operands = (*args[:5], group_segments(args[5], qs, pl))
+            here.append(operands if dev == home else
+                        tuple(x.to(dev) for x in operands))
+            *slot, new = group_slots(shard, sovf, qs, dev)
+            slots.append(slot)
+            if new:
+                gather.append((shard, sovf, qs, *slot))
+        if cpu:  # K6c's Map and group fold, in their plain versions
+            for operands, slot in zip(here, slots):
+                mapc_group_fold(_a1_mapc_lib, "a1_mapc_group_fold",
+                                torch.stack(a1_mapconcat_plain(
+                                    *operands, lcap=lcap, fold=False)),
+                                g, *slot)
+            continue
+        # every lane's [4, g * P/d, N, M] Map scratch, back to back
+        scratch = torch.empty(4 * g * pl * n * sum(ms), dtype=torch.int32,
+                              device=dev)
+        at, rows = scratch.data_ptr(), []
+        for operands, (shard, sovf), m in zip(here, slots, ms):
+            a = shard.data_ptr()
+            plane = 4 * n * m  # bytes of one [N, M] plane of a group slot
+            rows.append([*(x.data_ptr() for x in operands), at, a,
+                         a + plane, a + 2 * plane, a + 3 * plane,
+                         sovf.data_ptr(), m, operands[5].shape[2]])
+            at += 16 * g * pl * n * m
+        if dev == home:  # one table, one copy, for all three launches
+            off = 8 * sum(map(len, rows))  # bytes of the Map rows
+            rows += stitch
+        table = cuda.lane_table(rows, dev)
+        if dev == home:
+            stitch_at = table, off
         rc = lib.a1_mapconcat_lanes(
-            table.data_ptr(), len(lanes), pl, max(ms), n, lcap,
-            cuda.device_index(sd), cuda.stream_handle(sd))
+            table.data_ptr(), len(lanes), g * pl, g, max(ms), n, lcap,
+            cuda.device_index(dev), cuda.stream_handle(dev))
         cuda.check_launch(lib, SHARDED_LANES_KERNEL, rc)
-        record_launch(SHARDED_LANES_KERNEL, lanes=len(lanes))
-        for dst, src in later:
-            dst.copy_(src)
-    outs = [tuple(torch.empty((n, m), dtype=torch.int32, device=home)
-                  for _ in range(4))
-            + (torch.empty(m, dtype=torch.int32, device=home),)
-            for m in ms]
-    rows = [[shard.data_ptr(), sovf.data_ptr(),
-             *(o.data_ptr() for o in out), m]
-            for (shard, sovf), out, m in zip(gathered, outs, ms)]
-    table = cuda.lane_table(rows, home)
+        for _ in qs:
+            record_launch(SHARDED_LANES_KERNEL, lanes=len(lanes))
+    # every device's launches are enqueued; now gather the other slots
+    for shard, sovf, qs, got, got_ovf in gather:
+        shard[qs] = got.to(home)
+        sovf[qs] = got_ovf.to(home)
+    if cpu:
+        return [mapc_shard_fold_plain(shard, sovf)
+                for shard, sovf in gathered]
+    table, off = stitch_at or (cuda.lane_table(stitch, home), 0)
     rc = lib.a1_mapc_shard_fold_lanes(
-        table.data_ptr(), len(lanes), d, max(ms), n,
+        table.data_ptr() + off, len(lanes), d, max(ms), n,
         cuda.device_index(home), cuda.stream_handle(home))
     cuda.check_launch(lib, SHARD_FOLD_LANES, rc)
     record_launch(SHARD_FOLD_LANES)

@@ -434,6 +434,33 @@ def shard_groups(devices) -> dict:
     return groups
 
 
+def group_segments(segs, qs, pl: int):
+    """The segments of shards ``qs`` (each P/d = ``pl`` contiguous
+    segments of ``segs`` [P, 5, LW]), in shard order: ``segs`` itself when
+    they are all of it, a slice when the shards are contiguous, else a
+    copy."""
+    if len(qs) * pl == segs.shape[0]:
+        return segs
+    if qs == list(range(qs[0], qs[-1] + 1)):
+        return segs[qs[0] * pl:(qs[-1] + 1) * pl]
+    return torch.cat([segs[q * pl:(q + 1) * pl] for q in qs])
+
+
+def group_slots(shard, sovf, qs, dev) -> tuple:
+    """Where the group fold of shards ``qs`` on ``dev`` writes: their
+    gathered slots of ``shard`` [d, 4, K, M] and ``sovf`` [d, M] when those
+    are on ``dev`` and the shards contiguous, else new slots on ``dev``,
+    which the caller copies into the gathered ones. Returns (shard slot,
+    sovf slot, whether they are new)."""
+    if shard.device == dev and qs == list(range(qs[0], qs[-1] + 1)):
+        if len(qs) == shard.shape[0]:
+            return shard, sovf, False
+        return shard[qs[0]:qs[-1] + 1], sovf[qs[0]:qs[-1] + 1], False
+    _, _, n, m = shard.shape
+    return (torch.empty((len(qs), 4, n, m), dtype=torch.int32, device=dev),
+            torch.empty((len(qs), m), dtype=torch.int32, device=dev), True)
+
+
 def mapc_group_fold_plain(maps, groups: int):
     """Plain version of the group fold: the Map step's per-segment tuples
     ``maps`` ((a, c, b, ovf) [P, K, M]) cut into ``groups`` contiguous
@@ -541,20 +568,11 @@ def mapc_sharded(et, tlo, thi, cum, w, segs, devices, kernel: str,
     for dev, qs in shard_groups(devs).items():
         here = operands if dev == home else tuple(x.to(dev)
                                                   for x in operands)
-        run = qs == list(range(qs[0], qs[-1] + 1))  # a slice of segs
-        if run:
-            seg = segs[qs[0] * pl:(qs[-1] + 1) * pl].to(dev)
-        else:
-            seg = torch.cat([segs[q * pl:(q + 1) * pl] for q in qs]).to(dev)
         tuples = torch.empty((4, len(qs) * pl, n, m), dtype=torch.int32,
                              device=dev)
-        map_step(here, seg, tuples)
-        if dev == home and run:  # fold straight into the groups' slots
-            slot = shard[qs[0]:qs[-1] + 1], sovf[qs[0]:qs[-1] + 1]
-        else:
-            slot = (torch.empty((len(qs), 4, n, m), dtype=torch.int32,
-                                device=dev),
-                    torch.empty((len(qs), m), dtype=torch.int32, device=dev))
+        map_step(here, group_segments(segs, qs, pl).to(dev), tuples)
+        *slot, new = group_slots(shard, sovf, qs, dev)
+        if new:
             gather.append((qs, *slot))
         mapc_group_fold(lib_of, f"{prefix}_mapc_group_fold", tuples,
                         len(qs), *slot)
@@ -608,6 +626,11 @@ def a2_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, devices):
 def a2_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     """K3: segment-parallel single-slot MapConcatenate. ``tlo`` holds the
     inclusive lower bound (tlo - 1: A2 counts the relaxed batch).
+
+    Each segment's real events must be in time order, as
+    ``ops.segment_bricks`` checks: the CUDA walk (K4's, at one slot) ends
+    a machine at its first event past tau_{p+1} + W (the plain version
+    walks every event).
 
     Returns, with ``fold``, the stitched (a, c, b, f) i32[N, M] — row 0 of
     ``c`` is the count, of ``f`` the unmatched flag — and ovf i32[M]

@@ -10,8 +10,9 @@
 // this file's Map launch once per device over the segments of every shard
 // it holds, then the group and cross-shard folds of mapc_common.cuh
 // (a1_mapc_group_fold, a1_mapc_shard_fold); K6d
-// (ops.py::a1_mapc_sharded_vmapped) runs K6c on each shard's segment group
-// and a1_mapc_shard_fold_lanes.
+// (ops.py::a1_mapc_sharded_vmapped) runs K6c's Map launch and its lane
+// group fold once per device over every lane's segments of the shards the
+// device holds, then a1_mapc_shard_fold_lanes.
 //
 // What it computes: for M episodes, P time segments and K = N phases, the
 // bounded-list machine of K2 (csrc/a1_count.cu) started cum[k] ticks before
@@ -32,27 +33,9 @@
 // to hide each step's latency.
 //
 // Design: Map launch on a grid (episode tile, phase, segment), 128 threads
-// per block, one thread per machine; a block shares its phase and segment,
-// so it stages the segment's (type, time, dup) rows in 1,024-event chunks
-// through shared memory and builds K2's type index beside each chunk
-// (type_index.cuh: per 32-event group one word per type bucket, 20 KB of
-// shared memory in all). A thread ORs its N level buckets' words of a
-// group and visits the set bits in order (__ffs), so it steps only the
-// events of its own types (and of types that share their buckets, which
-// change nothing). The window length LW is unbounded: the chunks walk any
-// window (the TPU's VMEM cap MAX_SEG_BRICK_LW has no counterpart here).
-// Lists, pointers and bounds live in registers, templated on N and LCAP;
-// the slot at the pointer is selected by unrolled compares, as in K2.
-// Gating is _a1_mapc_body's: a padding event or one at or before the
-// machine's start changes nothing and is skipped; on a visited event the
-// witness test runs only for the levels whose type is the event's, and all
-// levels advance from the pre-event state (masks first, then writes), which
-// keeps repeated-type episodes right; the window test is one unsigned
-// compare (type_index::in_window). A completing event stores nothing (and
-// cannot raise ovf) and resets the lists. A machine ends at its crossing
-// completion or at the first visited event past tau_{p+1} + w (a window's
-// events are in time order), and a block stops staging once every machine
-// in it has ended. The Map launch writes (a, count, b, ovf) to a
+// per block, one thread per machine, running the type-indexed walk of
+// mapc_walk.cuh (map_body<N, LCAP, true>; K3 runs the same body with one
+// slot and no ovf). The Map launch writes (a, count, b, ovf) to a
 // [4, P, K, M] scratch; the fold launch stitches it. Called without the
 // fold, the launch leaves the per-segment tuples for the caller's
 // Concatenate tree (the mapconcatenate engine).
@@ -62,140 +45,15 @@
 // tensors, m and LW (mapc_common.cuh); the lane is folded into the Map
 // grid's z (lane * P + segment) and is the fold grid's y. Each lane walks
 // its own window length LW, so no brick is padded to the group's longest.
+// K6d's Map on a device is the same pair of launches over the segments of
+// the shards it holds, the fold cutting each lane's segments into one
+// group per shard (fold_groups_lanes_kernel's z).
 
-#include "mapc_common.cuh"
-#include "type_index.cuh"
+#include "mapc_walk.cuh"
 
 namespace {
 
 using namespace mapc;
-
-// Machine (episode j, phase k, segment p of P) of an m-episode batch: walk
-// segment p's window on the type index and write its (a, count, b, ovf)
-// into the Map scratch. Every thread of the block calls it (those with
-// j >= m too: they take part in the staging barriers, visit nothing and
-// write nothing). The single and the lane-table entry points share it.
-template <int N, int L>
-__device__ __forceinline__ void a1_map_body(
-    const int* __restrict__ et, const int* __restrict__ tlo,
-    const int* __restrict__ thi, const int* __restrict__ cum,
-    const int* __restrict__ wspan, const int* __restrict__ segs, int lw,
-    int m, int j, int k, int p, int P, int* __restrict__ tuples) {
-  using type_index::kBuckets;
-  using type_index::kWarpSize;
-  __shared__ int sh_type[kChunk];
-  __shared__ int sh_time[kChunk];
-  __shared__ int sh_dup[kChunk];
-  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
-  const bool real = j < m;
-  const int* seg = segs + static_cast<size_t>(p) * kSegRows * lw;
-
-  int r_et[N], r_b[N], r_lo[N], r_hi[N], r_p[N];
-  int r_base[N];
-  unsigned r_span[N];
-  int r_s[N][L];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    r_et[i] = real ? et[i * m + j] : kPadRow;
-    r_b[i] = type_index::bucket(r_et[i]);
-    r_lo[i] = real ? tlo[i * m + j] : 0;
-    r_hi[i] = real ? thi[i * m + j] : 0;
-    r_base[i] = static_cast<int>(static_cast<unsigned>(r_lo[i]) + 1u);
-    r_span[i] = type_index::window_span(r_lo[i], r_hi[i]);
-    r_p[i] = 0;
-#pragma unroll
-    for (int l = 0; l < L; ++l) r_s[i][l] = kNegInf;
-  }
-  Zones z;
-  z.init(seg[kRowTauLo * lw], seg[kRowTauHi * lw], real ? wspan[j] : 0,
-         real ? cum[k * m + j] : 0);
-  // the machine has crossed, or a visited event lies past its window's end
-  // (a window's events are in time order): no later event can change it
-  bool ended = !real;
-  int o = 0;
-
-  for (int base = 0; base < lw; base += kChunk) {
-    // every thread is done with the previous chunk; stop when every
-    // machine of the block has ended
-    if (__syncthreads_and(ended)) break;
-    const int len = min(kChunk, lw - base);
-    type_index::stage_chunk<kThreads>(
-        seg + kRowType * lw, seg + kRowTime * lw, seg + kRowDup * lw, base,
-        len, sh_type, sh_time, sh_dup, sh_bits);
-    __syncthreads();
-    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
-    for (int g = 0; g < n_groups && !ended; ++g) {
-      unsigned word = type_index::group_word<N>(sh_bits, g, r_b);
-      while (word) {
-        const int q = g * kWarpSize + __ffs(word) - 1;
-        word &= word - 1u;
-        const int e = sh_type[q];
-        if (e == kPadType) continue;
-        const int t = sh_time[q];
-        if (t > z.tau_hi + z.w) {
-          ended = true;
-          break;
-        }
-        if (t <= z.start) continue;
-        const bool dup = sh_dup[q] != 0;
-        bool adv[N];
-        adv[0] = r_et[0] == e;
-#pragma unroll
-        for (int i = 1; i < N; ++i) {
-          bool witness = false;
-          if (r_et[i] == e) {
-            const unsigned tb = static_cast<unsigned>(t) -
-                                static_cast<unsigned>(r_base[i - 1]);
-#pragma unroll
-            for (int l = 0; l < L; ++l)
-              witness |= type_index::in_window(tb, r_s[i - 1][l],
-                                               r_span[i - 1]);
-          }
-          adv[i] = witness;
-        }
-        if (adv[N - 1]) {
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            r_p[i] = 0;
-#pragma unroll
-            for (int l = 0; l < L; ++l) r_s[i][l] = kNegInf;
-          }
-          z.complete(t);
-          if (z.done) {
-            ended = true;
-            break;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < N - 1; ++i) {
-            if (adv[i]) {
-              int v = kNegInf;
-#pragma unroll
-              for (int l = 0; l < L; ++l) {
-                if (l == r_p[i]) {
-                  v = r_s[i][l];
-                  r_s[i][l] = t;
-                }
-              }
-              o |= (v > kNegInf) & (delta(t, v) <= r_hi[i]) &
-                   ((r_lo[i] > 0) | dup);
-              r_p[i] = (r_p[i] + 1 == L) ? 0 : r_p[i] + 1;
-            }
-          }
-        }
-      }
-    }
-  }
-
-  if (real) {
-    const size_t plane = static_cast<size_t>(P) * N * m;
-    const size_t at = (static_cast<size_t>(p) * N + k) * m + j;
-    tuples[at] = z.a;
-    tuples[plane + at] = z.cnt;
-    tuples[2 * plane + at] = z.b;
-    tuples[3 * plane + at] = o;
-  }
-}
 
 template <int N, int L>
 __global__ void __launch_bounds__(kThreads)
@@ -203,9 +61,9 @@ a1_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
               const int* __restrict__ thi, const int* __restrict__ cum,
               const int* __restrict__ wspan, const int* __restrict__ segs,
               int lw, int m, int* __restrict__ tuples) {
-  a1_map_body<N, L>(et, tlo, thi, cum, wspan, segs, lw, m,
-                    blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
-                    blockIdx.z, gridDim.z, tuples);
+  map_body<N, L, true>(et, tlo, thi, cum, wspan, segs, lw, m,
+                       blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                       blockIdx.z, gridDim.z, tuples);
 }
 
 // K6c Map launch: grid (episode tile, phase, lane * P + segment) over the
@@ -217,37 +75,40 @@ a1_map_lanes_kernel(const long long* __restrict__ lanes, int P) {
   const long long* d = lanes + static_cast<size_t>(lane) * kLaneWords;
   const int m = static_cast<int>(d[kLaneM]);
   if (static_cast<int>(blockIdx.x) * kThreads >= m) return;
-  a1_map_body<N, L>(lane_ptr<const int>(d, kLaneEt),
-                    lane_ptr<const int>(d, kLaneTlo),
-                    lane_ptr<const int>(d, kLaneThi),
-                    lane_ptr<const int>(d, kLaneCum),
-                    lane_ptr<const int>(d, kLaneW),
-                    lane_ptr<const int>(d, kLaneSegs),
-                    static_cast<int>(d[kLaneLw]), m,
-                    blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
-                    blockIdx.z - lane * P, P, lane_ptr<int>(d, kLaneTuples));
+  map_body<N, L, true>(lane_ptr<const int>(d, kLaneEt),
+                       lane_ptr<const int>(d, kLaneTlo),
+                       lane_ptr<const int>(d, kLaneThi),
+                       lane_ptr<const int>(d, kLaneCum),
+                       lane_ptr<const int>(d, kLaneW),
+                       lane_ptr<const int>(d, kLaneSegs),
+                       static_cast<int>(d[kLaneLw]), m,
+                       blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                       blockIdx.z - lane * P, P,
+                       lane_ptr<int>(d, kLaneTuples));
 }
 
 template <int N, int L>
 cudaError_t launch_lanes(const long long* lanes, int n_lanes, int p,
-                         int max_m, cudaStream_t st) {
+                         int groups, int max_m, cudaStream_t st) {
   const int tiles = (max_m + kThreads - 1) / kThreads;
   a1_map_lanes_kernel<N, L><<<dim3(tiles, N, n_lanes * p), kThreads, 0,
                               st>>>(lanes, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fold_lanes_kernel<N><<<dim3(tiles, n_lanes), kThreads, 0, st>>>(lanes, p);
+  fold_groups_lanes_kernel<N><<<dim3(tiles, n_lanes, groups), kThreads, 0,
+                                st>>>(lanes, p, groups);
   return cudaGetLastError();
 }
 
 template <int N>
 cudaError_t launch_lanes_lcap(int lcap, const long long* lanes, int n_lanes,
-                              int p, int max_m, cudaStream_t st) {
+                              int p, int groups, int max_m,
+                              cudaStream_t st) {
   switch (lcap) {
-    case 1: return launch_lanes<N, 1>(lanes, n_lanes, p, max_m, st);
-    case 2: return launch_lanes<N, 2>(lanes, n_lanes, p, max_m, st);
-    case 4: return launch_lanes<N, 4>(lanes, n_lanes, p, max_m, st);
-    case 8: return launch_lanes<N, 8>(lanes, n_lanes, p, max_m, st);
+    case 1: return launch_lanes<N, 1>(lanes, n_lanes, p, groups, max_m, st);
+    case 2: return launch_lanes<N, 2>(lanes, n_lanes, p, groups, max_m, st);
+    case 4: return launch_lanes<N, 4>(lanes, n_lanes, p, groups, max_m, st);
+    case 8: return launch_lanes<N, 8>(lanes, n_lanes, p, groups, max_m, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -317,22 +178,27 @@ int a1_mapconcat(const int* et, const int* tlo, const int* thi,
 #undef A1M_CASE
 }
 
-// K6c: lanes is a device int64[n_lanes, 14] table (mapc_common.cuh), every
-// lane with n_levels levels, lcap slots and p segments; max_m the largest m
-// over the lanes. One Map launch and one fold launch for all lanes; each
-// lane's stitched a/c/b/f and ovf land in its own output tensors. Returns
-// 0 or a cudaError_t code.
-int a1_mapconcat_lanes(const long long* lanes, int n_lanes, int p, int max_m,
-                       int n_levels, int lcap, int device, void* stream) {
+// K6c and K6d's Map: lanes is a device int64[n_lanes, 14] table
+// (mapc_common.cuh), every lane with n_levels levels, lcap slots and p
+// segments; max_m the largest m over the lanes. One Map launch and one
+// fold launch for all lanes: each lane's p segments fold in ``groups``
+// contiguous groups into its output slots (K6c: groups = 1, the stitched
+// a/c/b/f and ovf; K6d: one group per shard the device holds). Returns 0
+// or a cudaError_t code.
+int a1_mapconcat_lanes(const long long* lanes, int n_lanes, int p,
+                       int groups, int max_m, int n_levels, int lcap,
+                       int device, void* stream) {
   if (n_lanes <= 0 || max_m <= 0 || p <= 0) return 0;
-  if (static_cast<long long>(n_lanes) * p > 65535 || n_lanes > 65535)
+  if (static_cast<long long>(n_lanes) * p > 65535 || n_lanes > 65535 ||
+      groups <= 0 || p % groups)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define A1ML_CASE(NL)                                                     \
   case NL:                                                                \
-    return launch_lanes_lcap<NL>(lcap, lanes, n_lanes, p, max_m, st);
+    return launch_lanes_lcap<NL>(lcap, lanes, n_lanes, p, groups, max_m,  \
+                                 st);
   switch (n_levels) {
     A1ML_CASE(2)
     A1ML_CASE(3)

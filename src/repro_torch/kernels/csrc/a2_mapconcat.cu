@@ -16,20 +16,22 @@
 // cannot overflow, so the ovf output is zero.
 //
 // What bounds it on the card: not bytes (each machine reads its segment's
-// window once and writes three ints). The work is P*K*M machines x LW
-// events x (N + 2(N-1)) int32 compares, a chain of dependent steps per
-// machine; with one thread per machine it is bound by that serial walk and
-// by the number of machines there are to hide its latency.
+// window once and writes four ints). An event changes a machine only if
+// its type is one of the episode's level types and it falls in the
+// machine's window, so the work these inputs need is, per segment and
+// phase machine, N type compares on each matching event and the window
+// test at each level of the event's type, in a chain of dependent steps
+// per machine; with one thread per machine and a few hundred episodes a
+// launch is bound by the longest such chain and by how few warps there
+// are to hide each step's latency.
 //
-// Design: K4's (csrc/a1_mapconcat.cu) without its type index — every
-// event of the window is stepped — and with one slot per level: grid
-// (episode tile, phase, segment), one thread per machine, the segment's
-// (type, time) chunks staged through shared memory for any window length,
-// state in registers templated on N, every level advancing from the
-// pre-event state, events outside the machine's window skipped, early stop
-// once every machine of a block has crossed.
+// Design: K4's (csrc/a1_mapconcat.cu) with one slot a level: grid
+// (episode tile, phase, segment), one thread per machine, each running the
+// type-indexed walk of mapc_walk.cuh as map_body<N, 1, false> (no dup row
+// staged, no ovf kept), so a machine visits only its own types' events and
+// ends at its crossing or at its first visited event past tau_{p+1} + W.
 
-#include "mapc_common.cuh"
+#include "mapc_walk.cuh"
 
 namespace {
 
@@ -41,62 +43,9 @@ a2_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
               const int* __restrict__ thi, const int* __restrict__ cum,
               const int* __restrict__ wspan, const int* __restrict__ segs,
               int lw, int m, int* __restrict__ tuples) {
-  __shared__ int sh_type[kChunk];
-  __shared__ int sh_time[kChunk];
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const int k = blockIdx.y;
-  const int p = blockIdx.z;
-  const int P = gridDim.z;
-  const bool real = j < m;
-  const int* seg = segs + static_cast<size_t>(p) * kSegRows * lw;
-
-  int r_et[N], r_lo[N], r_hi[N], r_s[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    r_et[i] = real ? et[i * m + j] : kPadRow;
-    r_lo[i] = real ? tlo[i * m + j] : 0;
-    r_hi[i] = real ? thi[i * m + j] : 0;
-    r_s[i] = kNegInf;
-  }
-  Zones z;
-  z.init(seg[kRowTauLo * lw], seg[kRowTauHi * lw], real ? wspan[j] : 0,
-         real ? cum[k * m + j] : 0);
-
-  for (int base = 0; base < lw; base += kChunk) {
-    if (__syncthreads_and(z.done || !real)) break;
-    const int len = stage_chunk(seg, lw, base, sh_type, sh_time);
-    __syncthreads();
-    for (int q = 0; q < len; ++q) {
-      const int e = sh_type[q];
-      const int t = sh_time[q];
-      if (e == kPadType || !z.in_window(t)) continue;
-      bool adv[N];
-      adv[0] = r_et[0] == e;
-#pragma unroll
-      for (int i = 1; i < N; ++i) {
-        const int d = delta(t, r_s[i - 1]);
-        adv[i] = (r_et[i] == e) & (d > r_lo[i - 1]) & (d <= r_hi[i - 1]);
-      }
-      if (adv[N - 1]) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) r_s[i] = kNegInf;
-        z.complete(t);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N - 1; ++i)
-          if (adv[i]) r_s[i] = t;
-      }
-    }
-  }
-
-  if (real) {
-    const size_t plane = static_cast<size_t>(P) * N * m;
-    const size_t at = (static_cast<size_t>(p) * N + k) * m + j;
-    tuples[at] = z.a;
-    tuples[plane + at] = z.cnt;
-    tuples[2 * plane + at] = z.b;
-    tuples[3 * plane + at] = 0;
-  }
+  map_body<N, 1, false>(et, tlo, thi, cum, wspan, segs, lw, m,
+                        blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                        blockIdx.z, gridDim.z, tuples);
 }
 
 template <int N>

@@ -2,6 +2,7 @@
 // (a2_mapconcat.cu) and K4 (a1_mapconcat.cu): the segment brick layout,
 // the stitch zones, the fold launch that stitches the segments' tuples, and
 // the group and cross-shard folds of their mesh-sharded forms K5 and K6d.
+// Their Map body, the type-indexed walk, is in mapc_walk.cuh.
 //
 // Layout (all int32):
 //   segs   [P, 5, LW]  rows: types, times, dup, tau_p, tau_{p+1}; the two
@@ -74,19 +75,6 @@ struct Zones {
     }
   }
 };
-
-// Stage one chunk of segment p's (type, time) rows into shared memory
-// (K3's dense walk; K4 stages through type_index.cuh). Returns the chunk
-// length. The caller brackets it with __syncthreads.
-__device__ __forceinline__ int stage_chunk(const int* seg, int lw, int base,
-                                           int* sh_type, int* sh_time) {
-  const int len = min(kChunk, lw - base);
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    sh_type[i] = seg[kRowType * lw + base + i];
-    sh_time[i] = seg[kRowTime * lw + base + i];
-  }
-  return len;
-}
 
 // One stitch step of episode j's phase tuples (fold_pair's rule, bit for
 // bit): left machine k takes the lowest right machine k' whose a equals its
@@ -195,10 +183,15 @@ fold_kernel(const int* __restrict__ tuples, int p, int m, bool with_ovf,
                out_b, out_f, out_ovf);
 }
 
-// Lane table of the fused multi-session segmented launch (K6c): one
-// descriptor of int64 words per lane — et, tlo, thi, cum, w, segs, the
-// [4, P, K, M] Map scratch, the outputs a, c, b, f, ovf (device pointers),
-// then m and lw. P, K and the list capacity are the same for every lane.
+// Lane table of the fused multi-session segmented launch (K6c, and K6d's
+// Map on a device): one descriptor of int64 words per lane — et, tlo, thi,
+// cum, w, segs, the [4, P, K, M] Map scratch, the fold's outputs a, c, b,
+// f, ovf (device pointers), then m and lw. P, K and the list capacity are
+// the same for every lane. The fold cuts each lane's P segments into
+// ``groups`` contiguous groups: with one (K6c) a, c, b, f [K, M] and
+// ovf [M] are the stitched tuple; with more (K6d) they are group 0's slot
+// planes of shard [groups, 4, K, M] and sovf [groups, M], and group g's
+// lie 4 * K * M ints (ovf: M) further on.
 constexpr int kLaneWords = 14;
 enum LaneWord {
   kLaneEt = 0, kLaneTlo, kLaneThi, kLaneCum, kLaneW, kLaneSegs,
@@ -210,18 +203,26 @@ __device__ __forceinline__ T* lane_ptr(const long long* d, int word) {
   return reinterpret_cast<T*>(d[word]);
 }
 
-// Fold launch of the lane table: lane blockIdx.y, episode tile blockIdx.x.
+// Fold launch of the lane table: lane blockIdx.y, group blockIdx.z of
+// ``groups`` (fold_body over its P / groups segments), episode tile
+// blockIdx.x.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-fold_lanes_kernel(const long long* __restrict__ lanes, int p) {
+fold_groups_lanes_kernel(const long long* __restrict__ lanes, int p,
+                         int groups) {
   const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
   const int m = static_cast<int>(d[kLaneM]);
+  const int g = blockIdx.z;
+  const int pl = p / groups;
+  const size_t slot = static_cast<size_t>(g) * 4 * K * m;
   fold_body<K>(lane_ptr<const int>(d, kLaneTuples),
-               static_cast<size_t>(p) * K * m, 0, p, m,
+               static_cast<size_t>(p) * K * m, g * pl, (g + 1) * pl, m,
                blockIdx.x * kThreads + threadIdx.x, true,
-               lane_ptr<int>(d, kLaneA), lane_ptr<int>(d, kLaneC),
-               lane_ptr<int>(d, kLaneB), lane_ptr<int>(d, kLaneF),
-               lane_ptr<int>(d, kLaneOvf));
+               lane_ptr<int>(d, kLaneA) + slot,
+               lane_ptr<int>(d, kLaneC) + slot,
+               lane_ptr<int>(d, kLaneB) + slot,
+               lane_ptr<int>(d, kLaneF) + slot,
+               lane_ptr<int>(d, kLaneOvf) + static_cast<size_t>(g) * m);
 }
 
 template <int K>
@@ -247,7 +248,9 @@ cudaError_t launch_fold(const int* tuples, int p, int m, bool with_ovf,
 //   sovf  [d, M]        ovf of group q
 // The caller gathers the slots on the operands' device (on that device
 // the groups fold straight into them), and stitch_shards_kernel folds the
-// groups there: three launches a call on one card, whatever d.
+// groups there: three launches a call on one card, whatever d. K6d does
+// the same over a lane table: per device K6c's Map launch and
+// fold_groups_lanes_kernel, then stitch_shard_lanes_kernel.
 //
 // The cross-shard step is fold_pair's rule (src/repro/core/mapconcat.py:
 // 170), bit for bit: the carry starts from group 0's tuple and flag, and a

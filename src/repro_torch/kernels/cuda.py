@@ -143,11 +143,15 @@ def tiled_lanes(rows: list[list[int]], m_col: int,
 
 
 def lane_table(rows: list[list[int]], device: torch.device) -> torch.Tensor:
-    """The fused launches' lane descriptors (one row of int64 words per
-    lane: device pointers, then sizes), copied to ``device`` in one
-    transfer on the current stream, so the launch that reads it is ordered
-    after it."""
-    return torch.tensor(rows, dtype=torch.int64).to(device)
+    """The fused launches' lane descriptors (rows of int64 words: device
+    pointers, then sizes), back to back in one flat table copied to
+    ``device`` in one transfer on the current stream, so the launch that
+    reads it is ordered after it. The rows are staged in pinned host
+    memory and copied without blocking the host: the caching host
+    allocator keeps the staging block until the copy is done."""
+    host = torch.tensor([w for r in rows for w in r], dtype=torch.int64,
+                        pin_memory=True)
+    return host.to(device, non_blocking=True)
 
 
 def check_operand(name: str, t: torch.Tensor, shape: tuple,

@@ -269,8 +269,8 @@ def segment_bricks(wt, wtt, tau, device, length: int | None = None):
     segment's events through shared memory in chunks, so they take any LW:
     there is no admission bound like the reference's ``MAX_SEG_BRICK_LW``,
     which is a TPU VMEM budget. Each window's real events must be in time
-    order (raises otherwise): K4's walk ends a machine at its first event
-    past tau_{p+1} + W."""
+    order (raises otherwise): K3's and K4's walk ends a machine at its
+    first event past tau_{p+1} + W."""
     wt = np.asarray(wt, np.int32)
     wtt = np.asarray(wtt, np.int32)
     p, lw = wt.shape
@@ -394,8 +394,9 @@ def a2_mapconcat_sharded_tuples(et, tlo, thi, cum, w, segs, *, devices):
 
 
 def a1_mapc_sharded_vmapped(lanes, *, lcap: int, devices) -> list[tuple]:
-    """K6d: K5 (bounded-list kind) over many lanes — one K6c launch per
-    device and one cross-shard fold launch for all of them (traced).
+    """K6d: K5 (bounded-list kind) over many lanes — per device one K6c
+    Map launch and one group fold over every lane's shards there, then one
+    cross-shard fold launch for all of them (traced).
     ``lanes``: a list of ``(et, tlo, thi, cum, w, segs)`` in K4's layout,
     same N and P (a multiple of len(devices)). Returns each lane's
     (a, c, b, f, ovf)."""

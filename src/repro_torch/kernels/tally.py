@@ -9,8 +9,9 @@ The mesh-sharded MapConcatenate (K5) counts one per shard group, so d per
 call as the reference counts it (``a1_mapc_shard``, ``a2_mapc_shard``;
 the device launches are one Map launch and one group fold launch per
 distinct device), and one per call for its cross-shard fold
-(``mapc_shard_fold``); K6d counts its per-shard lane-table launches
-(``a1_mapc_sharded_vmapped``) and its fold launch
+(``mapc_shard_fold``); K6d counts d per call as well
+(``a1_mapc_sharded_vmapped``; its device launches are one Map and one
+group fold per distinct device) and its fold launch once
 (``mapc_shard_fold_lanes``). A one-shot sharded count that the
 reference's rule sends to the single-device launch (fewer than two
 devices, or too short a stream) adds one to ``mapc_shard_single_total``

@@ -15,13 +15,15 @@ unequal M and event counts (K6a/K6b also over 300 types, with the state
 carried over 2 and 3 cuts), and a two-session ``MiningService`` on the
 card against standalone miners. K4's type-indexed walk (and K6c, which
 runs it) is held against the plain version and the lanes one by one on the
-300-type walk cases. The mesh-sharded K5 (both kinds) runs on 2, 4 and 8
-logical shards of the card against its plain version and the unsharded
-K4/K3 launch on the same segments, in three device launches a call by
-the profiler's count; its fold launches (group fold, cross-shard fold)
-against their plain versions; K6d against lone K5 calls,
-and the ``hybrid`` streaming miner on a 4-shard mesh against the same
-miner without one.
+300-type walk cases, and so is K3's (the same walk body at one slot), with
+K5's single-slot kind, which runs K3's Map, at d = 2, 4, 8. The
+mesh-sharded K5 (both kinds) runs on 2, 4 and 8 logical shards of the
+card against its plain version and the unsharded K4/K3 launch on the same
+segments, in three device launches a call by the profiler's count; its
+fold launches (group fold, cross-shard fold) against their plain
+versions; K6d against lone K5 calls, also in three kernel launches a call
+whatever d; and the ``hybrid`` streaming miner on a 4-shard mesh against
+the same miner without one.
 """
 
 import numpy as np
@@ -364,6 +366,37 @@ def test_cuda_k4_walk_cases_match_plain(card, n, m, p, lcap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,m,p", [case[:3] for case in MAPC_WALK_CASES])
+def test_cuda_k3_walk_cases_match_plain(card, n, m, p):
+    """K3 on the type index's hard cases (300 types, so its buckets
+    collide, and repeated-type episodes) in the A2 pass's layout, folded
+    and Map only, against its plain version; K5's single-slot kind, which
+    runs K3's Map, on d = 2, 4, 8 shards of the card (the walk stream cut
+    into 2d equal segments) against its plain version, bit for bit."""
+    from repro_torch.core import make_segments
+    types, times, arrays = walk_case(40 + n, m, n, MANY_TYPES,
+                                     MAPC_WALK_EVENTS)
+    eps = EpisodeBatch(*arrays).relaxed()
+    tau, wt, wtt = make_segments(EventStream(types, times, MANY_TYPES), p,
+                                 int(eps.max_span.max()))
+    lay = ops.mapconcat_layout(eps, True, card)
+    segs = ops.segment_bricks(wt, wtt, tau, card)
+    for fold in (True, False):
+        got = k_a2.a2_mapconcat_kernel(*lay, segs, fold=fold)
+        want = k_a2.a2_mapconcat_plain(*lay, segs, fold=fold)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), fold
+    assert int(got[1].sum()) > 0, "no occurrence completes"
+    for d in (2, 4, 8):
+        mesh = [card] * d
+        segs = chip_smoke.mapc_lane(np, ops, types, times, eps, 2 * d)[-1]
+        got = k_a2.a2_mapconcat_sharded(*lay, segs, devices=mesh)
+        want = k_a2.a2_mapconcat_sharded_plain(*lay, segs, devices=mesh)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), d
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("num_segments", [1, 2, 8])
 def test_cuda_fused_mapconcat_matches_single_launches(card, num_segments):
     """K6c gives each lane the (a, c, b, f, ovf) a lone K4 launch gives it,
@@ -532,8 +565,8 @@ def test_cuda_k5_launches_per_call(card, d):
 @pytest.mark.parametrize("d", [2, 4])
 def test_cuda_k6d_matches_k5_launches(card, d):
     """K6d gives each lane (unequal M and window length) the tuples a lone
-    K5 call gives it, and its plain per-lane loop, bit for bit: one K6c
-    launch per shard and one fold launch for all lanes."""
+    K5 call gives it, and its plain per-lane loop, bit for bit; the tally
+    counts d Map launches (one per shard group) and one fold a call."""
     from repro_torch.core import make_segments
     mesh = [card] * d
     for lcap in (1, 4):
@@ -558,6 +591,41 @@ def test_cuda_k6d_matches_k5_launches(card, d):
             want = k_a1.a1_mapconcat_sharded(*args, lcap=lcap, devices=mesh)
             for x, y, z in zip(got, want, want_plain):
                 assert torch.equal(x, y) and torch.equal(x, z), lcap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_cuda_k6d_launches_per_call(card, d):
+    """On one card K6d puts three kernels on the device a call — one K6c
+    Map launch over every lane's segments of every shard, one lane group
+    fold and one cross-shard lane fold — and one copy (the lanes' table),
+    by the profiler's count, whatever d; the tally still counts d Map
+    launches and one fold a call."""
+    mesh = [card] * d
+    lanes = []
+    for i, (m, k) in enumerate(zip((1, 40, 130), (400, 900, 1500))):
+        types, times = tie_stream(i, n=k)
+        lanes.append(chip_smoke.mapc_lane(np, ops, types, times,
+                                          random_batch(i, m=m, n=3), 2 * d))
+
+    def call():
+        return ops.a1_mapc_sharded_vmapped(lanes, lcap=4, devices=mesh)
+    call()  # warm: build and load
+    torch.cuda.synchronize()
+    tally.reset_counts()
+    for _ in range(5):
+        call()
+    assert tally.launch_counts() == {k_a1.SHARDED_LANES_KERNEL: 5 * d,
+                                     k_a1.SHARD_FOLD_LANES: 5}
+    per_call, by_name = chip_smoke.profiled_launches(torch, call, 5)
+    copies = {k: v for k, v in by_name.items()
+              if k.startswith(("Memcpy", "Memset"))}
+    assert {k: v for k, v in by_name.items() if k not in copies} == {
+        "void a1_map_lanes_kernel<3, 4>": 5,
+        "void mapc::fold_groups_lanes_kernel<3>": 5,
+        "void mapc::stitch_shard_lanes_kernel<3>": 5}, by_name
+    assert per_call == 3
+    assert sum(copies.values()) == 5, copies
 
 
 @pytest.mark.cuda

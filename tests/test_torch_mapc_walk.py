@@ -1,12 +1,14 @@
-"""K4's type-indexed walk and K5's launches by device: the port's plain
-versions against the reference's on the same numpy-made inputs, on the
-CPU. Tolerance: exact equality of every integer output.
+"""K3's and K4's type-indexed walk and K5's launches by device: the
+port's plain versions against the reference's on the same numpy-made
+inputs, on the CPU. Tolerance: exact equality of every integer output.
 
 * K4's plain version against the reference's Pallas
   ``a1_mapconcat_kernel`` (interpret mode; the stitched a, c, b, f, ovf)
   and its Map step against the reference's XLA Map step, on the walk cases
   of ``torch_walk_cases`` (300 types, so the CUDA walk's 64 type buckets
-  collide, and repeated-type episodes);
+  collide, and repeated-type episodes); K3's plain version against the
+  reference's Pallas ``a2_mapconcat_kernel`` on the same cases, in the A2
+  pass's layout (relaxed episodes, inclusive lower bound);
 * K5's group fold and cross-shard fold against left chains of the
   reference's ``fold_pair``, on random Map tuples whose stitches go
   unmatched inside and between groups, d = 1, 2, 4, 8 and N = 2, 3, 5, 8;
@@ -56,7 +58,7 @@ def _assert_tuples(got, want, k, m):
     np.testing.assert_array_equal(_np(got[4]), np.asarray(want[4])[0, :m])
 
 
-# ------------------------------------------------- K4 on the walk cases
+# ------------------------------------------ K3 and K4 on the walk cases
 
 
 @pytest.mark.parametrize("n,m,p,lcap", MAPC_WALK_CASES)
@@ -86,11 +88,29 @@ def test_plain_k4_matches_pallas_on_walk_cases(n, m, p, lcap):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
 
 
+@pytest.mark.parametrize("n,m,p", [case[:3] for case in MAPC_WALK_CASES])
+def test_plain_k3_matches_pallas_on_walk_cases(n, m, p):
+    types, times, arrays = walk_case(40 + n, m, n, MANY_TYPES,
+                                     MAPC_WALK_EVENTS)
+    eps, reps = EpisodeBatch(*arrays).relaxed(), RefBatch(*arrays).relaxed()
+    tau, wt, wtt = ref_mapc.make_segments(
+        RefStream(types, times, MANY_TYPES), p, int(reps.max_span.max()))
+    assert wt.shape[0] == p, "the stream no longer cuts into P segments"
+    want = ref_ops.a2_mapconcat_tuples(
+        *ref_ops.mapconcat_layout(reps, inclusive_lower=True),
+        ref_ops.segment_bricks(wt, wtt, tau), n_levels=n, interpret=True)
+    lay = ops.mapconcat_layout(eps, inclusive_lower=True, device=CPU)
+    got = k_a2.a2_mapconcat_kernel(*lay, ops.segment_bricks(wt, wtt, tau,
+                                                            CPU))
+    _assert_tuples(got, want, n, m)
+    assert _np(got[1])[0].sum() > 0, "no occurrence completes"
+
+
 @pytest.mark.parametrize("times,ok", [
     ([3, 5, 5, 9], True), ([3, 5, 4, 9], False), ([3, 0, 5, 9], True)])
 def test_segment_bricks_take_windows_in_time_order(times, ok):
-    """K4's walk ends a machine at its first event past tau_{p+1} + W, so
-    the bricks it walks hold each window's real events in time order;
+    """K3's and K4's walk ends a machine at its first event past
+    tau_{p+1} + W, so the bricks it walks hold each window's real events in time order;
     ``segment_bricks`` refuses a window that is not (padding, type -1 at
     time 0 in the last case, is not an event)."""
     wt = np.int32([[0, 1, 2, 1], [0, -1, 2, 1]][int(times[1] == 0)])

@@ -5,9 +5,9 @@ XLA host devices (``XLA_FLAGS`` must precede the jax import, as in
 ``a1_mapconcat_sharded_tuples``, ``a2_mapconcat_sharded_tuples`` and
 ``a1_mapc_sharded_vmapped`` (Pallas in interpret mode under ``shard_map``)
 at d = 2, 4 and 8 devices, and the port's K5 and K6d wrappers — their plain
-versions, on d logical CPU shards (K5 also under two interleaved device
-names, so that each holds several groups) — on the same numpy-made
-inputs.
+versions, on d logical CPU shards, also under two interleaved device names,
+so that each holds several groups (folded on its own and gathered) — on
+the same numpy-made inputs.
 
 Tolerance: exact equality of every integer of (a, c, b, f, ovf), flagged
 entries included: both fold the segments within a device, then the
@@ -86,7 +86,8 @@ SCRIPT = textwrap.dedent("""
         p, lcap = 2 * d, (1 if d == 4 else 4)
         cpus = ["cpu"] * d
         mixed = ["cpu", "cpu:0"] * (d // 2)
-        res = {"a1": 0, "a2": 0, "lanes": 0, "flags": 0, "ovf": 0}
+        res = {"a1": 0, "a2": 0, "lanes": 0, "lanes_mixed": 0, "flags": 0,
+               "ovf": 0}
         for case, doctor in (("clean", None), ("inner", 0),
                              ("cross", 1)):
             rsegs, segs = bricks(d, p, w, doctor)
@@ -115,11 +116,12 @@ SCRIPT = textwrap.dedent("""
         fn = ref_ops.a1_mapc_sharded_vmapped(K, lcap, True, d)
         stacked = [jnp.stack([x] * 3) for x in rl1]
         want = fn(*stacked, jnp.stack([r for r, _ in lanes]))
-        got = ops.a1_mapc_sharded_vmapped([(*l1, s) for _, s in lanes],
-                                          lcap=lcap, devices=cpus)
-        for i, g in enumerate(got):
-            res["lanes"] += diff(g, [x[i] for x in want])
-            res["flags"] += int(g[3][0].sum())
+        for key, devs in (("lanes", cpus), ("lanes_mixed", mixed)):
+            got = ops.a1_mapc_sharded_vmapped([(*l1, s) for _, s in lanes],
+                                              lcap=lcap, devices=devs)
+            for i, g in enumerate(got):
+                res[key] += diff(g, [x[i] for x in want])
+                res["flags"] += int(g[3][0].sum())
         out[str(d)] = res
     out["plain"] = tally.plain_counts()
     print(json.dumps(out))
@@ -149,3 +151,12 @@ def test_sharded_kernels_equal_reference_on_8_host_devices(mesh_run, d):
     assert plain["a1_mapc_shard"] >= 3 * d and plain["a2_mapc_shard"] >= 3 * d
     assert plain["mapc_shard_fold"] >= 6
     assert plain["a1_mapc_sharded_vmapped"] >= 1
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_k6d_under_two_device_names_equals_reference(mesh_run, d):
+    """K6d's grouping by device — per device name one plain Map and group
+    fold over every lane's shards there, the other name's slots gathered,
+    then the cross-shard fold — on [cpu, cpu:0] * (d / 2) equals the
+    reference's ``a1_mapc_sharded_vmapped`` on d devices."""
+    assert mesh_run[str(d)]["lanes_mixed"] == 0, mesh_run[str(d)]
