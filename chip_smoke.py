@@ -84,6 +84,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    - path F, the 8 Sym26 sessions for 60 s through the service on the
      same 4-shard mesh, gate off: K6d must launch; every session equals
      a standalone miner on the card;
+   - path G, the wire-served daemon: 4 Sym26 sessions of 60 s (path C's
+     session config) sent by 4 producer threads of ``launch.wire_load``'s
+     ``FaultyClient`` (frames dropped, duplicated and torn, seed 7) to
+     ``python -m repro_torch.service.daemon`` on the card over a Unix
+     socket, checkpointing after every pump step; the daemon SIGKILLs
+     itself after ``kill_point(19, 4, 16)`` commits and a supervisor
+     thread restarts it: every session's deltas equal a standalone
+     session on the card, the restart recovers all 4 sessions, the
+     restarted daemon launches K6a and K6b, runs no plain version,
+     retries no step, meets no unexpected failure, compiles nothing and
+     exits 0 on SIGTERM; ev/s through the wire, window latency at the
+     client, restart seconds, reconnects, faults, dedup hits and the
+     checkpoints' count and seconds (one session's checkpoint split into
+     its state copy and its files);
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -223,6 +237,17 @@ REQUIRED_E = ("a1_mapc_shard", "mapc_shard_fold")
 REQUIRED_E_RESTART = ("a2_mapc_shard", "a1_mapc_shard", "mapc_shard_fold")
 REQUIRED_F = ("a2_state_vmapped", "a1_mapc_sharded_vmapped",
               "mapc_shard_fold_lanes")
+# path G, the wire-served daemon: Sym26 sessions (channels, seconds,
+# count), the producer threads, the link's faults, the commits the first
+# daemon survives before it SIGKILLs itself (``kill_point(seed, lo, hi)``)
+# and the fused kernels the restarted daemon must launch
+FLEET_DAEMON = ((26, 60, 4),)
+DAEMON_PRODUCERS = 4
+DAEMON_FAULTS = {"seed": 7, "drop": 0.05, "duplicate": 0.05,
+                 "truncate": 0.02, "max_faults": 12}
+DAEMON_KILL = (19, 4, 16)
+REQUIRED_G = ("a2_state_vmapped", "a1_state_vmapped")
+DAEMON_DEADLINE_S = 300.0
 # the single kernel whose per-lane launches a fused kernel replaces
 SINGLE_OF = {"a2_state_vmapped": "a2_count_state",
              "a1_state_vmapped": "a1_count_state",
@@ -1484,6 +1509,257 @@ def bounded_path(np, torch, tally):
     return launches, lat
 
 
+def start_daemon(data, sock, log, crash_after=None, device=None):
+    """Start ``python -m repro_torch.service.daemon`` on ``device`` (its
+    default: the card) on the Unix socket ``sock``, with the data directory
+    ``data``, a checkpoint after every pump step and its output appended to
+    ``log``. Returns (process, seconds until its pidfile named the bound
+    socket)."""
+    import os
+    argv = [sys.executable, "-m", "repro_torch.service.daemon", "--listen",
+            f"unix:{sock}", "--data-dir", str(data), "--checkpoint-every",
+            "1"]
+    if crash_after is not None:
+        argv += ["--crash-after-commits", str(crash_after)]
+    if device is not None:
+        argv += ["--device", device]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    pidfile = Path(data) / "daemon.pid"
+    t0 = time.perf_counter()
+    with open(log, "a") as out:
+        proc = subprocess.Popen(argv, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                stdin=subprocess.DEVNULL)
+    while time.perf_counter() - t0 < DAEMON_DEADLINE_S:
+        if proc.poll() is not None:
+            fail(f"the daemon exited at boot with {proc.returncode}:\n"
+                 + Path(log).read_text()[-4000:])
+        try:
+            doc = json.loads(pidfile.read_text())
+        except (FileNotFoundError, json.JSONDecodeError):
+            doc = None
+        if doc and doc.get("address") and doc.get("pid") == proc.pid:
+            return proc, time.perf_counter() - t0
+        time.sleep(0.02)
+    proc.kill()
+    proc.wait()
+    fail(f"the daemon was not ready within {DAEMON_DEADLINE_S:.0f} s:\n"
+         + Path(log).read_text()[-4000:])
+
+
+def produce(client, wins, rows):
+    """One producer thread of path G: submit ``wins`` in order over
+    ``client``, polling after each, then poll until every window's delta
+    has arrived; ``rows[sid] = (client, submit times, {window: (arrival
+    time, delta)})``."""
+    sent, seen = {}, {}
+
+    def take(deltas):
+        now = time.perf_counter()
+        for d in deltas:
+            seen[d["window_idx"]] = (now, d)
+    for j, w in enumerate(wins):
+        sent[j] = time.perf_counter()
+        client.submit(w, final=j == len(wins) - 1)
+        take(client.poll())
+    deadline = time.perf_counter() + DAEMON_DEADLINE_S
+    while len(seen) < len(wins):
+        if time.perf_counter() > deadline:
+            fail(f"path G {client.session_id}: {len(seen)} of {len(wins)} "
+                 f"deltas within {DAEMON_DEADLINE_S:.0f} s")
+        time.sleep(0.01)
+        take(client.poll())
+    rows[client.session_id] = (client, sent, seen)
+
+
+def daemon_path(np, torch, tally, lcap):
+    """Path G: path C's sessions served by the port's daemon over a Unix
+    socket, through ``launch.wire_load``'s ``FaultyClient`` (the link drops,
+    duplicates and tears frames), the daemon on the card checkpointing
+    after every pump step. The first daemon SIGKILLs itself after
+    ``kill_point(*DAEMON_KILL)`` commits (after the commit, before its
+    checkpoint); a supervisor thread restarts it at once without the crash
+    flag, and it cold-boots from the data directory. Every session's
+    deltas must equal a standalone session on the card; the restarted
+    daemon must have launched K6a and K6b, run no plain version, retried
+    no step and met no unexpected failure; it must compile nothing and
+    exit 0 on SIGTERM with its pidfile gone. Returns the restarted
+    daemon's launch counts (the first daemon's die with it)."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.cuda import BUILD_DIR
+    from repro_torch.launch.wire_load import FaultyClient
+    from repro_torch.runtime import FaultSpec, kill_point
+    from repro_torch.service import MiningSession, SessionConfig
+    from repro_torch.service.wire import delta_payload
+
+    cfg = fleet_config(SessionConfig, 8, lcap)
+    tenants = fleet_tenants(FLEET_DAEMON, "path-G")
+    crash_at = kill_point(*DAEMON_KILL)
+    print(f"[smoke] path G: {len(tenants)} sessions through the daemon, "
+          f"{DAEMON_PRODUCERS} producer threads, faults {DAEMON_FAULTS}; "
+          f"the first daemon dies after kill_point{DAEMON_KILL} = "
+          f"{crash_at} commits")
+
+    def builds():
+        return sorted(p.name for p in BUILD_DIR.glob("*"))
+    built = builds()
+    # a Unix socket's path holds at most 107 bytes: a short directory
+    tmp = Path(tempfile.mkdtemp(prefix="fem"))
+    sock, data, log = tmp / "g.sock", tmp / "data", tmp / "daemon.out"
+    procs, restart = [], {}
+    try:
+        proc, boot_s = start_daemon(data, sock, log, crash_after=crash_at)
+        procs.append(proc)
+
+        def supervise():
+            try:
+                restart["code"] = proc.wait()
+                t_kill = time.perf_counter()
+                if restart["code"] == -signal.SIGKILL:
+                    again, _ = start_daemon(data, sock, log)
+                    procs.append(again)
+                    restart["seconds"] = time.perf_counter() - t_kill
+            except Exception as e:  # noqa: BLE001 — checked below
+                restart["error"] = e
+        sup = threading.Thread(target=supervise, daemon=True)
+        sup.start()
+        spec = FaultSpec(**DAEMON_FAULTS)
+        rows = {}
+        clients = [FaultyClient(f"unix:{sock}", sid, cfg, fault_spec=spec,
+                                rng_seed=1000 + i,
+                                deadline_s=DAEMON_DEADLINE_S)
+                   for i, (sid, _, _) in enumerate(tenants)]
+        with ThreadPoolExecutor(DAEMON_PRODUCERS) as pool:
+            futures = [pool.submit(produce, c, wins, rows)
+                       for c, (_, _, wins) in zip(clients, tenants)]
+            for f in futures:
+                f.result()
+        sup.join(timeout=DAEMON_DEADLINE_S)
+        if "error" in restart:
+            raise restart["error"]
+        if restart.get("code") != -signal.SIGKILL or "seconds" not in restart:
+            fail(f"path G: the daemon was not SIGKILLed and restarted "
+                 f"(exit {restart.get('code')})")
+        stats = clients[0].stats()
+        for c in clients:
+            c.close_session()
+        procs[-1].send_signal(signal.SIGTERM)
+        code = procs[-1].wait(timeout=120)
+        text = log.read_text()
+    except BaseException:
+        if log.exists():
+            print("[smoke] path G daemon output (tail):\n"
+                  + log.read_text()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    events = sum(len(w) for _, _, wins in tenants for w in wins)
+    t_first = min(sent[0] for _, sent, _ in rows.values())
+    t_last = max(t for _, _, seen in rows.values() for t, _ in seen.values())
+    lat = sorted(seen[j][0] - sent[j] for _, sent, seen in rows.values()
+                 for j in sent)
+    faults: dict[str, int] = {}
+    for c in clients:
+        for k, v in c.injector.injected.items():
+            faults[k] = faults.get(k, 0) + v
+    rec, w, k = stats["recovery"], stats["wire"], stats["kernel"]
+    print(f"[smoke] path G ({nvidia_smi_line()}): {events} events through "
+          f"the wire in {t_last - t_first:.3f} s (first submit to last "
+          f"delta) = {events / (t_last - t_first):.1f} ev/s; window latency "
+          f"at the client p50 {statistics.median(lat) * 1e3:.1f} ms p99 "
+          f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3:.1f} ms "
+          f"over {len(lat)} windows; first boot {boot_s:.2f} s, restart "
+          f"(SIGKILL to the new daemon's ready pidfile) "
+          f"{restart['seconds']:.2f} s")
+    print(f"[smoke] path G link: reconnects "
+          f"{sum(c.reconnects for c in clients)}, faults injected {faults}; "
+          f"restarted daemon: dedup hits {w['dedup_hits']}, out of order "
+          f"{w['out_of_order']}, wire errors {w['errors']}, cold boots "
+          f"{rec['cold_boots']}, sessions restored "
+          f"{rec['sessions_restored']}, windows requeued "
+          f"{rec['windows_requeued']}, checkpoints {rec['checkpoints']} in "
+          f"{rec['checkpoint_s']:.3f} s, quiesced preps "
+          f"{rec['quiesced_preps']}, watchdog retries "
+          f"{stats['scheduler']['watchdog_retries']}")
+    print(f"[smoke] path G restarted daemon's launches {k['launches']} "
+          f"(fused lanes {k['lanes']}); plain-version runs {k['plain']}")
+    if rec["cold_boots"] < 1 or rec["sessions_restored"] != len(tenants):
+        fail(f"path G: recovery {rec}")
+    for name in REQUIRED_G:
+        if k["launches"].get(name, 0) <= 0:
+            fail(f"path G: the restarted daemon launched no {name}")
+    if k["plain"] or k["plain_lanes"]:
+        fail(f"path G: the daemon ran plain versions {k['plain']}")
+    if stats["scheduler"]["watchdog_retries"]:
+        fail(f"path G: the watchdog retried "
+             f"{stats['scheduler']['watchdog_retries']} steps")
+    if "internal" in w["errors"] or "[wire] unexpected failure" in text:
+        fail(f"path G: an unexpected failure in the daemon (wire errors "
+             f"{w['errors']})")
+    if code != 0 or (data / "daemon.pid").exists():
+        fail(f"path G: SIGTERM ended the daemon with {code}")
+    if builds() != built:
+        fail(f"path G: the daemons built kernels: "
+             f"{sorted(set(builds()) - set(built))}")
+
+    t0 = time.perf_counter()
+    split = []  # one checkpoint's parts, per session, at its last window
+    for sid, _, wins in tenants:
+        alone = MiningSession(sid, cfg, device="cuda")
+        for j, win in enumerate(wins):
+            alone.enqueue(win, final=j == len(wins) - 1)
+        while alone.queue_depth:
+            prep = alone.prepare()
+            alone.commit(prep, alone.execute(prep))
+        split.append(checkpoint_split(alone))
+        want = [delta_payload(d) for d in alone.poll()]
+        _, _, seen = rows[sid]
+        got = [seen[j][1] for j in sorted(seen)]
+        if sorted(seen) != list(range(len(wins))) or got != want:
+            fail(f"path G {sid}: windows {sorted(seen)} differ from a "
+                 f"standalone session on the card")
+    print(f"[smoke] path G: every session's deltas equal a standalone "
+          f"session on the card ({time.perf_counter() - t0:.1f} s); the "
+          f"daemons built nothing; SIGTERM exit 0, pidfile removed")
+    print("[smoke] path G one session's checkpoint after its last window "
+          "(leaves, bytes, state_dict s, save s with its state_dict): "
+          + "; ".join(
+              f"{n}, {b}, {sd:.3f}, {sv:.3f}" for n, b, sd, sv in split))
+    return k["launches"]
+
+
+def checkpoint_split(session):
+    """(leaves, bytes, seconds of ``state_dict``, seconds of ``save``) of one
+    checkpoint of ``session``, written to a scratch directory: what the
+    daemon's ``--checkpoint-every 1`` pays per session and pump step,
+    split into the state's copy to the host and the fsync'd files."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="ckpt")
+    try:
+        t0 = time.perf_counter()
+        state = session.state_dict()
+        t1 = time.perf_counter()
+        session.save(tmp)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nbytes = sum(getattr(v, "nbytes", 0) for v in state.values())
+    return len(state), nbytes, t1 - t0, t2 - t1
+
+
 def service_busy(torch, tenants, n_warm=3):
     """Device busy share of one steady step of the path-C service: the
     26-channel sessions take ``n_warm`` windows each, then one more step
@@ -2354,6 +2630,9 @@ def main() -> int:
     print(f"[smoke] path F: largest K6d group (lanes, episodes) "
           f"{recorder_f.sizes}")
     print(f"[smoke] phase 3 path F: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(daemon_path(np, torch, tally, args.lcap))
+    print(f"[smoke] phase 3 path G: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():

@@ -13,8 +13,9 @@ from the newest one.
 A state dict's keys are its leaves' key paths, in sorted order, as
 ``jax.tree_util`` flattens a dict. One process writes every leaf: its
 index is 0 (the reference's ``jax.process_index()`` on a single host).
-The reference's ``read_leaf`` and ``prune`` serve its daemon and come with
-that slice.
+``read_leaf`` fetches one leaf without the rest (the wire server's
+``wire/last_seq``), and ``prune`` bounds a daemon's store to its newest
+checkpoints.
 """
 
 from __future__ import annotations
@@ -85,6 +86,52 @@ def latest_step(root: str | os.PathLike) -> int | None:
                 and (d / "MANIFEST.json").exists():
             steps.append(int(d.name.split("_")[1]))
     return max(steps) if steps else None
+
+
+def read_leaf(root: str | os.PathLike, key: str, step: int | None = None,
+              default=None):
+    """Read one leaf of a complete checkpoint by its key, without loading
+    the rest. The wire server's boot recovery fetches transport-layer
+    leaves (``wire/last_seq``) this way: they ride in the session
+    checkpoint but are not part of the session's ``load_state_dict``
+    contract. Returns ``default`` when the key (or any complete
+    checkpoint) is absent."""
+    root = Path(root)
+    if step is None:
+        step = latest_step(root)
+    if step is None:
+        return default
+    d = root / f"step_{step:08d}"
+    manifest = json.loads((d / "MANIFEST.json").read_text())
+    for e in manifest["leaves"]:
+        if e["key"] == key:
+            return np.load(d / e["file"])
+    return default
+
+
+def prune(root: str | os.PathLike, keep: int = 2) -> int:
+    """Delete all but the newest ``keep`` complete checkpoints under
+    ``root`` (plus any torn ``.tmp`` debris). A daemon checkpointing
+    every committed window would otherwise grow the store without bound.
+    Returns directories removed."""
+    root = Path(root)
+    if not root.exists():
+        return 0
+    removed = 0
+    complete = []
+    for d in root.iterdir():
+        if not d.is_dir():
+            continue
+        if d.name.endswith(".tmp"):
+            shutil.rmtree(d, ignore_errors=True)
+            removed += 1
+        elif d.name.startswith("step_") and (d / "MANIFEST.json").exists():
+            complete.append(d)
+    complete.sort(key=lambda d: int(d.name.split("_")[1]))
+    for d in complete[:-keep] if keep else complete:
+        shutil.rmtree(d, ignore_errors=True)
+        removed += 1
+    return removed
 
 
 def restore(root: str | os.PathLike, keys, step: int | None = None,

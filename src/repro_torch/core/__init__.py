@@ -9,6 +9,8 @@ Public API:
   mapconcatenate(_kernel)   — segment-parallel MapConcatenate (§5.2.2)
   mapconcatenate_sharded(_kernel), stream_mesh — its multi-device form
   mine / mine_partitions    — level-wise miner, streaming windows
+  count_windows             — the WINEPI window-count baseline
+  reconstruct               — functional connectivity from mined episodes
 """
 
 from .candidates import join_next_level, level1, level2
@@ -25,12 +27,14 @@ from .mapconcat import (concatenate_tree, data_mesh, fold_pair,
                         mapconcatenate_sharded_kernel, phase_cum,
                         shard_device_count, stitch_zones, stream_mesh)
 from .miner import LevelStats, MiningResult, mine, mine_partitions
+from .connectivity import ConnectivityGraph, reconstruct
 from .ref import (count_a1_sequential, count_a2_sequential,
                   count_occurrences_naive)
 from .streaming import (StagedWindow, StreamingA2Counter, StreamingCounter,
                         StreamingMiner, bucket_size)
 from .twopass import (TwoPassResult, TwoPassState, count_one_pass,
                       count_two_pass)
+from .windows import count_windows, frequency_windows
 
 __all__ = [
     "EventStream", "EpisodeBatch", "PAD_TYPE", "TIME_NEG_INF",
@@ -50,4 +54,6 @@ __all__ = [
     "StagedWindow", "bucket_size",
     "level1", "level2", "join_next_level",
     "count_a1_sequential", "count_a2_sequential", "count_occurrences_naive",
+    "count_windows", "frequency_windows", "reconstruct",
+    "ConnectivityGraph",
 ]

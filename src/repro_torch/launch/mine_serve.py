@@ -1,5 +1,5 @@
-"""Multi-tenant mining service launcher (PyTorch port of the in-process demo
-of ``repro.launch.mine_serve``) — many electrode-array sessions on one
+"""Multi-tenant mining service launcher (PyTorch port of
+``repro.launch.mine_serve``) — many electrode-array sessions on one
 shared card, per-window frequent-episode deltas per session.
 
 Simulates the paper's chip-on-chip loop at fleet scale: N synthetic MEA
@@ -15,16 +15,24 @@ their plain PyTorch versions). ``--engine mapconcat_sharded`` (or
 mesh — every card, or the devices ``core.mapconcat.stream_mesh`` fixes
 around ``main`` — with fused commits through K6d.
 
-Not ported yet: the wire-served daemon (``--listen``, ``--daemon``,
-``--daemon-status``, ``--daemon-stop``, ``--data-dir``,
-``--checkpoint-every``), calibrated dispatch (``--calibrate``,
-``--policy-table``) and the device profile capture (``--profile-dir``).
+Service mode (``--listen``) skips the in-process demo loop and serves the
+fault-tolerant wire protocol instead (see service/wire.py); add
+``--daemon`` to detach, then drive it with ``--daemon-status`` /
+``--daemon-stop`` or the ``repro_torch.launch.wire_load`` load generator.
+Not ported yet: calibrated dispatch (the reference's ``--calibrate`` and
+``--policy-table``) and its device profile capture (``--profile-dir``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.mine_serve --sessions 4 \
       --seconds 10 --theta 4 --max-level 3
   PYTHONPATH=src python -m repro_torch.launch.mine_serve --device cpu \
       --sessions 3 --seconds 6
+  PYTHONPATH=src python -m repro_torch.launch.mine_serve \
+      --listen unix:/tmp/fem.sock --daemon --data-dir /tmp/fem-data
+  PYTHONPATH=src python -m repro_torch.launch.wire_load \
+      --connect unix:/tmp/fem.sock --sessions 4 --seconds 10 --verify
+  PYTHONPATH=src python -m repro_torch.launch.mine_serve \
+      --daemon-stop --data-dir /tmp/fem-data
 """
 
 from __future__ import annotations
@@ -47,6 +55,39 @@ def _print_deltas(svc, max_level, limit=2):
             tail = " FINAL" if d.final else ""
             print(f"[serve] {sid} window {d.window_idx:3d} "
                   f"({d.n_events:4d} ev) top-L{max_level}: {top}{tail}")
+
+
+def _service_mode(args) -> int:
+    """--listen/--daemon-*: run (or manage) the wire-served daemon."""
+    from repro_torch.service.daemon import DaemonConfig, MiningDaemon
+
+    cfg = DaemonConfig(
+        address=args.listen or "127.0.0.1:0", data_dir=args.data_dir,
+        checkpoint_every=args.checkpoint_every,
+        max_sessions=max(args.sessions, 1), queue_depth=args.queue_depth,
+        pipeline_depth=args.pipeline_depth,
+        batching=not args.no_batching, device=args.device)
+    if args.daemon_status:
+        doc = MiningDaemon.status(cfg.pidfile_path)
+        if doc is None:
+            print(f"[serve] no daemon (pidfile {cfg.pidfile_path})")
+            return 1
+        print(f"[serve] daemon pid {doc['pid']} on {doc['address']} "
+              f"(data: {doc['data_dir']})")
+        return 0
+    if args.daemon_stop:
+        ok = MiningDaemon.stop(cfg.pidfile_path)
+        print("[serve] daemon stopped." if ok
+              else "[serve] daemon did not stop in time.")
+        return 0 if ok else 1
+    daemon = MiningDaemon(cfg)
+    if args.daemon:
+        doc = daemon.start_detached()
+        print(f"[serve] daemon pid {doc['pid']} on {doc['address']} "
+              f"(data: {doc['data_dir']})")
+        return 0
+    daemon.run()
+    return 0
 
 
 def main(argv=None):
@@ -91,7 +132,28 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the final metrics-registry snapshot "
                          "(flat JSON) after the run")
+    ap.add_argument("--listen", default=None, metavar="ADDR",
+                    help='serve the wire protocol on "host:port" or '
+                         '"unix:/path" instead of the in-process demo '
+                         "(foreground unless --daemon)")
+    ap.add_argument("--daemon", action="store_true",
+                    help="with --listen: detach and run as a daemon "
+                         "(pidfile + log under --data-dir)")
+    ap.add_argument("--data-dir", default="serve-data", metavar="DIR",
+                    help="checkpoint/recovery store for --listen mode")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    metavar="N",
+                    help="checkpoint every N committed windows (1 = "
+                         "exact recovery at every window boundary)")
+    ap.add_argument("--daemon-status", action="store_true",
+                    help="report the daemon behind --data-dir and exit")
+    ap.add_argument("--daemon-stop", action="store_true",
+                    help="SIGTERM the daemon behind --data-dir (graceful "
+                         "drain + checkpoint) and exit")
     args = ap.parse_args(argv)
+
+    if args.daemon_status or args.daemon_stop or args.listen:
+        return _service_mode(args)
 
     svc = MiningService(
         policy=SchedulerPolicy(max_sessions=max(args.sessions, 1),

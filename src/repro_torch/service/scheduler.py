@@ -49,7 +49,7 @@ from collections import deque
 
 from repro_torch.core.events import EventStream
 from repro_torch.obs import REGISTRY, span
-from repro_torch.runtime.ft import StepWatchdog, WatchdogConfig
+from repro_torch.runtime.ft import StepFailure, StepWatchdog, WatchdogConfig
 
 from .session import MiningSession, PreparedStep, SessionConfig, WindowDelta
 
@@ -80,6 +80,11 @@ class SchedulerPolicy:
     # Gate fusion on the batcher's measured cost model; off = always
     # fuse multi-lane groups (the pre-cost-model behavior).
     fusion_gate: bool = True
+    # Pre-step state snapshots make retry sound but copy every chosen
+    # session's machine state to host each step; disable to trade retry
+    # capability (a failed step then surfaces as StepFailure immediately)
+    # for a leaner hot path.
+    retry_snapshots: bool = True
     # Safety-net flush for a parked group whose predicted member never
     # arrives (stale membership prediction after a tenant's phase change).
     flush_deadline_s: float = 0.5
@@ -226,7 +231,7 @@ class RoundRobinScheduler:
         if need:
             with span("schedule.snapshot", sessions=len(need)):
                 for s in need:
-                    prep = s.prepare()
+                    prep = s.prepare(snapshot=self.policy.retry_snapshots)
                     if prep is not None:
                         staged[s.session_id] = prep
                         order.append(s)
@@ -253,14 +258,23 @@ class RoundRobinScheduler:
         # already popped this step's windows, so queue depths and the
         # rotated _rr are exactly what _choose would see afterwards.
         next_plan = ([s.session_id for s in self._choose()] if pipelined else [])
-        attempt = [0]
+        if not self.policy.retry_snapshots:
+            def runner():
+                try:
+                    return self._run_batch(staged, order, next_plan)
+                except Exception as e:
+                    raise StepFailure(
+                        f"step {self.steps} failed and retry_snapshots is "
+                        "off (no safe state to rewind to)") from e
+        else:
+            attempt = [0]
 
-        def runner():
-            if attempt[0]:  # retry: rewind every lane to its snapshot
-                REGISTRY.counter("scheduler_watchdog_retries_total").inc()
-                self._rewind(staged, order)
-            attempt[0] += 1
-            return self._run_batch(staged, order, next_plan)
+            def runner():
+                if attempt[0]:  # retry: rewind every lane to its snapshot
+                    REGISTRY.counter("scheduler_watchdog_retries_total").inc()
+                    self._rewind(staged, order)
+                attempt[0] += 1
+                return self._run_batch(staged, order, next_plan)
         try:
             out = self.watchdog.run_step(self.steps, runner)
         except Exception:
@@ -298,7 +312,34 @@ class RoundRobinScheduler:
             s.meter.abort()
             s.load_state_dict(prep.snapshot)
             s.staged_count = 0  # every pop was undone by the restore
-            staged[s.session_id] = s.prepare()
+            staged[s.session_id] = s.prepare(snapshot=True)
+
+    def quiesce(self) -> int:
+        """Return every double-buffered prepared step to its session's
+        queue and drop the pipeline plan. Returns preps unstaged.
+
+        This is the graceful-shutdown ordering fix: a prepared-but-
+        uncommitted step's window lives in *neither* the session's
+        pending queue nor the miner's machine state, so a checkpoint
+        taken while it is staged would silently lose that window — and a
+        restart would mine a stream with a hole in it. Every external
+        checkpoint (SIGTERM drain, daemon periodic checkpoint, operator
+        ``checkpoint`` control frame) must quiesce first; the unstaged
+        windows land back at the front of their queues and are captured
+        by ``state_dict`` like any other pending work, so restart
+        replays them exactly once."""
+        n = 0
+        for sid, prep in list(self._staged.items()):
+            s = self.sessions.get(sid)
+            if s is not None:
+                s.unstage(prep)
+                n += 1
+        self._staged.clear()
+        self._plan = []
+        if n:
+            REGISTRY.counter("scheduler_quiesced_preps_total").inc(n)
+        REGISTRY.gauge("scheduler_queue_depth").set(self.pending_windows)
+        return n
 
     def drain(self, max_steps: int = 10_000) -> int:
         """Step until no session has pending windows; returns steps run."""
@@ -344,7 +385,7 @@ class RoundRobinScheduler:
                 # lanes still hold the device
                 t0 = time.perf_counter()
                 with span("schedule.stage", session=sid):
-                    nprep = s.prepare()
+                    nprep = s.prepare(snapshot=self.policy.retry_snapshots)
                 if nprep is not None:
                     self._staged[sid] = nprep
                     overlaps.append(time.perf_counter() - t0)

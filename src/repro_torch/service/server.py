@@ -33,14 +33,14 @@ Usage::
 The reference counts XLA recompiles from the start of serving
 (``ensure_recompile_listener``); the port compiles nothing while it serves
 (its kernels are built once, before the first launch), so it has no
-counterpart. The reference's ``checkpoint_all`` (with the scheduler's
-``quiesce``) serves its daemon and comes with that slice; a session
-checkpoints on its own through ``MiningSession.save``.
+counterpart. ``checkpoint_all`` (the wire server's and the daemon's
+durable cut) quiesces the scheduler first, then saves every session.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 
 from repro_torch.core.events import EventStream
 from repro_torch.core.mapconcat import shard_device_count
@@ -111,6 +111,34 @@ class MiningService:
         """Per-window frequent-episode deltas mined since the last poll."""
         return self.scheduler.session(session_id).poll(max_items)
 
+    # ------------------------------------------------------- durability
+
+    def checkpoint_all(self, root, extra=None) -> dict:
+        """Checkpoint every session's full state atomically to
+        ``root/<session_id>/`` — after quiescing the pipeline.
+
+        Ordering matters: with ``pipeline_depth > 1`` the scheduler may
+        hold prepared-but-uncommitted next-step windows that live in
+        neither a session's pending queue nor its miner state. They are
+        unstaged *first* (``scheduler.quiesce``) so every checkpoint
+        captures them as pending work — a restart replays each window
+        exactly once, never zero times (lost) and never twice
+        (double-counted). ``extra(session_id)`` may contribute
+        transport-layer leaves (the wire server's dedup sequence number)
+        to the same atomic snapshot. The host seconds it takes (the
+        sessions' state copied off the card and written) accumulate in
+        ``service_checkpoint_seconds_total``. Returns {session_id: path}."""
+        t0 = time.perf_counter()
+        self.scheduler.quiesce()
+        paths = {}
+        with span("service.checkpoint", sessions=len(self.scheduler.sessions)):
+            for sid, s in self.scheduler.sessions.items():
+                paths[sid] = s.save(root, extra=None if extra is None else extra(sid))
+                REGISTRY.counter("service_checkpoints_total").inc()
+        REGISTRY.counter("service_checkpoint_seconds_total").inc(
+            time.perf_counter() - t0)
+        return paths
+
     # ------------------------------------------------------------ stats
 
     def stats(self) -> dict:
@@ -118,8 +146,10 @@ class MiningService:
         latency percentiles with the cross-session aggregate (the meters'
         exact rows), the scheduler's and the batcher's counters, and the
         kernel block — CUDA launches, plain-version runs and fused lanes
-        per kernel from ``kernels.tally``. ``metrics`` is the full flat
-        registry snapshot the structured fields are drawn from."""
+        per kernel from ``kernels.tally``; the wire transport's, the
+        recovery plane's and the daemon's blocks carry the reference's
+        registry counters. ``metrics`` is the full flat registry snapshot
+        the structured fields are drawn from."""
         bank = MeterBank()
         for sid, s in self.scheduler.sessions.items():
             bank.meters[sid] = s.meter
@@ -151,6 +181,45 @@ class MiningService:
                 "fusion_gate": dict(self.batcher.gate_decisions),
                 "lanes_per_launch": dict(self.batcher.lanes_per_launch),
             }
+        out["wire"] = {
+            "connections": int(REGISTRY.gauge("wire_connections").value),
+            "connections_total": int(
+                REGISTRY.counter("wire_connections_total").value),
+            "frames_rx": int(
+                REGISTRY.counter("wire_frames_total", dir="rx").value),
+            "frames_tx": int(
+                REGISTRY.counter("wire_frames_total", dir="tx").value),
+            "bytes_rx": int(
+                REGISTRY.counter("wire_bytes_total", dir="rx").value),
+            "bytes_tx": int(
+                REGISTRY.counter("wire_bytes_total", dir="tx").value),
+            "backpressure": int(
+                REGISTRY.counter("wire_backpressure_total").value),
+            "dedup_hits": int(REGISTRY.counter("wire_dedup_hits_total").value),
+            "out_of_order": int(
+                REGISTRY.counter("wire_out_of_order_total").value),
+            "errors": {
+                labels.get("code", "?"): int(m.value)
+                for labels, m in REGISTRY.family_items("wire_errors_total")
+            },
+        }
+        out["recovery"] = {
+            "cold_boots": int(REGISTRY.counter("recovery_boots_total").value),
+            "sessions_restored": int(
+                REGISTRY.counter("recovery_sessions_total").value),
+            "windows_requeued": int(
+                REGISTRY.counter("recovery_windows_requeued_total").value),
+            "checkpoints": int(
+                REGISTRY.counter("service_checkpoints_total").value),
+            "checkpoint_s": float(
+                REGISTRY.counter("service_checkpoint_seconds_total").value),
+            "quiesced_preps": int(
+                REGISTRY.counter("scheduler_quiesced_preps_total").value),
+        }
+        out["daemon"] = {
+            "heartbeat_ts": float(REGISTRY.gauge("daemon_heartbeat_ts").value),
+            "uptime_s": float(REGISTRY.gauge("daemon_uptime_s").value),
+        }
         # the devices the sessions' segment-parallel commits shard over
         # (``core.mapconcat.stream_mesh``; 1: none shard)
         out["mesh_devices"] = shard_device_count(self.device)

@@ -316,15 +316,26 @@ class MiningSession:
 
     # ------------------------------------------------- durable snapshots
 
-    def save(self, root: str | Path, step: int | None = None) -> Path:
+    def save(self, root: str | Path, step: int | None = None,
+             extra: dict | None = None) -> Path:
         """Atomic on-disk checkpoint through ``checkpoint.ckpt`` (two-phase
         rename protocol; a crash leaves a complete checkpoint or none), in
-        the reference's format: either package restores it."""
+        the reference's format: either package restores it.
+
+        ``extra`` adds transport-layer leaves (e.g. the wire server's
+        ``wire/last_seq`` ingest sequence number) to the same atomic
+        checkpoint, so the durable mining state and the durable dedup
+        horizon can never disagree after a crash. ``load_state_dict``
+        ignores unknown keys; readers fetch them via
+        ``checkpoint.ckpt.read_leaf``."""
         step = self.windows_done if step is None else step
+        d = self.state_dict()
+        if extra:
+            d.update({k: np.asarray(v) for k, v in extra.items()})
         return ckpt.save(
             Path(root) / self.session_id,
             step,
-            self.state_dict(),
+            d,
             config_hash=ckpt.config_fingerprint(self.config),
         )
 

@@ -654,3 +654,73 @@ def test_streaming_sharded_on_card_equals_unsharded(card):
     launches = tally.launch_counts()
     assert launches[k_a1.SHARD_KERNEL] > 0
     assert launches[k_a2.SHARD_FOLD] > 0
+
+
+@pytest.mark.cuda
+def test_daemon_on_card_survives_sigkill(card, tmp_path):
+    """One SIGKILL, restart and resume of a port daemon on the card
+    (``hybrid``, two-pass; the reference's 200-event tie-heavy stream over
+    5 types in 5 windows, killed at the reference's kill point for this
+    case): the per-window deltas equal a standalone session on the card
+    bit for bit, and the restarted daemon ran no plain version."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from repro_torch.runtime import kill_point
+    from repro_torch.service import MiningClient, MiningSession, SessionConfig
+    from repro_torch.service.wire import delta_payload
+
+    rng = np.random.default_rng(17)
+    times = (np.cumsum(rng.choice([0, 0, 1, 2], size=200)) + 1).astype(
+        np.int32)
+    types = rng.integers(0, 5, size=200).astype(np.int32)
+    wins = [EventStream(types[a:b], times[a:b], 5)
+            for a, b in zip(range(0, 200, 40), range(40, 201, 40))]
+    cfg = SessionConfig(intervals=((0, 4),), theta=3, max_level=3,
+                        engine="hybrid", two_pass=True, history_limit=4)
+    crash_at = kill_point(102, 1, len(wins))
+    sock_dir = Path(tempfile.mkdtemp(prefix="fem"))
+    data, log = tmp_path / "data", tmp_path / "daemon.out"
+    proc, _ = chip_smoke.start_daemon(data, sock_dir / "d.sock", log,
+                                      crash_after=crash_at)
+    procs, crashed = [proc], threading.Event()
+
+    def supervise():
+        proc.wait()
+        if proc.returncode == -signal.SIGKILL:
+            crashed.set()
+            procs.append(chip_smoke.start_daemon(data, sock_dir / "d.sock",
+                                                 log)[0])
+
+    sup = threading.Thread(target=supervise, daemon=True)
+    sup.start()
+    try:
+        c = MiningClient(f"unix:{sock_dir / 'd.sock'}", "kill", cfg,
+                         rng_seed=102, deadline_s=240.0)
+        for j, w in enumerate(wins):
+            c.submit(w, final=j == len(wins) - 1)
+        got = sorted(c.drain(deadline_s=240), key=lambda d: d["window_idx"])
+        sup.join(timeout=240)
+        assert crashed.is_set(), log.read_text()
+        stats = c.stats()
+        c.close_session()
+        procs[-1].send_signal(signal.SIGTERM)
+        assert procs[-1].wait(timeout=120) == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    alone = MiningSession("alone", cfg, device=card)
+    for j, w in enumerate(wins):
+        alone.enqueue(w, final=j == len(wins) - 1)
+    while alone.queue_depth:
+        prep = alone.prepare()
+        alone.commit(prep, alone.execute(prep))
+    assert got == [delta_payload(d) for d in alone.poll()]
+    assert stats["recovery"]["cold_boots"] == 1
+    assert stats["kernel"]["launches"] and stats["kernel"]["plain"] == {}
+    assert "[wire] unexpected failure" not in log.read_text()

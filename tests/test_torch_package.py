@@ -64,12 +64,33 @@ def _tiny():
     return stream, eps
 
 
+def _wire_load_on_cpu(tmp_path):
+    """``run_load(verify=True)`` against a port server, both on the CPU."""
+    from repro_torch.launch.wire_load import run_load
+    from repro_torch.service import MiningService, WireServer
+    srv = WireServer(MiningService(device="cpu"), "127.0.0.1:0",
+                     data_dir=tmp_path / "d")
+    srv.start()
+    try:
+        report = run_load(srv.address, sessions=1, seconds=2, max_level=2,
+                          verify=True, device="cpu", deadline_s=120.0)
+    finally:
+        srv.shutdown(drain=False)
+    assert srv.unexpected == []
+    assert report["ok"] and report["sessions"]["array-0"]["verified"]
+
+
 @pytest.mark.parametrize("entry", ["miner", "counter", "mine", "count_a1",
-                                   "count_a2", "two_pass"])
+                                   "count_a2", "two_pass", "wire_server",
+                                   "daemon", "wire_load"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
-                                                           entry):
+                                                           tmp_path, entry):
+    from repro_torch.launch.wire_load import run_load
+    from repro_torch.service import (DaemonConfig, MiningDaemon,
+                                     MiningService, WireServer)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     stream, eps = _tiny()
+    data = str(tmp_path / "data")
     calls = {
         "miner": lambda: StreamingMiner([(1, 5)], 1),
         "counter": lambda: StreamingCounter(eps),
@@ -77,11 +98,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "count_a1": lambda: count_a1(stream, eps),
         "count_a2": lambda: count_a2(stream, eps),
         "two_pass": lambda: count_two_pass(stream, eps, 1),
+        "wire_server": lambda: WireServer(MiningService()),
+        "daemon": lambda: MiningDaemon(DaemonConfig(data_dir=data)),
+        # raises before it connects: no server listens here
+        "wire_load": lambda: run_load("127.0.0.1:9", verify=True),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
     # the same call on an explicit CPU device runs the plain path
-    assert count_a1(stream, eps, device="cpu").tolist() == [2]
+    on_cpu = {
+        "wire_server": lambda: WireServer(MiningService(device="cpu")),
+        "daemon": lambda: MiningDaemon(DaemonConfig(data_dir=data,
+                                                    device="cpu")),
+        "wire_load": lambda: _wire_load_on_cpu(tmp_path),
+    }
+    if entry in on_cpu:
+        on_cpu[entry]()
+    else:
+        assert count_a1(stream, eps, device="cpu").tolist() == [2]
 
 
 @pytest.mark.parametrize("engine", ["mapconcat_sharded"])
