@@ -98,6 +98,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      client, restart seconds, reconnects, faults, dedup hits and the
      checkpoints' count and seconds (one session's checkpoint split into
      its state copy and its files);
+   - path H, calibrated dispatch: the card's copy rate (``measure_hw``:
+     ``hbm_bw``, and ``ici_bw``, the same copy on one card), the
+     reference's full calibration grid (N 2, 3, 5 × M 16, 128, 512 × n
+     1024, 4096 × q 1, 4, 8, 3 repeats, 1 warm-up) fitted on the card
+     (fingerprint, engines, points, seconds, relative fit error); fig7's
+     rows (Sym26 20 s, N 2–6 × M 16 and 512, the benchmark's random
+     candidates, the main path's LCAP) with ptpe, mapconcatenate, mapconcat_kernel and hybrid
+     timed interleaved (2 warm-ups, median of 7 rounds), under the Eq. 2
+     heuristic, then with the table: each engine's time, hybrid's engine
+     and source, and the regret t(hybrid) / the fastest engine's (the
+     reference's target 1.1 is recorded, not enforced); every count equal
+     across engines and policies, every calibrated choice an engine the
+     card runs, the installed table the one ``get_policy()`` returns;
+     path A's miner with the table: every window equal to path A's if
+     the table kept path A's engines per counter (a counter moved to the
+     other engine moves per-window deltas: the segment-parallel commits
+     trail the window by W, in the reference too), else the first 2
+     windows equal to the CPU plain path under the same table; engines per
+     level and segment count per commit beside path A's, ev/s and p99
+     beside path A's, no plain version; ``mine_serve`` on the
+     card (3 sessions, 10 s) with ``--policy-table`` and ``--profile-dir``:
+     a calibrated decision, and one captured step whose trace names a
+     ``kernel:`` range and a K6a/K6b/K1/K2 kernel; the policy is cleared
+     after, so every other path runs on the heuristic;
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -135,6 +159,7 @@ import argparse
 import collections
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -248,6 +273,27 @@ DAEMON_FAULTS = {"seed": 7, "drop": 0.05, "duplicate": 0.05,
 DAEMON_KILL = (19, 4, 16)
 REQUIRED_G = ("a2_state_vmapped", "a1_state_vmapped")
 DAEMON_DEADLINE_S = 300.0
+# path H, calibrated dispatch: fig7's rows (a Sym26 stream, N x M, random
+# candidates seeded as ``benchmarks/fig7_mapping.py`` seeds them), each
+# engine timed interleaved, FIG7_WARMUP warm-ups, then the median of
+# FIG7_ROUNDS rounds; the reference's regret target (recorded, not a gate);
+# the service run with the table and one captured step; the kernels a
+# captured service step may name (K6a/K6b, K1/K2)
+FIG7_SECONDS = 20
+FIG7_N = (2, 3, 4, 5, 6)
+FIG7_M = (16, 512)
+FIG7_ENGINES = ("ptpe", "mapconcatenate", "mapconcat_kernel", "hybrid")
+FIG7_WARMUP = 2
+FIG7_ROUNDS = 7
+REGRET_TARGET = 1.1
+SERVE_H = ["--sessions", "3", "--seconds", "10"]
+STEP_KERNELS = ("a2_lanes_kernel", "a1_lanes_kernel", "a2_state_kernel",
+                "a1_state_kernel")
+# the prefix of the kernel entry points' profiler ranges
+# (``obs.torchprof.annotate``): on the card the profiler also records each
+# as a device-side range over its kernels, which is no device work of its
+# own and is left out of every device-time sum and launch count
+ANNOTATION = "kernel:"
 # the single kernel whose per-lane launches a fused kernel replaces
 SINGLE_OF = {"a2_state_vmapped": "a2_count_state",
              "a1_state_vmapped": "a1_count_state",
@@ -996,7 +1042,7 @@ def span_totals(TRACER) -> dict[str, tuple[float, int, int]]:
 
 
 def main_path(np, torch, tally, name, num_types, seconds, lcap, engine,
-              check_windows):
+              check_windows, required=None):
     from repro_torch.core import StreamingMiner
     from repro_torch.data import partition_windows, sym26
     from repro_torch.obs import TRACER
@@ -1063,13 +1109,15 @@ def main_path(np, torch, tally, name, num_types, seconds, lcap, engine,
     print(f"[smoke] {name} launches: {launches} "
           f"({ {k: round(v / len(windows), 1) for k, v in launches.items()} }"
           f" per window)")
-    for k in REQUIRED[engine]:
+    for k in required or REQUIRED[engine]:
         if launches.get(k, 0) <= 0:
             fail(f"{name}: the main path launched no {k}")
     for chain in PLANTED:
         if tuple(chain) not in found:
             fail(f"{name}: planted chain {chain} not found")
     print(f"[smoke] {name}: planted chains {list(PLANTED)} found")
+    if not check_windows:
+        return miner, windows, launches, s, results
 
     # the first windows against the port's CPU plain path
     t0 = time.perf_counter()
@@ -1740,6 +1788,319 @@ def daemon_path(np, torch, tally, lcap):
     return k["launches"]
 
 
+# ----------------------------------------------- path H: calibrated dispatch
+
+
+@contextlib.contextmanager
+def record_segments(calibrate):
+    """Log every streaming commit's segment choice (N, M, q, source) while
+    the block runs; the choice itself is unchanged."""
+    log = []
+    orig = calibrate.DispatchPolicy.choose_segments
+
+    def spy(self, candidates, **kw):
+        got = orig(self, candidates, **kw)
+        log.append((kw["n_episode"], kw["m"], got[0], got[1]))
+        return got
+    calibrate.DispatchPolicy.choose_segments = spy
+    try:
+        yield log
+    finally:
+        calibrate.DispatchPolicy.choose_segments = orig
+
+
+def fig7_candidates(np, EpisodeBatch, m, n, seed):
+    """``benchmarks/common.random_candidates`` (copied: the benchmarks
+    import the reference): M random N-node candidates over 26 types,
+    interval (5, 10]."""
+    rng = np.random.default_rng(seed)
+    et = rng.integers(0, 26, size=(m, n)).astype(np.int32)
+    tlo = np.full((m, n - 1), INTERVAL[0], np.int32)
+    thi = np.full((m, n - 1), INTERVAL[1], np.int32)
+    return EpisodeBatch(et, tlo, thi)
+
+
+def timeit_group(fns, rounds, warmup):
+    """``benchmarks/common.timeit_group``'s method (copied): every callable
+    warmed up, then timed round robin (A B C D A B C D ...), so that each
+    round shares one contention window; the median per callable. Returns
+    ({name: seconds}, {name: its last result})."""
+    last = {}
+    for k, fn in fns.items():
+        for _ in range(warmup):
+            last[k] = fn()
+    ts = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            last[k] = fn()
+            ts[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) for k, v in ts.items()}, last
+
+
+def fig7_rows(np, calibrate, hybrid, stream, batches, lcap, label):
+    """Time fig7's rows under the installed policy: each engine's median
+    seconds, what ``hybrid`` chose and on whose authority, the regret
+    t(hybrid) / min(t(ptpe), t(mapconcatenate), t(mapconcat_kernel)), and
+    the counts (equal across engines, or the run fails). The rows run at
+    the main path's LCAP: at the default 4, Sym26's bursts flag episodes
+    whose exact recount by the sequential oracle on the host costs every
+    engine alike and hides the dispatch."""
+    from repro_torch.core import count_dispatch
+
+    runnable = calibrate.available_engines("cuda")
+    pol = calibrate.get_policy()
+    rows = {}
+    for (n, m), eps in batches.items():
+        fns = {e: (lambda e=e: np.asarray(count_dispatch(
+            stream, eps, engine=e, lcap=lcap, device="cuda")))
+            for e in FIG7_ENGINES}
+        ts, outs = timeit_group(fns, FIG7_ROUNDS, FIG7_WARMUP)
+        for e in FIG7_ENGINES:
+            if not np.array_equal(outs[e], outs["ptpe"]):
+                fail(f"path H {label} N{n}_M{m}: {e} counts differ from "
+                     "ptpe's")
+        choice = pol.choose(n_events=len(stream), n_episode=n, m=m,
+                            shard_devices=hybrid.shard_devices("cuda"),
+                            device="cuda")
+        if choice.engine not in runnable:
+            fail(f"path H {label} N{n}_M{m}: hybrid chose {choice.engine}, "
+                 f"which the card cannot run ({runnable})")
+        best = min(ts[e] for e in FIG7_ENGINES if e != "hybrid")
+        rows[n, m] = {"ms": {e: ts[e] * 1e3 for e in FIG7_ENGINES},
+                      "engine": choice.engine, "q": choice.num_segments,
+                      "source": choice.source,
+                      "regret": ts["hybrid"] / best, "counts": outs["ptpe"]}
+    return rows
+
+
+def check_with_table(np, calibrate, table, windows, results, lcap,
+                     n_windows=2):
+    """Hold path H's first windows against the port's CPU plain path under
+    the same table (relabelled to the host's fingerprint, so that it makes
+    the card's choices); the card's policy is restored after."""
+    import dataclasses
+
+    from repro_torch.core import StreamingMiner
+
+    t0 = time.perf_counter()
+    card = calibrate.get_policy()
+    calibrate.set_policy(calibrate.DispatchPolicy(dataclasses.replace(
+        table, device_kind=calibrate.CPU_FINGERPRINT)))
+    try:
+        cpu = StreamingMiner([INTERVAL], THETA, max_level=MAX_LEVEL,
+                             mode="per_window", engine="hybrid", lcap=lcap,
+                             device="cpu")
+        for i, w in enumerate(windows[:n_windows]):
+            res = cpu.update(w, final=i == len(windows) - 1)
+            if not same_result(res, results[i]):
+                fail(f"path H window {i}: the card with the table differs "
+                     "from the CPU plain path with the table")
+    finally:
+        calibrate.set_policy(card)
+    print(f"[smoke] path H: the table moved engines of path A, so windows "
+          f"move deltas by the segment-parallel commits' W lag; the first "
+          f"{n_windows} equal the CPU plain path with the same table "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def calibrated_path(np, torch, tally, lcap, path_a, smi):
+    """Path H: the calibration plane on the card. (1) ``measure_hw``;
+    (2) the full reference grid fitted on the card (``calibrate_and_save``)
+    into a temporary data directory; (3) fig7's rows under the heuristic,
+    then with the table installed (every count equal across engines and
+    policies, every calibrated choice runnable on the card, the table the
+    one ``get_policy()`` returns); (4) path A's miner with the table, no
+    plain version: every window equal to path A's where the table keeps
+    path A's engines, else (a counter on another engine moves per-window
+    deltas by W) the first windows equal to the CPU plain path under the
+    same table; (5) ``mine_serve`` on the
+    card with ``--policy-table`` and ``--profile-dir``: a calibrated
+    decision, and a trace of one step naming a ``kernel:`` range and a
+    kernel it launched. The policy is cleared after. Returns the path's
+    launch counts."""
+    import glob
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.core import EpisodeBatch, calibrate, hybrid
+    from repro_torch.data import sym26
+    from repro_torch.launch import mine_serve
+    from repro_torch.launch.calibrate import fit_errors, measure_hw
+    from repro_torch.obs import REGISTRY
+
+    got = collections.Counter()
+    tmp = tempfile.mkdtemp(prefix="smoke-cal-")
+    try:
+        calibrate.clear_policy()
+        tally.reset_counts()
+        t0 = time.perf_counter()
+        hw = measure_hw("cuda")
+        print(f"[smoke] path H: measured hbm_bw {hw['hbm_bw'] / 1e12:.4f} "
+              f"TB/s (copy on the card, bytes read + written; spec "
+              f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), ici_bw "
+              f"{hw['ici_bw'] / 1e12:.4f} TB/s (one card: the same copy) "
+              f"in {time.perf_counter() - t0:.2f} s on {smi}")
+        spec = calibrate.GridSpec()
+        t0 = time.perf_counter()
+        table, path = calibrate.calibrate_and_save(
+            spec, hw=hw, data_dir=tmp, device="cuda", install=False)
+        grid_s = time.perf_counter() - t0
+        fp = calibrate.device_fingerprint("cuda")
+        print(f"[smoke] path H: grid fitted on {table.device_kind}: engines "
+              f"{sorted(table.coeffs)}, {len(table.grid)} points "
+              f"({len(spec.points())} (N, M, n, q) cells, "
+              f"{spec.repeats} repeats, {spec.warmup} warm-up) in "
+              f"{grid_s:.1f} s; relative fit error (median) "
+              f"{ {k: round(v, 4) for k, v in fit_errors(table).items()} }")
+        if table.device_kind != fp or \
+                torch.cuda.get_device_name(0) not in fp:
+            fail(f"path H: table fingerprint {table.device_kind} does not "
+                 f"name the card ({fp})")
+        if sorted(table.coeffs) != sorted(calibrate.available_engines(
+                "cuda")):
+            fail(f"path H: fitted {sorted(table.coeffs)}, the card runs "
+                 f"{calibrate.available_engines('cuda')}")
+
+        stream, _ = sym26(seconds=FIG7_SECONDS, seed=0)
+        batches = {(n, m): fig7_candidates(np, EpisodeBatch, m, n,
+                                           n * 100 + m)
+                   for n in FIG7_N for m in FIG7_M}
+        t0 = time.perf_counter()
+        heur = fig7_rows(np, calibrate, hybrid, stream, batches, lcap,
+                         "heuristic")
+        pol = calibrate.install_table(path, device="cuda")
+        if pol.source != "calibrated" or calibrate.get_policy() is not pol \
+                or pol.table.coeffs != table.coeffs \
+                or pol.table.device_kind != table.device_kind:
+            fail("path H: the installed table is not what get_policy() "
+                 "returns")
+        cal = fig7_rows(np, calibrate, hybrid, stream, batches, lcap,
+                        "table")
+        for key in batches:
+            if not np.array_equal(heur[key]["counts"], cal[key]["counts"]):
+                fail(f"path H N{key[0]}_M{key[1]}: counts differ between "
+                     "the policies")
+        print(f"[smoke] path H: fig7 rows, Sym26 {FIG7_SECONDS} s "
+              f"({len(stream)} events), LCAP {lcap}, median of "
+              f"{FIG7_ROUNDS} interleaved "
+              f"rounds after {FIG7_WARMUP} warm-ups, ms "
+              f"({time.perf_counter() - t0:.1f} s):")
+        for (n, m) in batches:
+            h, c = heur[n, m], cal[n, m]
+            print(f"[smoke]   N{n}_M{m}: heuristic ptpe "
+                  f"{h['ms']['ptpe']:.3f}, mapconcatenate "
+                  f"{h['ms']['mapconcatenate']:.3f}, mapconcat_kernel "
+                  f"{h['ms']['mapconcat_kernel']:.3f}, hybrid "
+                  f"{h['ms']['hybrid']:.3f} -> {h['engine']} "
+                  f"({h['source']}) regret {h['regret']:.3f} | table ptpe "
+                  f"{c['ms']['ptpe']:.3f}, mapconcatenate "
+                  f"{c['ms']['mapconcatenate']:.3f}, mapconcat_kernel "
+                  f"{c['ms']['mapconcat_kernel']:.3f}, hybrid "
+                  f"{c['ms']['hybrid']:.3f} -> {c['engine']} q={c['q']} "
+                  f"({c['source']}) regret {c['regret']:.3f}")
+        for label, rows in (("heuristic", heur), ("table", cal)):
+            worst = max(r["regret"] for r in rows.values())
+            print(f"[smoke] path H: {label} regret max {worst:.3f}, "
+                  f"median {statistics.median(r['regret'] for r in rows.values()):.3f}; "
+                  f"rows above {REGRET_TARGET}: "
+                  f"{sum(r['regret'] > REGRET_TARGET for r in rows.values())}"
+                  f" of {len(rows)}")
+        got.update(tally.launch_counts())
+
+        # path A's miner with the table installed
+        with record_segments(calibrate) as qlog:
+            miner, _, launches, summary, results = main_path(
+                np, torch, tally, "path-H-sym26-hybrid-table", 26, 150,
+                lcap, "hybrid", 0, required=("a2_count_state",))
+        got.update(launches)
+        if tally.plain_counts():
+            fail(f"path H: plain versions ran {tally.plain_counts()}")
+        windows_a, results_a, miner_a, summary_a, qlog_a = path_a
+        eng, eng_a = engine_table(miner), engine_table(miner_a)
+        if eng == eng_a:
+            if len(results) != len(results_a) or not all(
+                    same_result(r, ra) for r, ra in zip(results, results_a)):
+                fail("path H: a window with the table differs from path A's")
+            print("[smoke] path H: the table kept path A's engines; every "
+                  "window equals path A's")
+        else:
+            # a counter on another engine moves per-window deltas (the
+            # segment-parallel commits trail the window by W; the
+            # reference's semantics), so the windows are held against
+            # the CPU plain path making the same choices
+            check_with_table(np, calibrate, table, windows_a, results, lcap)
+        q, q_a = (collections.Counter((n, qq, src) for n, _, qq, src in log)
+                  for log in (qlog, qlog_a))
+        print(f"[smoke] path H: engines per level "
+              f"{'equal' if eng == eng_a else 'differ'}: table "
+              + "; ".join(f"L{lvl} " + ", ".join(
+                  f"{k} {v}" for k, v in sorted(c.items()))
+                  for lvl, c in sorted(eng.items()))
+              + " | path A " + "; ".join(f"L{lvl} " + ", ".join(
+                  f"{k} {v}" for k, v in sorted(c.items()))
+                  for lvl, c in sorted(eng_a.items())))
+        print(f"[smoke] path H: q per commit {{(N, q, source): commits}} "
+              f"{'equal' if q == q_a else 'differ'}: table {dict(q)} | "
+              f"path A {dict(q_a)}")
+        print(f"[smoke] path H: with the table {summary['events_per_sec']:.1f}"
+              f" ev/s, window p99 {summary['p99_latency_s'] * 1e3:.1f} ms | "
+              f"path A {summary_a['events_per_sec']:.1f} ev/s, p99 "
+              f"{summary_a['p99_latency_s'] * 1e3:.1f} ms")
+
+        # the service with the table and one captured step
+        prof_dir = Path(tmp) / "profile"
+        tally.reset_counts()
+        REGISTRY.clear_family("dispatch_policy_total")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mine_serve.main(SERVE_H + ["--policy-table", path,
+                                            "--profile-dir", str(prof_dir)])
+        out = buf.getvalue()
+        got.update(tally.launch_counts())
+        for line in out.splitlines():
+            if line.startswith(("[serve] dispatch policy", "[serve] captured",
+                                "[serve] 3 sessions", "[serve] kernel",
+                                "[serve] batcher")):
+                print(f"[smoke] path H: {line}")
+        if rc != 0:
+            fail(f"path H: mine_serve exited {rc}")
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("[serve] dispatch policy: calibrated")]
+        if not line or "/calibrated'" not in line[0]:
+            fail("path H: the service made no calibrated decision")
+        prior = {labels.get("kind"): int(c.value) for labels, c in
+                 REGISTRY.family_items("batcher_fusion_prior_total")}
+        print(f"[smoke] path H: fusion gate's calibrated priors by seam "
+              f"{prior}")
+        stats = calibrate.policy_stats()
+        if stats["source"] != "calibrated":
+            fail(f"path H: service calibration source {stats['source']}")
+        if tally.plain_counts():
+            fail(f"path H: the service ran plain versions "
+                 f"{tally.plain_counts()}")
+        traces = glob.glob(str(prof_dir / "*.json"))
+        if len(traces) != 1:
+            fail(f"path H: {len(traces)} trace files in {prof_dir}")
+        with open(traces[0]) as f:
+            names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+        ranges = sorted(n for n in names if n.startswith("kernel:"))
+        kernels = sorted({k for k in STEP_KERNELS
+                          if any(k in n for n in names)})
+        print(f"[smoke] path H: captured step {Path(traces[0]).name}, "
+              f"{os.path.getsize(traces[0])} B: ranges {ranges}, kernels "
+              f"{kernels}; service {time.perf_counter() - t0:.1f} s")
+        if not ranges or not kernels:
+            fail("path H: the captured step names no kernel: range or no "
+                 "K6a/K6b/K1/K2 kernel")
+    finally:
+        calibrate.clear_policy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(got)
+
+
 def checkpoint_split(session):
     """(leaves, bytes, seconds of ``state_dict``, seconds of ``save``) of one
     checkpoint of ``session``, written to a scratch directory: what the
@@ -1785,7 +2146,8 @@ def service_busy(torch, tenants, n_warm=3):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages())
+                  for e in prof.key_averages()
+                  if not e.key.startswith(ANNOTATION))
     if busy_us <= 0:
         fail("the profiler recorded no device time in the service step")
     return busy_us / 1e3, wall * 1e3, len(tenants)
@@ -1810,7 +2172,8 @@ def device_busy(torch, windows, lcap, engine, n_warm=3):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages())
+                  for e in prof.key_averages()
+                  if not e.key.startswith(ANNOTATION))
     if busy_us <= 0:
         fail("the profiler recorded no device time")
     return busy_us / 1e3, wall * 1e3
@@ -2304,9 +2667,10 @@ def profiled_launches(torch, fn, n, expect=None) -> tuple[float, dict]:
                 prof.step()
         by_name = collections.Counter()
         for e in prof.key_averages():
-            # the schedule's step annotation is no device work
+            # the schedule's step annotation and the entry points' ranges
+            # are no device work
             if (e.device_type == DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep")):
+                    and not e.key.startswith(("ProfilerStep", ANNOTATION))):
                 key = e.key.replace("(anonymous namespace)::", "")
                 by_name[key.split("(")[0][-60:]] += e.count
         if all(sum(v for k, v in by_name.items() if name in k) >= n * per
@@ -2559,16 +2923,21 @@ def main() -> int:
         for k in launches:
             launches[k] += got.get(k, 0)
 
+    from repro_torch.core import calibrate
+
     main_runs = {}
     for name, num_types, seconds, engine, check in STREAMS:
         t0 = time.perf_counter()
-        miner, windows, got, summary, results = main_path(
-            np, torch, tally, name, num_types, seconds, args.lcap, engine,
-            check)
+        # path A's commits' segment choices, for path H to compare
+        with record_segments(calibrate) as qlog:
+            miner, windows, got, summary, results = main_path(
+                np, torch, tally, name, num_types, seconds, args.lcap,
+                engine, check)
         add(got)
         main_runs[name] = (miner, windows, engine)
         if name == "sym26-hybrid":
             path_a = (windows, results)
+            path_a_h = (windows, results, miner, summary, qlog)
         print(f"[smoke] phase 3 {name}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     restart_results, restart_windows, got = restart_path(np, torch, tally)
@@ -2633,6 +3002,9 @@ def main() -> int:
     t0 = time.perf_counter()
     add(daemon_path(np, torch, tally, args.lcap))
     print(f"[smoke] phase 3 path G: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(calibrated_path(np, torch, tally, args.lcap, path_a_h, smi))
+    print(f"[smoke] phase 3 path H: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():

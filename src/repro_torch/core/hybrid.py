@@ -27,7 +27,8 @@ from .mapconcat import (mapconcatenate as _mapconcatenate,
                         _mapconcatenate_sharded_kernel, mesh_devices,
                         shard_device_count)
 
-# The reference's constants, unchanged (retuning is the calibration slice's)
+# The reference's constants, unchanged: a calibration table
+# (``core.calibrate``) replaces the rule where one is installed
 FN_A = 420.0
 FN_B = 40.0
 
@@ -98,9 +99,10 @@ def count_dispatch(stream: EventStream, eps: EpisodeBatch,
     ``"mapconcat_sharded"`` (K5: one K4 launch per mesh device, the
     per-device tuples folded on ``device``; one device, or a stream too
     short to shard, takes the single-device K4 launch), or ``"hybrid"``
-    (Eq. 2 through ``calibrate.get_policy``, which resolves the
-    segment-parallel side to the sharded kernel when the mesh holds more
-    than one device). Every mapping recounts its flagged episodes exactly,
+    (``calibrate.get_policy``: the installed calibration table's cheapest
+    engine and segment count for a call on a device with the table's
+    fingerprint, else Eq. 2, which resolves the segment-parallel side to
+    the sharded kernel when the mesh holds more than one device). Every mapping recounts its flagged episodes exactly,
     so all give the same counts.
 
     Stateful mode (``state``/``return_state``) carries the bounded-list

@@ -28,9 +28,11 @@ concatenated stream**:
       ``"mapconcat_sharded"`` is the alias that prefers this residency.
       ``state_dict`` is device-count independent: a checkpoint written on
       an 8-device mesh restores onto one device, and the reverse.
-    * ``"hybrid"`` — the Eq. 2 dispatcher (``calibrate.get_policy``),
-      applied once per counter: ptpe above ``hybrid.crossover(N)``
-      episodes, mapconcatenate at or below it.
+    * ``"hybrid"`` — the dispatch policy (``calibrate.get_policy``),
+      applied once per counter: with no calibration table for the
+      counter's device, Eq. 2 (ptpe above ``hybrid.crossover(N)``
+      episodes, mapconcatenate at or below it); with one, the cheaper
+      side by the table, which also picks each commit's segment count.
 
     Exactness containment: bounded lists flag possibly-live evictions
     (``ovf``) and unstitchable tuples flag ``unmatched``; flagged episodes
@@ -485,8 +487,14 @@ class StreamingCounter:
             while q * 2 <= q_limit and span // (q * 2) > w:
                 q *= 2
                 safe.append(q)
+            # per-commit q: a calibration table may prefer fewer, wider
+            # segments than the max-parallelism heuristic. The commit runs
+            # K4's Map and fold launches: the ``mapconcat_kernel`` row
             from .calibrate import get_policy
-            q = get_policy().choose_segments(safe[::-1], devices=d)
+            q, _src = get_policy().choose_segments(
+                safe[::-1], engine="mapconcat_kernel", n_episode=self.eps.N,
+                m=self.eps.M, n_events=int(self._buf_tt.size), devices=d,
+                device=self.device)
             tau = np.round(np.linspace(self._tau_c, tau_next,
                                        q + 1)).astype(np.int64)
             tau[0], tau[-1] = self._tau_c, tau_next

@@ -34,6 +34,10 @@ the carried (streaming) kernels, and result unpacking:
 
 There is no dispatch policy: the device of the tensors chooses the path
 inside each kernel wrapper (CUDA kernel, or the plain version on CPU).
+Each entry point runs inside a profiler range named as the reference's
+(``kernel:a2``, ``kernel:a1_state``, ``kernel:a1_mapc``, ...;
+``obs.torchprof.annotate``, an NVTX range too on the card), beside its
+host span.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from repro_torch.core.episodes import EpisodeBatch
 from repro_torch.core.events import (PAD_TYPE, EventStream, count_level1)
 from repro_torch.device import resolve_device
 from repro_torch.obs import REGISTRY, span
+from repro_torch.obs.torchprof import annotate
 
 from .a1_count import (a1_count_kernel, a1_count_state,
                        a1_count_state_lanes, a1_mapconcat_kernel,
@@ -99,7 +104,8 @@ def a2_count(stream: EventStream, eps: EpisodeBatch,
         return count_level1(stream, eps.etypes[:, 0])
     et, tlo, thi = episode_layout(eps, inclusive_lower=True, device=dev)
     ev = event_brick(stream.types, stream.times, with_dup=False, device=dev)
-    with span("kernel.a2_count_state", fresh=True):
+    with span("kernel.a2_count_state", fresh=True), annotate("kernel:a2",
+                                                             dev):
         cnt = a2_count_kernel(et, tlo, thi, ev, n_events=len(stream.types))
     return cnt.cpu().numpy().astype(np.int64)
 
@@ -115,7 +121,8 @@ def a1_count(stream: EventStream, eps: EpisodeBatch,
                 np.zeros(eps.M, dtype=bool))
     et, tlo, thi = episode_layout(eps, inclusive_lower=False, device=dev)
     ev = event_brick(stream.types, stream.times, with_dup=True, device=dev)
-    with span("kernel.a1_count_state", fresh=True):
+    with span("kernel.a1_count_state", fresh=True), annotate("kernel:a1",
+                                                             dev):
         cnt, ovf = a1_count_kernel(et, tlo, thi, ev, lcap=lcap,
                                    n_events=len(stream.types))
     out = torch.stack([cnt, ovf]).cpu().numpy()
@@ -163,7 +170,8 @@ def a2_state_unpack(s, cnt) -> A2State:
 def a1_state_call(et, tlo, thi, ev, s, ptr, cnt, ovf, *, n_events: int):
     """One carried A1 chunk in kernel layout (traced). Returns
     (cnt, ovf, s, ptr), advanced in place."""
-    with span("kernel.a1_count_state"):
+    with span("kernel.a1_count_state"), annotate("kernel:a1_state",
+                                                 et.device):
         return a1_count_state(et, tlo, thi, ev, s, ptr, cnt, ovf,
                               n_events=n_events)
 
@@ -171,7 +179,8 @@ def a1_state_call(et, tlo, thi, ev, s, ptr, cnt, ovf, *, n_events: int):
 def a2_state_call(et, tlo, thi, ev, s, cnt, *, n_events: int):
     """One carried A2 chunk in kernel layout (traced). Returns (cnt, s),
     advanced in place."""
-    with span("kernel.a2_count_state"):
+    with span("kernel.a2_count_state"), annotate("kernel:a2_state",
+                                                 et.device):
         return a2_count_state(et, tlo, thi, ev, s, cnt, n_events=n_events)
 
 
@@ -187,11 +196,17 @@ def a2_state_call(et, tlo, thi, ev, s, cnt, *, n_events: int):
 # lone K1/K2/K4 call would leave it.
 
 
+def _lane_device(args) -> torch.device:
+    """The device of a lane's operands (its first, ``et``)."""
+    return args[0].device
+
+
 def a2_state_vmapped(lanes) -> None:
     """K6a: K1 over many lanes in one launch (traced). ``lanes``: a list of
     ``((et, tlo, thi, ev, s, cnt), n_events)`` in K1's layout, same N;
     each lane's (s, cnt) advanced in place."""
-    with span("kernel.a2_state_vmapped", lanes=len(lanes)):
+    with span("kernel.a2_state_vmapped", lanes=len(lanes)), annotate(
+            "kernel:a2_state_vmapped", _lane_device(lanes[0][0])):
         a2_count_state_lanes(lanes)
 
 
@@ -199,7 +214,8 @@ def a1_state_vmapped(lanes) -> None:
     """K6b: K2 over many lanes in one launch (traced). ``lanes``: a list of
     ``((et, tlo, thi, ev, s, ptr, cnt, ovf), n_events)`` in K2's layout,
     same N and LCAP; each lane's state advanced in place."""
-    with span("kernel.a1_state_vmapped", lanes=len(lanes)):
+    with span("kernel.a1_state_vmapped", lanes=len(lanes)), annotate(
+            "kernel:a1_state_vmapped", _lane_device(lanes[0][0])):
         a1_count_state_lanes(lanes)
 
 
@@ -207,7 +223,8 @@ def a1_mapc_vmapped(lanes, *, lcap: int) -> list[tuple]:
     """K6c: K4 (Map and fold) over many lanes in one Map and one fold
     launch (traced). ``lanes``: a list of ``(et, tlo, thi, cum, w, segs)``
     in K4's layout, same N and P. Returns each lane's (a, c, b, f, ovf)."""
-    with span("kernel.a1_mapc_vmapped", lanes=len(lanes)):
+    with span("kernel.a1_mapc_vmapped", lanes=len(lanes)), annotate(
+            "kernel:a1_mapc_vmapped", _lane_device(lanes[0])):
         return a1_mapconcat_lanes(lanes, lcap=lcap)
 
 
@@ -296,21 +313,22 @@ def segment_bricks(wt, wtt, tau, device, length: int | None = None):
 def a1_mapconcat_tuples(et, tlo, thi, cum, w, segs, *, lcap: int):
     """One K4 launch (Map + fold) in kernel layout (traced). Returns the
     stitched (a, c, b, f) i32[N, M] and ovf i32[M]."""
-    with span("kernel.a1_mapconcat"):
+    with span("kernel.a1_mapconcat"), annotate("kernel:a1_mapc", et.device):
         return a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, lcap=lcap)
 
 
 def a1_mapconcat_map(et, tlo, thi, cum, w, segs, *, lcap: int):
     """K4's Map launch alone (traced): per-segment (a, c, b, ovf)
     i32[P, N, M] for the caller's Concatenate tree."""
-    with span("kernel.a1_mapconcat", fold=False):
+    with span("kernel.a1_mapconcat", fold=False), annotate(
+            "kernel:a1_mapc", et.device):
         return a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, lcap=lcap,
                                    fold=False)
 
 
 def a2_mapconcat_tuples(et, tlo, thi, cum, w, segs):
     """One K3 launch (Map + fold) in kernel layout (traced)."""
-    with span("kernel.a2_mapconcat"):
+    with span("kernel.a2_mapconcat"), annotate("kernel:a2_mapc", et.device):
         return a2_mapconcat_kernel(et, tlo, thi, cum, w, segs)
 
 
@@ -381,14 +399,16 @@ def a1_mapconcat_sharded_tuples(et, tlo, thi, cum, w, segs, *, lcap: int,
     count must be a multiple of len(devices). Same output contract as
     ``a1_mapconcat_tuples``: the stitched (a, c, b, f) plus ovf OR'd over
     the devices."""
-    with span("kernel.a1_mapc_shard", devices=len(devices)):
+    with span("kernel.a1_mapc_shard", devices=len(devices)), annotate(
+            "kernel:a1_mapc_shard", et.device):
         return a1_mapconcat_sharded(et, tlo, thi, cum, w, segs, lcap=lcap,
                                     devices=devices)
 
 
 def a2_mapconcat_sharded_tuples(et, tlo, thi, cum, w, segs, *, devices):
     """Single-slot analogue of ``a1_mapconcat_sharded_tuples``."""
-    with span("kernel.a2_mapc_shard", devices=len(devices)):
+    with span("kernel.a2_mapc_shard", devices=len(devices)), annotate(
+            "kernel:a2_mapc_shard", et.device):
         return a2_mapconcat_sharded(et, tlo, thi, cum, w, segs,
                                     devices=devices)
 
@@ -401,7 +421,8 @@ def a1_mapc_sharded_vmapped(lanes, *, lcap: int, devices) -> list[tuple]:
     same N and P (a multiple of len(devices)). Returns each lane's
     (a, c, b, f, ovf)."""
     with span("kernel.a1_mapc_sharded_vmapped", lanes=len(lanes),
-              devices=len(devices)):
+              devices=len(devices)), annotate(
+            "kernel:a1_mapc_sharded_vmapped", _lane_device(lanes[0])):
         return a1_mapconcat_sharded_lanes(lanes, lcap=lcap, devices=devices)
 
 

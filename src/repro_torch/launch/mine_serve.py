@@ -19,14 +19,23 @@ Service mode (``--listen``) skips the in-process demo loop and serves the
 fault-tolerant wire protocol instead (see service/wire.py); add
 ``--daemon`` to detach, then drive it with ``--daemon-status`` /
 ``--daemon-stop`` or the ``repro_torch.launch.wire_load`` load generator.
-Not ported yet: calibrated dispatch (the reference's ``--calibrate`` and
-``--policy-table``) and its device profile capture (``--profile-dir``).
+
+Calibrated dispatch: ``--policy-table PATH`` installs a table fitted by
+``repro_torch.launch.calibrate`` (one fitted on another device degrades
+to the heuristic), ``--calibrate`` first fits the smoke grid on
+``--device`` and caches it under ``<data-dir>/calibration``; both pass
+through ``--listen``/``--daemon``. ``--profile-dir DIR`` records one
+scheduler step (the first) with ``torch.profiler`` as a Chrome trace in
+DIR: the kernel entry points' ``kernel:*`` ranges and, on the card, the
+kernels they launched.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.mine_serve --sessions 4 \
       --seconds 10 --theta 4 --max-level 3
   PYTHONPATH=src python -m repro_torch.launch.mine_serve --device cpu \
       --sessions 3 --seconds 6
+  PYTHONPATH=src python -m repro_torch.launch.mine_serve --sessions 3 \
+      --seconds 10 --policy-table TABLE.json --profile-dir /tmp/prof
   PYTHONPATH=src python -m repro_torch.launch.mine_serve \
       --listen unix:/tmp/fem.sock --daemon --data-dir /tmp/fem-data
   PYTHONPATH=src python -m repro_torch.launch.wire_load \
@@ -43,6 +52,7 @@ import sys
 
 from repro_torch.data import partition_windows, sym26
 from repro_torch.obs import REGISTRY, TRACER
+from repro_torch.obs.torchprof import capture_step
 from repro_torch.service import (BackpressureError, MiningService,
                                  SchedulerPolicy, SessionConfig)
 
@@ -66,7 +76,8 @@ def _service_mode(args) -> int:
         checkpoint_every=args.checkpoint_every,
         max_sessions=max(args.sessions, 1), queue_depth=args.queue_depth,
         pipeline_depth=args.pipeline_depth,
-        batching=not args.no_batching, device=args.device)
+        batching=not args.no_batching, policy_table=args.policy_table,
+        device=args.device)
     if args.daemon_status:
         doc = MiningDaemon.status(cfg.pidfile_path)
         if doc is None:
@@ -132,6 +143,10 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the final metrics-registry snapshot "
                          "(flat JSON) after the run")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture one scheduler step (the first) with "
+                         "torch.profiler into DIR as a Chrome trace "
+                         "(Perfetto / chrome://tracing)")
     ap.add_argument("--listen", default=None, metavar="ADDR",
                     help='serve the wire protocol on "host:port" or '
                          '"unix:/path" instead of the in-process demo '
@@ -145,12 +160,34 @@ def main(argv=None):
                     metavar="N",
                     help="checkpoint every N committed windows (1 = "
                          "exact recovery at every window boundary)")
+    ap.add_argument("--policy-table", default=None, metavar="PATH",
+                    help="install a calibrated dispatch table (see "
+                         "repro_torch.launch.calibrate); a stale or "
+                         "other-device table degrades to the heuristic")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit the smoke grid on --device first, cache the "
+                         "table per device fingerprint under "
+                         "<data-dir>/calibration, and serve with it (the "
+                         "full grid is repro_torch.launch.calibrate's)")
     ap.add_argument("--daemon-status", action="store_true",
                     help="report the daemon behind --data-dir and exit")
     ap.add_argument("--daemon-stop", action="store_true",
                     help="SIGTERM the daemon behind --data-dir (graceful "
                          "drain + checkpoint) and exit")
     args = ap.parse_args(argv)
+
+    if args.calibrate and not (args.daemon_status or args.daemon_stop):
+        # measure + fit on this device, cache per fingerprint under the
+        # service data dir, and serve through the fitted policy
+        from repro_torch.core.calibrate import GridSpec
+        from repro_torch.launch.calibrate import run as calibrate_run
+        table, path = calibrate_run(
+            GridSpec.smoke(), out_path=args.policy_table,
+            data_dir=f"{args.data_dir}/calibration", device=args.device,
+            quiet=True)
+        args.policy_table = path
+        print(f"[serve] calibrated {sorted(table.coeffs)} on "
+              f"{table.device_kind}; table cached at {path}")
 
     if args.daemon_status or args.daemon_stop or args.listen:
         return _service_mode(args)
@@ -160,7 +197,8 @@ def main(argv=None):
                                max_pending_windows=args.queue_depth,
                                pipeline_depth=args.pipeline_depth,
                                fusion_gate=args.fusion_gate == "on",
-                               max_concurrent_lanes=args.max_concurrent_lanes),
+                               max_concurrent_lanes=args.max_concurrent_lanes,
+                               policy_table=args.policy_table),
         batching=not args.no_batching, device=args.device)
 
     feeds = {}
@@ -184,6 +222,7 @@ def main(argv=None):
     # interleaved ingest: each producer pushes until backpressure, the
     # scheduler pumps, repeat — the real-time loop in miniature
     shed = 0
+    profile_dir = args.profile_dir
     while any(feeds.values()):
         for sid, wins in feeds.items():
             while wins:
@@ -194,6 +233,12 @@ def main(argv=None):
                     shed += 1
                     break
                 wins.pop(0)
+        if profile_dir:
+            # one traced scheduler step; the rest of the run is not traced
+            with capture_step(profile_dir):
+                svc.pump(max_steps=1)
+            print(f"[serve] captured one scheduler step into {profile_dir}")
+            profile_dir = None
         svc.pump()
         _print_deltas(svc, args.max_level)
 
@@ -217,6 +262,11 @@ def main(argv=None):
         print(f"[serve] pipeline overlap "
               f"{stats['scheduler']['pipeline_overlap_s']*1e3:.0f} ms of "
               f"next-step staging under device work")
+    cal = stats["calibration"]
+    if cal["decisions"]:
+        print(f"[serve] dispatch policy: {cal['source']} "
+              f"({cal['grid_points']} grid points); "
+              f"decisions {cal['decisions']}")
     print(f"[serve] segment axis over {stats['mesh_devices']} shard(s)")
     k = stats["kernel"]
     print(f"[serve] kernel launches {k['launches']} (fused lanes "

@@ -85,6 +85,45 @@ _EV_LEN = {
 }
 
 
+# seam kind -> the calibrated engine whose single-launch cost stands in
+# for one lane of that seam (A2 has no table entry of its own: its walk is
+# A1's with one slot, so ptpe is the honest stand-in). The reference's XLA
+# seams ("a1", "a2", "mapc") have no port: every seam here is a kernel.
+_PRIOR_ENGINE = {
+    "a2k": "ptpe",
+    "a1k": "ptpe",
+    "mapck": "mapconcat_kernel",
+    "mapcs": "mapconcat_sharded",
+}
+
+
+def _policy_prior(key, ms, device=None) -> float | None:
+    """Calibrated single-launch estimate for one lane of a group under
+    seam ``key``, or ``None`` when no table steers ``device`` (the gate
+    then keeps its optimistic fuse-first prior). The port's keys hold no
+    episode count (any M fuses): ``ms`` are the group's lanes' own, and
+    the estimate is their mean, so that lanes × estimate is the sum of
+    the lanes' single launches. Key layouts: ``("a2k", N)``,
+    ``("a1k", N, LCAP)``, ``("mapck", N, LCAP, P)``,
+    ``("mapcs", N, LCAP, P, devices)``."""
+    from repro_torch.core.calibrate import get_policy
+    kind = key[0]
+    engine = _PRIOR_ENGINE.get(kind)
+    if engine is None or not ms:
+        return None
+    n, q, devices = key[1], 1, 1
+    if kind in ("mapck", "mapcs"):
+        q = key[3]
+    if kind == "mapcs":
+        devices = len(key[4])
+    pol = get_policy()
+    ts = [pol.predict_single(engine, n_episode=n, m=m, q=q,
+                             devices=devices, device=device) for m in ms]
+    if any(t is None for t in ts):
+        return None
+    return sum(ts) / len(ts)
+
+
 class FusionCostModel:
     """Measured fusion gate: EWMA launch costs fed from the flush paths.
 
@@ -99,13 +138,15 @@ class FusionCostModel:
     single estimate, and also while either side is still unmeasured:
     fusing is the optimistic prior (it is the only way to measure the
     fused side). Single estimates accrue from singleton flushes and
-    declined groups. ``"standalone"`` means the measurement says per-lane
-    launches win."""
+    declined groups; until a key has one, ``prior`` (``_policy_prior``:
+    a calibration table's estimate, a synchronised wall time) stands in.
+    ``"standalone"`` means the measurement says per-lane launches win."""
 
     ALPHA = 0.25  # EWMA weight of a new sample
     THRESHOLD = 1.0  # fuse while fused <= THRESHOLD × lanes × single
 
-    def __init__(self):
+    def __init__(self, prior=None):
+        self.prior = prior  # (key, lanes' M, device) -> seconds | None
         self._fused: dict = {}  # (key, lane bucket) -> EWMA seconds
         self._single: dict = {}  # key -> EWMA seconds
         self._warm: set = set()  # combos whose first sample is spent
@@ -128,9 +169,18 @@ class FusionCostModel:
             return
         self._ewma(self._single, key, dt)
 
-    def decide(self, key, lanes: int) -> str:
+    def decide(self, key, lanes: int, ms=(), device=None) -> str:
+        """``ms``: the group's lanes' episode counts, ``device`` theirs
+        (what the calibrated prior needs)."""
         single = self._single.get(key)
         fused = self._fused.get((key, bucket_size(lanes, 1)))
+        if single is None and self.prior is not None:
+            # calibrated single estimate: lets a measured fused cost turn
+            # the gate before any singleton launch of this key was timed
+            single = self.prior(key, ms, device)
+            if single is not None:
+                REGISTRY.counter("batcher_fusion_prior_total",
+                                 kind=key[0]).inc()
         if fused is None or single is None:
             return "fuse"  # optimistic until both sides are measured
         if fused <= self.THRESHOLD * lanes * single:
@@ -183,7 +233,7 @@ class CrossSessionBatcher:
         self._seen: dict[str, Counter] = {}  # submitted this step
         self._predicted: dict[str, Counter] = {}  # learned at end_step
         self._parked: Counter = Counter()  # parked requests per step
-        self.cost_model = FusionCostModel()
+        self.cost_model = FusionCostModel(prior=_policy_prior)
         self.fusion_gate = fusion_gate
         # safety net for stale predictions: a parked group force-flushes
         # after this many seconds even if a predicted member never shows
@@ -366,8 +416,11 @@ class CrossSessionBatcher:
         elif not self.fusion_gate:
             decision = "fuse"
         else:
+            # every seam's operands start with et[N, M]: each lane's M
+            ms = [r.args[0].shape[1] for r in sub]
             with self._lock:
-                decision = self.cost_model.decide(key, lanes)
+                decision = self.cost_model.decide(key, lanes, ms,
+                                                  sub[0].args[0].device)
         with self._lock:
             self.gate_decisions[decision] += 1
         REGISTRY.counter("batcher_fusion_gate_total", decision=decision).inc()

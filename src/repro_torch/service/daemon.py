@@ -34,8 +34,10 @@ Detached use (the ``mine_serve --daemon`` CLI)::
 
 The sessions' machines live on ``DaemonConfig.device`` (``--device``):
 ``None`` is the CUDA card, and without one the daemon raises at start
-unless it is given ``"cpu"``. The reference's ``policy_table`` waits for
-the port's calibrated dispatch and is not a field here.
+unless it is given ``"cpu"``. ``DaemonConfig.policy_table``
+(``--policy-table``) names a calibrated dispatch table the service
+installs (``core.calibrate``; one fitted on another device degrades to
+the heuristic).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class DaemonConfig:
     queue_depth: int = 8
     pipeline_depth: int = 2
     batching: bool = True
+    policy_table: str | None = None  # calibrated dispatch table path
     crash_after_commits: int | None = None  # fault injection
     device: str | None = None  # None: the CUDA card
 
@@ -84,6 +87,7 @@ class MiningDaemon:
                 max_sessions=self.config.max_sessions,
                 max_pending_windows=self.config.queue_depth,
                 pipeline_depth=self.config.pipeline_depth,
+                policy_table=self.config.policy_table,
             ),
             batching=self.config.batching,
             device=self.config.device,
@@ -213,6 +217,8 @@ class MiningDaemon:
                 "--pipeline-depth", str(cfg.pipeline_depth)]
         if cfg.pidfile:
             argv += ["--pidfile", str(cfg.pidfile)]
+        if cfg.policy_table:
+            argv += ["--policy-table", str(cfg.policy_table)]
         if cfg.device is not None:
             argv += ["--device", str(cfg.device)]
         if cfg.crash_after_commits is not None:
@@ -271,6 +277,12 @@ def main(argv=None):
     ap.add_argument("--max-sessions", type=int, default=64)
     ap.add_argument("--pipeline-depth", type=int, default=2)
     ap.add_argument(
+        "--policy-table",
+        default=None,
+        metavar="PATH",
+        help="calibrated dispatch table to install (core.calibrate)",
+    )
+    ap.add_argument(
         "--device",
         default=None,
         help="where the sessions' machines live (default: the CUDA card; "
@@ -293,6 +305,7 @@ def main(argv=None):
             queue_depth=args.queue_depth,
             max_sessions=args.max_sessions,
             pipeline_depth=args.pipeline_depth,
+            policy_table=args.policy_table,
             crash_after_commits=args.crash_after_commits,
             device=args.device,
         ),

@@ -42,6 +42,7 @@ from __future__ import annotations
 import itertools
 import time
 
+from repro_torch.core import calibrate
 from repro_torch.core.events import EventStream
 from repro_torch.core.mapconcat import shard_device_count
 from repro_torch.device import resolve_device
@@ -58,12 +59,12 @@ class MiningService:
     def __init__(self, policy: SchedulerPolicy | None = None,
                  batching: bool = True, device=None):
         policy = policy or SchedulerPolicy()
-        if policy.policy_table:
-            raise NotImplementedError(
-                "calibrated dispatch tables are not ported to the PyTorch "
-                "port yet (ROADMAP queue 1 item 10); serve without "
-                "policy_table")
         self.device = resolve_device(device)
+        if policy.policy_table:
+            # install the calibrated dispatch table for this process; a
+            # stale table, or one fitted on another device, degrades to
+            # the heuristic (stats()["calibration"]["source"] says which)
+            calibrate.install_table(policy.policy_table, device=self.device)
         self.batcher = CrossSessionBatcher(
             fusion_gate=policy.fusion_gate,
             flush_deadline_s=policy.flush_deadline_s) if batching else None
@@ -181,6 +182,9 @@ class MiningService:
                 "fusion_gate": dict(self.batcher.gate_decisions),
                 "lanes_per_launch": dict(self.batcher.lanes_per_launch),
             }
+        # dispatch-policy health: table provenance + per-engine decision
+        # counts (dispatch_policy_total{engine=...,source=...})
+        out["calibration"] = calibrate.policy_stats()
         out["wire"] = {
             "connections": int(REGISTRY.gauge("wire_connections").value),
             "connections_total": int(

@@ -1,7 +1,8 @@
 """Each module of the port's kernel layer imports first, on its own, in a
 fresh interpreter: no import cycle between ``repro_torch.kernels`` and
 ``repro_torch.core`` (whose package imports ``core.streaming``, which uses
-``kernels.ops``)."""
+``kernels.ops``). The calibration and profiling modules import first too,
+and pull in neither JAX nor the reference package."""
 
 import os
 import subprocess
@@ -22,4 +23,18 @@ def test_kernel_module_imports_first(module):
     run = subprocess.run(
         [sys.executable, "-c", f"import repro_torch.kernels.{module}"],
         env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+
+
+@pytest.mark.parametrize("module", ["core.calibrate", "launch.calibrate",
+                                    "obs.torchprof"])
+def test_module_imports_first(module):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    code = (f"import sys, repro_torch.{module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr

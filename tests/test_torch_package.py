@@ -9,6 +9,7 @@ mapconcat_sharded`` on two CPU shards; and its data generators and
 candidate joins equal the reference's."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -167,13 +168,42 @@ def test_streaming_sharded_alias_needs_one_device():
     assert set(map(tuple, counts.values())) == {(2,)}
 
 
-def test_policy_tables_raise(monkeypatch):
-    """A calibration table asked for through the environment raises (the
-    calibration slice is not ported) instead of being ignored."""
+def test_policy_tables_raise(monkeypatch, tmp_path):
+    """A calibration table asked for through the environment is loaded
+    when it was fitted on the process's device (here the host), and
+    degrades to the Eq. 2 heuristic when it is missing or stale; the
+    counts never change. (The name is from before the calibration slice,
+    when such a table raised.)"""
+    from repro_torch.core import calibrate
+
     stream, eps = _tiny()
-    monkeypatch.setenv("REPRO_POLICY_TABLE", "/nonexistent/table.json")
-    with pytest.raises(NotImplementedError, match="calibration"):
-        count_dispatch(stream, eps, engine="hybrid", device="cpu")
+    want = count_dispatch(stream, eps, engine="ptpe", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = calibrate.CalibrationTable(
+        device_kind="cpu:plain", hw={"hbm_bw": 1e10, "ici_bw": 1e10},
+        coeffs={"mapconcatenate": [1e-6, 0, 0, 0, 0, 0],
+                "ptpe": [1.0, 0, 0, 0, 0, 0]},
+        grid=[], segment_counts=[2])
+    path = table.save(str(tmp_path / "table.json"))
+    stale = tmp_path / "stale.json"
+    stale.write_text(json.dumps(dict(table.to_doc(), code_version="old")))
+    try:
+        for env, source in ((path, "calibrated"),
+                            (str(tmp_path / "absent.json"), "heuristic"),
+                            (str(stale), "heuristic")):
+            monkeypatch.setenv("REPRO_POLICY_TABLE", env)
+            calibrate.clear_policy()
+            assert calibrate.get_policy().source == source, env
+            got = count_dispatch(stream, eps, engine="hybrid", device="cpu")
+            np.testing.assert_array_equal(got, want)
+        monkeypatch.setenv("REPRO_POLICY_TABLE", path)
+        calibrate.clear_policy()
+        choice = calibrate.get_policy().choose(
+            n_events=len(stream), n_episode=eps.N, m=eps.M, device="cpu")
+        assert (choice.engine, choice.num_segments, choice.source) == \
+            ("mapconcatenate", 2, "calibrated")
+    finally:
+        calibrate.clear_policy()
 
 
 def test_bounded_history_raises():

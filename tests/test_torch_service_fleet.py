@@ -199,10 +199,31 @@ def test_round_robin_fairness():
     assert svc.session("fire").windows_done == 8
 
 
-def test_policy_table_raises():
-    with pytest.raises(NotImplementedError, match="calibrated"):
-        MiningService(policy=SchedulerPolicy(policy_table="t.json"),
-                      device=CPU)
+def test_policy_table_raises(tmp_path):
+    """The service installs the table its policy names when it was fitted
+    on the service's device, and says so in ``stats()["calibration"]``;
+    one fitted on another device degrades to the heuristic. (The name is
+    from before the calibration slice, when a table raised.)"""
+    from repro_torch.core import calibrate
+
+    table = calibrate.CalibrationTable(
+        device_kind="cpu:plain", hw={"hbm_bw": 1e10, "ici_bw": 1e10},
+        coeffs={"ptpe": [1e-3, 0, 0, 0, 0, 0]}, grid=[{"n_events": 64}],
+        segment_counts=[1])
+    try:
+        for kind, source in (("cpu:plain", "calibrated"),
+                             ("cuda:NVIDIA H100 80GB HBM3x1/shards1",
+                              "heuristic")):
+            table.device_kind = kind
+            path = table.save(str(tmp_path / f"{source}.json"))
+            svc = MiningService(policy=SchedulerPolicy(policy_table=path),
+                                device=CPU)
+            cal = svc.stats()["calibration"]
+            assert cal["source"] == source
+            assert cal["table_path"] == path
+            assert calibrate.get_policy().source == source
+    finally:
+        calibrate.clear_policy()
 
 
 # ------------------------------------------------------- watchdog retry
