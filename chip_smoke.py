@@ -9,10 +9,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and K6b for each N and LCAP, the K6a/K6b spills at N <= 5 that K1/K2
    lack, and K6a's and K6b's resident blocks per SM at N = 3);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
-   bit for bit: K1 (A2 single-slot) and K2 (A1 bounded-list), the
-   type-indexed walk, also against a single-lane K6a/K6b launch (the same
-   walk through the lane kernel), at edge shapes (N = 2, 3, 5, 8, LCAP =
-   1, 2, 4, 8, M not a multiple of 128, tie-heavy events over 4 types,
+   bit for bit, in jobs spread over 8 processes on the card (the plain
+   versions' loops hold the host): K1 (A2 single-slot) and K2 (A1
+   bounded-list), the type-indexed walk, also against a single-lane
+   K6a/K6b launch (the same walk through the lane kernel), at edge shapes
+   (N = 2, 3, 5, 8, LCAP = 1, 2, 4, 8, M not a multiple of 128, tie-heavy events over 4 types,
    state carried over two chunks) and at what the type index treats
    specially (300 types, so its 64 buckets collide, repeated-type
    episodes, 1,100 events, M = 1, 33, 1000, state carried over 2 and 3
@@ -45,7 +46,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    tuples, d = 1, 2, 4, 8, N = 2, 3, 5, 8;
    K6d (K5 over many lanes: one K6c Map launch and one lane group fold
    per device, then the cross-shard fold) against lone K5 calls and its
-   plain per-lane loop;
+   plain per-lane loop; then every kernel's generic instantiation (runtime
+   N and LCAP, the machines' state in global memory: what every launch
+   outside the fast templates' N 2..8 × LCAP 1, 2, 4, 8 runs), K1–K6d,
+   against its plain version at N 9, 12, 16 × LCAP 3, 5, 16 (N = 12 on
+   types that share one bucket of the type index; 1,100 events, two
+   batches of 200 and 129 episodes, 8 segments, 4 shards, K3/K4 also Map
+   only and at one segment), and at N 3, 8 × LCAP 4, 8 against the fast
+   template too;
 3. the main paths on the card, each with the launch counts zeroed just
    before it and read just after; 10-s windows, interval (5, 10] ms,
    θ = 30, ``max_level=5``; the planted chains [0, 1, 2] and
@@ -63,8 +71,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      launcher's overlap: K3 and K4 must launch; window 0 held against the
      CPU plain path; the exact recounts of flagged episodes counted;
    - path C, the multi-tenant service (``repro_torch.service.
-     MiningService``): 8 Sym26 sessions of 120 s and 4 64-channel sessions
-     of 60 s, seeds 0-11, ``hybrid``, two-pass, ``history_limit`` = 8,
+     MiningService``): 8 Sym26 sessions of 60 s and 4 64-channel sessions
+     of 30 s, seeds 0-11, ``hybrid``, two-pass, ``history_limit`` = 8,
      LCAP 8, every multi-lane group fused (gate off): K6a, K6b and K6c must
      launch; every session equals a standalone miner on the card, the
      first 2 windows of sessions 0 and 1 the CPU plain path; ev/s, window
@@ -84,12 +92,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    - path F, the 8 Sym26 sessions for 60 s through the service on the
      same 4-shard mesh, gate off: K6d must launch; every session equals
      a standalone miner on the card;
-   - path G, the wire-served daemon: 4 Sym26 sessions of 60 s (path C's
+   - path G, the wire-served daemon: 4 Sym26 sessions of 30 s (path C's
      session config) sent by 4 producer threads of ``launch.wire_load``'s
      ``FaultyClient`` (frames dropped, duplicated and torn, seed 7) to
      ``python -m repro_torch.service.daemon`` on the card over a Unix
      socket, checkpointing after every pump step; the daemon SIGKILLs
-     itself after ``kill_point(19, 4, 16)`` commits and a supervisor
+     itself after ``kill_point(19, 3, 8)`` commits and a supervisor
      thread restarts it: every session's deltas equal a standalone
      session on the card, the restart recovers all 4 sessions, the
      restarted daemon launches K6a and K6b, runs no plain version,
@@ -122,6 +130,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      a calibrated decision, and one captured step whose trace names a
      ``kernel:`` range and a K6a/K6b/K1/K2 kernel; the policy is cleared
      after, so every other path runs on the heuristic;
+   - path I, outside the fast templates: a 26-neuron stream with a planted
+     10-node chain at (5, 10] ms delays (60 occurrences in its 10-s
+     window) over 20 Hz a neuron, mined to level 10 at LCAP 3 with
+     ``ptpe``, ``hybrid`` and ``mapconcat_sharded`` on the 4-shard mesh:
+     every window equal to the same engine on the CPU plain path (the
+     sharded one's also to the engine without the mesh), the chain found
+     whole, the generic kernels named by the profiler on a replay; a
+     2-session service at ``SessionConfig(lcap=3, max_level=10)``, equal
+     to standalone miners; then ``python -m repro_torch.launch.audit
+     --fail-on-violation --json`` on the card, exit 0;
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -144,8 +162,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    longest walk visits; K5 at path E's largest shapes beside the
    unsharded K4/K3 on the same segments, and K6d at path F's largest
    group beside the same lanes' lone K5 calls, both with their kernel
-   launches a call by the profiler's count;
-5. a JSON line of kernel numbers (K1/K2 at the Sym26 shape), the
+   launches a call by the profiler's count; every generic instantiation's
+   device time and bound at N 16 / LCAP 16 on a phase-2 shape and at path
+   I's largest batch (held against its plain version there first);
+5. a JSON line of kernel numbers (K1/K2 at the Sym26 shape; each kernel's
+   generic instantiation's ``generic_max_abs_err``, ``generic_ms`` and
+   ``generic_bound_ms``, and ``generic_ms_path_i`` and
+   ``generic_bound_ms_path_i``), the
    ``nvidia-smi`` line, and last the device line ``{"ok": true, "device":
    {...}}``.
 
@@ -201,8 +224,9 @@ REQUIRED = {"ptpe": ("a2_count_state", "a1_count_state"),
 RESTART_WINDOWS = 6
 RESTART_ENGINE = "mapconcat_kernel"
 # path C, the service fleet: (channels, seconds, sessions), seeds counting
-# up from 0; the 64-channel sessions are cut from 120 s to 60 s
-FLEET = ((26, 120, 8), (64, 60, 4))
+# up from 0; cut from 120 s (the 64-channel sessions from 60 s) to keep the
+# whole run inside its time limit
+FLEET = ((26, 60, 8), (64, 30, 4))
 FLEET_GATED = ((26, 30, 8),)           # path C′ (60 s before path F)
 FLEET_CPU_SESSIONS = 2                 # sessions held against the CPU path
 FLEET_CPU_WINDOWS = 2                  # ... over their first windows
@@ -266,11 +290,13 @@ REQUIRED_F = ("a2_state_vmapped", "a1_mapc_sharded_vmapped",
 # count), the producer threads, the link's faults, the commits the first
 # daemon survives before it SIGKILLs itself (``kill_point(seed, lo, hi)``)
 # and the fused kernels the restarted daemon must launch
-FLEET_DAEMON = ((26, 60, 4),)
+# (cut from 60-s sessions and kill_point(19, 4, 16), which fell after 11
+# of 24 commits, to 30 s and a kill after 5 of 12)
+FLEET_DAEMON = ((26, 30, 4),)
 DAEMON_PRODUCERS = 4
 DAEMON_FAULTS = {"seed": 7, "drop": 0.05, "duplicate": 0.05,
                  "truncate": 0.02, "max_faults": 12}
-DAEMON_KILL = (19, 4, 16)
+DAEMON_KILL = (19, 3, 8)
 REQUIRED_G = ("a2_state_vmapped", "a1_state_vmapped")
 DAEMON_DEADLINE_S = 300.0
 # path H, calibrated dispatch: fig7's rows (a Sym26 stream, N x M, random
@@ -300,7 +326,12 @@ SINGLE_OF = {"a2_state_vmapped": "a2_count_state",
              "a1_mapc_vmapped": "a1_mapconcat"}
 TIMED_LAUNCHES = 21
 PROFILE_ATTEMPTS = 3
-PLAIN_RUNS = 3
+# phase 2's checks, one job each (a function of phase 2 at some of its N,
+# shard counts or generic cases), run by PHASE2_WORKERS processes on the
+# card at once: the plain versions' loops over events hold the host, not
+# the card, so the checks spread over the host's cores
+EDGE_N = (2, 3, 5, 8)
+PHASE2_WORKERS = 8
 # fused-kernel edge lanes: unequal episode and event counts
 LANE_M = (1, 127, 128, 129, 5000)
 LANE_EVENTS = (0, 1, 1024, 1025, 5600)
@@ -312,6 +343,65 @@ WALK_EVENTS = 1100
 WALK_M = (1, 33, 1000)
 # phase 4 times K1/K2 at the largest level-3 batches of these streams
 WALK_SHAPES = ("sym26", "sym26-64ch")
+# the generic instantiations (any N and LCAP): held against the plain
+# versions outside the fast templates' envelope (N 2..8 x LCAP 1, 2, 4, 8)
+# and against the templates too inside it, on GENERIC_EVENTS events (the
+# 1,024-event chunk crossed) and two episode batches of GENERIC_M episodes
+# over GENERIC_P segments; timed at GENERIC_TIMED and at path I's largest
+# batch. {tally name: {__global__ name: launches a call}}
+GENERIC_OUT = tuple((n, c) for n in (9, 12, 16) for c in (3, 5, 16))
+GENERIC_IN = tuple((n, c) for n in (3, 8) for c in (4, 8))
+GENERIC_EVENTS = 1100
+GENERIC_M = (200, 129)
+GENERIC_P = 8
+GENERIC_TIMED = (16, 16)
+GENERIC_RATIO = (8, 8)                 # timed generic and fast, side by side
+# the fast template each generic kernel stands beside
+FAST_OF = {"a2_state_generic": "a2_state_kernel",
+           "a1_state_generic": "a1_state_kernel",
+           "a2_map_generic": "a2_map_kernel",
+           "a1_map_generic": "a1_map_kernel",
+           "seg_fold_generic": "fold_kernel",
+           "a2_lanes_generic": "a2_lanes_kernel",
+           "a1_lanes_generic": "a1_lanes_kernel",
+           "a1_map_lanes_generic": "a1_map_lanes_kernel",
+           "group_fold_generic": "fold_groups_kernel",
+           "group_fold_lanes_generic": "fold_groups_lanes_kernel",
+           "shard_stitch_generic": "stitch_shards_kernel",
+           "shard_stitch_lanes_generic": "stitch_shard_lanes_kernel"}
+GENERIC_DEVICE_KERNELS = {
+    "a2_count_state": {"a2_state_generic": 2},
+    "a1_count_state": {"a1_state_generic": 2},
+    "a2_mapconcat": {"a2_map_generic": 1, "seg_fold_generic": 1},
+    "a1_mapconcat": {"a1_map_generic": 1, "seg_fold_generic": 1},
+    "a2_state_vmapped": {"a2_lanes_generic": 1},
+    "a1_state_vmapped": {"a1_lanes_generic": 1},
+    "a1_mapc_vmapped": {"a1_map_lanes_generic": 1,
+                        "group_fold_lanes_generic": 1},
+    "a1_mapc_shard": {"a1_map_generic": 1, "group_fold_generic": 1,
+                      "shard_stitch_generic": 1},
+    "a2_mapc_shard": {"a2_map_generic": 1, "group_fold_generic": 1,
+                      "shard_stitch_generic": 1},
+    "a1_mapc_sharded_vmapped": {"a1_map_lanes_generic": 1,
+                                "group_fold_lanes_generic": 1,
+                                "shard_stitch_lanes_generic": 1}}
+# path I, outside the envelope at Sym26 scale: a 26-neuron stream with a
+# planted 10-node chain 0→…→9 ((5, 10] ms delays, 60 occurrences a 10-s
+# window) over Sym26's 20 Hz a neuron, mined to level 10 at LCAP 3 by each
+# engine (the sharded one on the ``SHARDS``-shard mesh), every window held
+# against the CPU plain path; then a 2-session service. Cut from 30 s (3
+# windows) and 20-s sessions to one 10-s window each: at LCAP 3 the later
+# windows flag thousands of episodes, whose exact recount on the host
+# (``core.ref.count_a1_sequential``) took 137 s an engine for the 3 windows
+# on the H100 (see PERF.md), past this script's time limit
+ENVELOPE = (26, 10, 60, 20.0, 10)      # neurons, chain, per window, Hz, s
+ENVELOPE_LEVEL = 10
+ENVELOPE_LCAP = 3
+ENVELOPE_ENGINES = ("ptpe", "hybrid", "mapconcat_sharded")
+ENVELOPE_SERVICE = (2, 10)             # sessions, seconds
+REQUIRED_I = {"ptpe": ("a2_count_state", "a1_count_state"),
+              "hybrid": ("a2_count_state", "a1_mapconcat"),
+              "mapconcat_sharded": ("a2_count_state", "a1_mapc_shard")}
 
 
 def fail(msg: str) -> None:
@@ -428,12 +518,13 @@ def tie_cuts(np, times, k) -> list[int]:
             + [len(times)])
 
 
-def edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
+def edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs,
+                ns=EDGE_N):
     types, times = tie_stream(np, 1, 3000, 4)
     cuts = tie_cuts(np, times, 2)
     ev = ops.event_brick(types, times, with_dup=True, device="cuda",
                          length=4096)
-    for n in (2, 3, 5, 8):
+    for n in ns:
         eps = random_batch(np, EpisodeBatch, n, 1000 + n, n, 4)
         d = compare_k1(torch, ops, k_a2, eps, ev,
                        [0, types.size // 2, types.size])
@@ -491,7 +582,8 @@ def walk_batch(np, EpisodeBatch, seed, m, n, types, motif):
     return EpisodeBatch(et, tlo, thi)
 
 
-def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
+def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs,
+                     ns=EDGE_N):
     """K1 and K2 on what their type index treats specially: ``WALK_TYPES``
     types (buckets collide), repeated-type episodes, ``WALK_EVENTS`` events
     (no multiple of 32; the 1,024-event chunk is crossed), M in ``WALK_M``,
@@ -502,8 +594,7 @@ def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
     types, times, motif = walk_stream(np, 6, WALK_EVENTS, WALK_TYPES)
     ev = ops.event_brick(types, times, with_dup=True, device="cuda",
                          length=WALK_EVENTS + 64)
-    total = 0
-    for n in (2, 3, 5, 8):
+    for n in ns:
         for i, m in enumerate(WALK_M):
             eps = walk_batch(np, EpisodeBatch, 10 * n + i, m, n, types,
                              motif)
@@ -523,11 +614,10 @@ def walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
                     fail(f"K2 differs from its plain version or the "
                          f"single-lane K6b at {WALK_TYPES} types, N={n}, "
                          f"M={m}, lcap={lcap}, {k} cuts: {d}")
-            total += 1
-    print(f"[smoke] K1/K2 == plain == single-lane K6 on {total} type-index "
-          f"cases: {WALK_TYPES} types (motif {motif.tolist()}), "
-          f"{WALK_EVENTS} events, N 2/3/5/8, M {WALK_M}, lcap 1/2/4/8, 2 "
-          f"and 3 cuts, repeated-type episodes")
+        print(f"[smoke] K1/K2 == plain == single-lane K6 on the type-index "
+              f"cases at N={n}: {WALK_TYPES} types (motif "
+              f"{motif.tolist()}), {WALK_EVENTS} events, M {WALK_M}, lcap "
+              f"1/2/4/8, 2 and 3 cuts, repeated-type episodes")
 
 
 def compare_mapc(torch, ops, k_a1, k_a2, eps, segs, lcaps, errs, what):
@@ -567,11 +657,13 @@ def compare_mapc(torch, ops, k_a1, k_a2, eps, segs, lcaps, errs, what):
 
 
 def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
-                     errs):
+                     errs, ns=EDGE_N, edges=True):
+    """K3/K4 against their plain versions at each N of ``ns``, P = 1, 2, 8;
+    with ``edges``, also on the τ+W straddler and an unmatched stitch."""
     from repro_torch.core import make_segments
     types, times = tie_stream(np, 2, 1500, 4)
     stream = EventStream(types, times, 4)
-    for n in (2, 3, 5, 8):
+    for n in ns:
         eps = random_batch(np, EpisodeBatch, 10 + n, 130 + n, n, 4)
         for p in (1, 2, 8):
             tau, wt, wtt = make_segments(stream, p, int(eps.max_span.max()))
@@ -580,6 +672,8 @@ def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
                          errs, f"N={n}, P={p}")
         print(f"[smoke] K3/K4 == plain at N={n}, M={eps.M}, P 1/2/8, lcap "
               f"1/2/4/8 (K3, K4 also Map only), {types.size} events")
+    if not edges:
+        return
     # an occurrence from exactly τ=50 to exactly τ+W, a tie group on the
     # boundary (the reference suite's straddler), and a doctored boundary
     # row whose stitch goes unmatched
@@ -606,7 +700,7 @@ def mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
 
 
 def mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
-                     errs):
+                     errs, ns=EDGE_N):
     """K3 and K4 (K4 folded at LCAP 1, 2, 4, 8 and Map only at 8) on what
     K4's type index treats specially: ``WALK_TYPES`` types (buckets
     collide), ``walk_batch``'s repeated-type episodes, ``WALK_EVENTS``
@@ -617,7 +711,7 @@ def mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
     from repro_torch.core import make_segments
     types, times, motif = walk_stream(np, 7, WALK_EVENTS, WALK_TYPES)
     stream = EventStream(types, times, WALK_TYPES)
-    for n in (2, 3, 5, 8):
+    for n in ns:
         batches = [walk_batch(np, EpisodeBatch, 40 * n + i, m, n, types,
                               motif) for i, m in enumerate(WALK_M)]
         for i, eps in enumerate(batches):
@@ -637,10 +731,10 @@ def mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
             if d:
                 fail(f"a1_mapc_vmapped differs from its lanes through K4 at "
                      f"{WALK_TYPES} types, N={n}, lcap={lcap}: {d}")
-    print(f"[smoke] K3/K4 == plain on the type-index cases: {WALK_TYPES} "
-          f"types, repeated-type episodes, {WALK_EVENTS} events, N 2/3/5/8, "
-          f"M {WALK_M}, P 1/2/8, lcap 1/2/4/8 (K3, K4 also Map only); K6c == "
-          f"per-lane K4 there at lcap 1/8")
+        print(f"[smoke] K3/K4 == plain on the type-index cases at N={n}: "
+              f"{WALK_TYPES} types, repeated-type episodes, {WALK_EVENTS} "
+              f"events, M {WALK_M}, P 1/2/8, lcap 1/2/4/8 (K3, K4 also Map "
+              f"only); K6c == per-lane K4 there at lcap 1/8")
 
 
 def random_maps(np, seed, p, k, m):
@@ -787,7 +881,8 @@ def fused_state_edge(np, torch, ops, k_a1, k_a2, n, types, times, batches,
                  f"versions at N={n}, lcap={lcap}, {n_cuts} cuts: {d}")
 
 
-def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
+def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs,
+                      ns=EDGE_N):
     """K6a, K6b and K6c on lanes of unequal M (1, 127, 128, 129, 5000) and
     event counts (0, 1, 1024, 1025, 5600), tie-heavy: each against the
     same lanes launched one by one through K1, K2 or K4 (at every N, LCAP
@@ -801,7 +896,7 @@ def fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs):
     w_types, w_times, motif = walk_stream(np, 8, max(LANE_EVENTS),
                                           WALK_TYPES)
     plain_k1, plain_k2 = {3, 8}, {(2, 1), (3, 8)}
-    for n in (2, 3, 5, 8):
+    for n in ns:
         small = [random_batch(np, EpisodeBatch, 100 * n + i, m, n, 4)
                  for i, m in enumerate(LANE_M)]
         with_plain = {("a1_state_vmapped", c) for m, c in plain_k2 if m == n}
@@ -892,20 +987,21 @@ def compare_sharded(torch, ops, k_a1, k_a2, eps, segs, mesh, lcaps, errs,
 
 
 def sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
-                        EventStream, errs):
+                        EventStream, errs, ds=(2, 4, 8), edges=True):
     """K5 on d = 2, 4, 8 logical shards of the card at N = 2, 3, 5, 8,
     LCAP = 1, 2, 4, 8, P = d and 2d (tie-heavy events), then on the τ+W
     straddler with τ on the boundary between two shards and on doctored
     stitches that go unmatched inside a shard's group and between two
-    shards."""
+    shards: each d of ``ds``, then, with ``edges``, the straddler and the
+    doctored stitches."""
     from repro_torch.core import make_segments
     types, times = tie_stream(np, 4, 1500, 4)
     stream = EventStream(types, times, 4)
     card = torch.device("cuda", 0)
     all_full = True
-    for d in (2, 4, 8):
+    for d in ds:
         mesh = [card] * d
-        for n in (2, 3, 5, 8):
+        for n in EDGE_N:
             eps = random_batch(np, EpisodeBatch, 20 * d + n, 130 + n, n, 4)
             for p in (d, 2 * d):
                 tau, wt, wtt = make_segments(stream, p,
@@ -921,6 +1017,8 @@ def sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
         print(f"[smoke] K5 == plain and == unsharded K3/K4 at d={d}, N "
               f"2/3/5/8, P {d}/{2 * d}, lcap 1/2/4/8 (equal in full: "
               f"{all_full})")
+    if not edges:
+        return
     eps = EpisodeBatch(np.int32([[0, 1]]), np.int32([[0]]), np.int32([[10]]))
     st = EventStream(np.int32([2, 0, 1, 2, 3, 0, 2, 2, 1, 0, 1, 2, 3]),
                      np.int32([1, 5, 20, 33, 47, 50, 50, 50, 60, 61, 75, 88,
@@ -947,16 +1045,17 @@ def sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
           "between shards (flag raised and carried)")
 
 
-def sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs):
+def sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs,
+                       ds=(2, 4, 8)):
     """K6d on lanes of unequal M and window length, d = 2, 4, 8 shards,
     N = 2, 3, 5, 8, P = d and 2d, LCAP = 1, 2, 4, 8, against the same
     lanes' lone K5 calls, and against its plain per-lane loop at one
     (d, N, P, LCAP)."""
     types, times = tie_stream(np, 5, max(LANE_EVENTS), 4)
     card = torch.device("cuda", 0)
-    for d in (2, 4, 8):
+    for d in ds:
         mesh = [card] * d
-        for n in (2, 3, 5, 8):
+        for n in EDGE_N:
             for p in (d, 2 * d):
                 lanes = []
                 for i, (m, k) in enumerate(zip(LANE_M, (17, 1, 1024, 1025,
@@ -986,6 +1085,331 @@ def sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs):
         print(f"[smoke] K6d == per-lane K5 at d={d}, N 2/3/5/8, P "
               f"{d}/{2 * d}, lcap 1/2/4/8, lanes M {LANE_M} (plain per-lane "
               f"loop at d=2, N=3, P=4, lcap 4)")
+
+
+# ------------------------------------------- phase 2: generic instantiations
+
+
+def generic_case(np, ops, EpisodeBatch, n, seed, collide=False):
+    """The inputs of one generic-instantiation case at N = ``n``:
+    ``GENERIC_EVENTS`` tie-heavy events over 4 types and two batches of
+    random episodes (``GENERIC_M``; the first A→A→…, which completes
+    often, so the lists fill and evict). With ``collide`` every type is a
+    multiple of 64, so all events fall in one bucket of the type index and
+    only the type compares tell them apart. Returns (types, times,
+    [EpisodeBatch, EpisodeBatch])."""
+    types, times = tie_stream(np, seed, GENERIC_EVENTS, 4)
+    batches = [random_batch(np, EpisodeBatch, seed + i, m, n, 4)
+               for i, m in enumerate(GENERIC_M)]
+    if collide:
+        types = types * 64
+        batches = [EpisodeBatch(b.etypes * 64, b.tlo, b.thi)
+                   for b in batches]
+    return types, times, batches
+
+
+def generic_calls(np, torch, ops, k_a1, k_a2, EventStream, types, times,
+                  batches, lcap):
+    """The calls of every kernel K1–K6d on one case (``generic_case``'s, or
+    a main path's batch with its window), each through its wrapper and
+    through its plain version: {tally name: (call, plain, Bound, what)}.
+    ``call()`` and ``plain()`` run on fresh copies of the carried state and
+    return every output (state included) as a list of tensors. K1/K2 walk
+    the first batch over 2 chunks cut between tie groups; K6a/K6b walk both
+    batches as lanes (the first over every event in one chunk, the second
+    over the first chunk); K3, K4 and K5 (on ``SHARDS`` logical shards of
+    the card) count the first batch over 8 segments; K6c and K6d count both
+    batches as lanes, each over 8 segments of its own window. The plain
+    versions run once a case: 4 walks and 3 Map steps, from which the
+    folds make every other plain output (a cut between tie groups keeps a
+    walk in chunks exact, so the first lane's plain state is K1's/K2's)."""
+    from repro_torch.core import (init_a1_state, init_a2_state,
+                                  make_segments)
+    dev = "cuda"
+    mesh = [torch.device("cuda", 0)] * SHARDS
+    num_types = int(types.max()) + 1
+    k = len(types)
+    ev = ops.event_brick(types, times, with_dup=True, device=dev,
+                         length=k + 64)
+    chunks = tie_cuts(np, times, 2)
+    subs = [(ev[:, a:].contiguous(), b - a)
+            for a, b in zip(chunks[:-1], chunks[1:])]
+    lane_events = (k, chunks[1])
+    eps = batches[0]
+    lay2 = [ops.episode_layout(b.relaxed(), True, dev) for b in batches]
+    lay1 = [ops.episode_layout(b, False, dev) for b in batches]
+    st2 = [ops.a2_state_layout(init_a2_state(b.relaxed(), dev), dev)
+           for b in batches]
+    st1 = [ops.a1_state_layout(init_a1_state(b, lcap, dev), dev)
+           for b in batches]
+
+    def fresh(st):
+        return [x.clone() for x in st]
+
+    def once(fn):
+        box = []
+
+        def run():
+            if not box:
+                box.append(fn())
+            return box[0]
+        return run
+
+    def walk(fn, lay, st, chunked, plain=False):
+        def run():
+            s = fresh(st)
+            for sub, n_ev in (subs if chunked else subs[:1]):
+                if plain:
+                    fn(*lay, sub, *s, n_ev)
+                else:
+                    fn(*lay, sub, *s, n_events=n_ev)
+            return s
+        return run
+
+    def lanes_of(lays, sts, fn):
+        def run():
+            ss = [fresh(s) for s in sts]
+            fn([((*lay, ev, *s), n_ev)
+                for lay, s, n_ev in zip(lays, ss, lane_events)])
+            return [x for s in ss for x in s]
+        return run
+
+    def seg_lane(b, mapc_lay):
+        w = int(b.max_span.max())
+        tau, wt, wtt = make_segments(EventStream(types, times, num_types),
+                                     GENERIC_P, w)
+        return (*mapc_lay, ops.segment_bricks(wt, wtt, tau, dev))
+
+    mlay1 = [seg_lane(b, ops.mapconcat_layout(b, False, dev))
+             for b in batches]
+    mlay2 = seg_lane(eps.relaxed(), ops.mapconcat_layout(eps.relaxed(),
+                                                         True, dev))
+    # the plain versions, once a case
+    p2 = [once(walk(k_a2.a2_count_state_plain, lay2[0], st2[0], True,
+                    True)),
+          once(walk(k_a2.a2_count_state_plain, lay2[1], st2[1], False,
+                    True))]
+    p1 = [once(walk(k_a1.a1_count_state_plain, lay1[0], st1[0], True,
+                    True)),
+          once(walk(k_a1.a1_count_state_plain, lay1[1], st1[1], False,
+                    True))]
+    maps1 = [once(lambda x=x: k_a1.a1_mapconcat_plain(*x, lcap=lcap,
+                                                      fold=False))
+             for x in mlay1]
+    maps2 = once(lambda: k_a2.a2_mapconcat_plain(*mlay2, fold=False))
+
+    def fold(maps):
+        return list(k_a2.mapc_fold_plain(*maps()))
+
+    def sharded(maps):
+        return list(k_a2.mapc_sharded_plain(maps(), SHARDS))
+
+    flat = lambda outs: [x for o in outs for x in o]  # noqa: E731
+    walk_types = [types, types[:chunks[1]]]
+    st_what = (f"N={eps.N}, M={[b.M for b in batches]}, LCAP={lcap}, "
+               f"{k} events")
+    seg_t = seg_types(mlay1[0][5])
+    seg_t2 = seg_types(mlay2[5])
+    return {
+        "a2_count_state": (
+            walk(k_a2.a2_count_state, lay2[0], st2[0], True), p2[0],
+            bound(np, types, eps.etypes, 1, "a2_count_state"), st_what),
+        "a1_count_state": (
+            walk(k_a1.a1_count_state, lay1[0], st1[0], True), p1[0],
+            bound(np, types, eps.etypes, lcap, "a1_count_state"), st_what),
+        "a2_state_vmapped": (
+            lanes_of(lay2, st2, k_a2.a2_count_state_lanes),
+            lambda: p2[0]() + p2[1](),
+            summed_bound([bound(np, t, b.etypes, 1, "a2_count_state")
+                          for t, b in zip(walk_types, batches)]), st_what),
+        "a1_state_vmapped": (
+            lanes_of(lay1, st1, k_a1.a1_count_state_lanes),
+            lambda: p1[0]() + p1[1](),
+            summed_bound([bound(np, t, b.etypes, lcap, "a1_count_state")
+                          for t, b in zip(walk_types, batches)]), st_what),
+        "a2_mapconcat": (
+            lambda: list(k_a2.a2_mapconcat_kernel(*mlay2)),
+            lambda: fold(maps2), mapc_bound(np, seg_t2, eps.etypes, 1),
+            f"{st_what}, P={GENERIC_P}"),
+        "a1_mapconcat": (
+            lambda: list(k_a1.a1_mapconcat_kernel(*mlay1[0], lcap=lcap)),
+            lambda: fold(maps1[0]),
+            mapc_bound(np, seg_t, eps.etypes, lcap),
+            f"{st_what}, P={GENERIC_P}"),
+        "a2_mapc_shard": (
+            lambda: list(k_a2.a2_mapconcat_sharded(*mlay2, devices=mesh)),
+            lambda: sharded(maps2),
+            shard_bound(np, seg_t2, eps.etypes, 1, SHARDS),
+            f"{st_what}, P={GENERIC_P}, d={SHARDS}"),
+        "a1_mapc_shard": (
+            lambda: list(k_a1.a1_mapconcat_sharded(*mlay1[0], lcap=lcap,
+                                                   devices=mesh)),
+            lambda: sharded(maps1[0]),
+            shard_bound(np, seg_t, eps.etypes, lcap, SHARDS),
+            f"{st_what}, P={GENERIC_P}, d={SHARDS}"),
+        "a1_mapc_vmapped": (
+            lambda: flat(k_a1.a1_mapconcat_lanes(mlay1, lcap=lcap)),
+            lambda: flat(fold(m) for m in maps1),
+            summed_bound([mapc_bound(np, seg_types(x[5]), b.etypes, lcap)
+                          for x, b in zip(mlay1, batches)]),
+            f"{st_what}, P={GENERIC_P}, 2 lanes"),
+        "a1_mapc_sharded_vmapped": (
+            lambda: flat(k_a1.a1_mapconcat_sharded_lanes(
+                mlay1, lcap=lcap, devices=mesh)),
+            lambda: flat(sharded(m) for m in maps1),
+            summed_bound([shard_bound(np, seg_types(x[5]), b.etypes, lcap,
+                                      SHARDS)
+                          for x, b in zip(mlay1, batches)]),
+            f"{st_what}, P={GENERIC_P}, d={SHARDS}, 2 lanes")}
+
+
+def check_generic(torch, cuda, calls, fast, what, errs):
+    """Hold each generic instantiation (every launch of ``call`` inside
+    ``cuda.generic_only``) against its plain version, and with ``fast``
+    (inside the templates' envelope) against the fast template (the same
+    call outside it); every output compared, bit for bit."""
+    for name, (call, plain, _, _) in calls.items():
+        with cuda.generic_only():
+            got = call()
+        want = plain()
+        outs = [want] + ([call()] if fast else [])
+        torch.cuda.synchronize()
+        d = max(max_abs_diff(torch, got, o) for o in outs)
+        errs[name] = max(errs[name], d)
+        if d:
+            fail(f"the generic {name} differs from its plain version"
+                 + (" or the fast template" if fast else "")
+                 + f" at {what}: {d}")
+
+
+def generic_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
+                        EventStream, errs, cases=GENERIC_OUT + GENERIC_IN):
+    """Every kernel's generic instantiation, K1–K6d, against its plain
+    version at N 9, 12, 16 × LCAP 3, 5, 16 (``GENERIC_OUT``, outside the
+    fast templates; K1, K3, K6a and K5's A2 kind once per N), and inside the
+    templates' envelope (``GENERIC_IN``: N 3, 8 × LCAP 4, 8) against the
+    fast template as well; K3 and K4 also unfolded (the Map launch alone)
+    and at one segment (the 1,024-event chunk crossed) where LCAP is 3 and
+    at the first in-envelope case.
+    N = 12 runs on types that all share one bucket of the type index."""
+    from repro_torch.core import make_segments
+    from repro_torch.kernels import cuda
+    a2_kinds = ("a2_count_state", "a2_state_vmapped", "a2_mapconcat",
+                "a2_mapc_shard")
+    done = set()
+    for n, lcap in cases:
+        fast = (n, lcap) in GENERIC_IN
+        types, times, batches = generic_case(np, ops, EpisodeBatch, n,
+                                             100 + n, collide=n == 12)
+        calls = generic_calls(np, torch, ops, k_a1, k_a2, EventStream,
+                              types, times, batches, lcap)
+        if n in done:
+            calls = {k: v for k, v in calls.items() if k not in a2_kinds}
+        done.add(n)
+        what = f"N={n}, LCAP={lcap}" + (" (bucket collisions)"
+                                        if n == 12 else "")
+        check_generic(torch, cuda, calls, fast, what, errs)
+        if lcap == 3 or (n, lcap) == GENERIC_IN[0]:
+            eps = batches[0]
+            for p in (1, GENERIC_P):
+                tau, wt, wtt = make_segments(
+                    EventStream(types, times, int(types.max()) + 1), p,
+                    int(eps.max_span.max()))
+                segs = ops.segment_bricks(wt, wtt, tau, "cuda")
+                lay1 = ops.mapconcat_layout(eps, False, "cuda")
+                lay2 = ops.mapconcat_layout(eps.relaxed(), True, "cuda")
+                unfolded = {
+                    "a1_mapconcat": (
+                        lambda: list(k_a1.a1_mapconcat_kernel(
+                            *lay1, segs, lcap=lcap, fold=p == 1)),
+                        lambda: list(k_a1.a1_mapconcat_plain(
+                            *lay1, segs, lcap=lcap, fold=p == 1)), None, ""),
+                    "a2_mapconcat": (
+                        lambda: list(k_a2.a2_mapconcat_kernel(
+                            *lay2, segs, fold=p == 1)),
+                        lambda: list(k_a2.a2_mapconcat_plain(
+                            *lay2, segs, fold=p == 1)), None, "")}
+                check_generic(torch, cuda, unfolded, fast,
+                              f"{what}, P={p}"
+                              + (", Map only" if p > 1 else ""), errs)
+        print(f"[smoke] generic K1–K6d == plain"
+              + (" == fast template" if fast else "")
+              + f" at {what}: {len(calls)} kernels, {GENERIC_EVENTS} "
+              f"events, M {list(GENERIC_M)}")
+
+
+def phase2_jobs():
+    """[(function name, keyword arguments)]: every check of phase 2, the
+    generic instantiations' last."""
+    jobs = [("fused_edge_shapes", {"ns": (n,)}) for n in EDGE_N]
+    jobs += [("sharded_edge_shapes", {"ds": (d,), "edges": d == 2})
+             for d in (2, 4, 8)]
+    jobs += [(name, {"ns": (n,)}) for name in (
+        "edge_shapes", "walk_edge_shapes", "mapc_walk_shapes") for n in EDGE_N]
+    jobs += [("mapc_edge_shapes", {"ns": (n,), "edges": n == 2})
+             for n in EDGE_N]
+    jobs += [("sharded_lanes_edge", {"ds": (d,)}) for d in (2, 4, 8)]
+    jobs.append(("group_fold_edge", {}))
+    jobs += [("generic_edge_shapes",
+              {"cases": tuple(c for c in GENERIC_OUT + GENERIC_IN
+                              if c[0] == n)})
+             for n in dict.fromkeys(c[0] for c in GENERIC_OUT + GENERIC_IN)]
+    return jobs
+
+
+def phase2_job(name, kw):
+    """Run one phase-2 check in a worker process; returns (its largest
+    difference per kernel, what it printed, seconds)."""
+    import inspect
+    import io
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.core import EpisodeBatch, EventStream
+    from repro_torch.kernels import a1_count as k_a1
+    from repro_torch.kernels import a2_count as k_a2
+    from repro_torch.kernels import ops
+    torch.set_num_threads(1)
+    fn = globals()[name]
+    have = {"np": np, "torch": torch, "ops": ops, "k_a1": k_a1,
+            "k_a2": k_a2, "EpisodeBatch": EpisodeBatch,
+            "EventStream": EventStream}
+    errs = {k: 0 for k in KERNELS}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fn(**{k: v for k, v in have.items()
+              if k in inspect.signature(fn).parameters}, errs=errs, **kw)
+    torch.cuda.synchronize()
+    return errs, out.getvalue(), time.perf_counter() - t0
+
+
+def run_phase2(errs, gen_errs):
+    """Every job of ``phase2_jobs`` on PHASE2_WORKERS spawned processes
+    (each its own CUDA context on the card, loading the kernels built
+    above); prints each job's lines in the jobs' order with its seconds,
+    and folds its differences into ``errs`` (``gen_errs`` for the generic
+    instantiations). A failed job fails the phase; the pool is shut down
+    (the jobs not started cancelled) before this returns or raises."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    jobs = phase2_jobs()
+    pool = ProcessPoolExecutor(
+        min(PHASE2_WORKERS, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futs = [pool.submit(phase2_job, name, kw) for name, kw in jobs]
+        for (name, kw), fut in zip(jobs, futs):
+            got, text, secs = fut.result()
+            sys.stdout.write(text)
+            print(f"[smoke]   ({name} {kw}: {secs:.1f} s)")
+            into = gen_errs if name == "generic_edge_shapes" else errs
+            for k, v in got.items():
+                into[k] = max(into[k], v)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 # ----------------------------------------------------------------- phase 3
@@ -2179,6 +2603,246 @@ def device_busy(torch, windows, lcap, engine, n_warm=3):
     return busy_us / 1e3, wall * 1e3
 
 
+# ------------------------------------------ path I: outside the envelope
+
+
+def envelope_stream(seconds, seed):
+    """Path I's stream: ``ENVELOPE``'s neurons at their rate (uniform
+    background) with the planted chain 0→…→N-1 at ``INTERVAL`` delays,
+    its occurrences spread evenly (so many a 10-s window)."""
+    from repro_torch.data import embedded_chain_stream
+    neurons, chain, per_window, rate, _ = ENVELOPE
+    return embedded_chain_stream(
+        neurons, list(range(chain)), INTERVAL,
+        per_window * seconds * 1000 // WINDOW_MS,
+        int(neurons * rate * seconds), seconds * 1000, seed=seed)
+
+
+def generic_seen(torch, fn) -> dict[str, int]:
+    """The generic kernels the profiler records over one call of ``fn``:
+    {``__global__`` name: launches}."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    names = {k for v in GENERIC_DEVICE_KERNELS.values() for k in v}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = collections.Counter()
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and not e.key.startswith(ANNOTATION):
+                seen[name] += e.count
+    return dict(seen)
+
+
+def envelope_path(np, torch, tally):
+    """Path I, the out-of-envelope main path: ``ENVELOPE``'s stream mined to
+    level ``ENVELOPE_LEVEL`` at LCAP ``ENVELOPE_LCAP`` (both outside the
+    fast templates, so every A1 kernel and the A2 ones above N = 8 take
+    their generic instantiations) by each of ``ENVELOPE_ENGINES`` on the
+    card, two-pass, the launch counts zeroed just before each and read
+    just after; every window equal to the same engine on the CPU plain path
+    and the first to a profiled replay on the card, the sharded miner's
+    every window to the same engine without the mesh; the planted chain
+    found whole. Then a 2-session ``MiningService`` at
+    ``SessionConfig(lcap=3, max_level=10)``, every
+    session equal to a standalone miner on the card. Then the audit
+    (``python -m repro_torch.launch.audit --fail-on-violation --json``) on
+    the card. Returns the launches summed over the runs and {engine:
+    (miner, windows)}."""
+    from repro_torch.core import StreamingMiner, stream_mesh
+    from repro_torch.data import partition_windows
+    from repro_torch.service import MiningService, SessionConfig
+    from repro_torch.telemetry import ThroughputMeter
+
+    stream = envelope_stream(ENVELOPE[4], 0)
+    windows = list(partition_windows(stream, WINDOW_MS))
+    chain = tuple(range(ENVELOPE[1]))
+
+    def mesh_of(engine, device):
+        if engine != "mapconcat_sharded":
+            return contextlib.nullcontext()
+        return stream_mesh([torch.device(device, 0) if device == "cuda"
+                            else torch.device(device)] * SHARDS)
+
+    def run(engine, device, wins, sharded=True):
+        meter = ThroughputMeter(label=f"path-I-{engine}")
+        out = []
+        with mesh_of(engine, device) if sharded else \
+                contextlib.nullcontext():
+            miner = StreamingMiner(
+                [INTERVAL], THETA, max_level=ENVELOPE_LEVEL,
+                mode="per_window", engine=engine, lcap=ENVELOPE_LCAP,
+                device=device)
+            for i, w in enumerate(wins):
+                meter.start()
+                out.append(miner.update(w, final=i == len(windows) - 1))
+                meter.stop(len(w))
+        return miner, out, meter.summary()
+
+    added = collections.Counter()
+    runs, seen, top = {}, collections.Counter(), 0
+    for engine in ENVELOPE_ENGINES:
+        torch.cuda.synchronize()
+        tally.reset_counts()
+        miner, results, s = run(engine, "cuda", windows)
+        torch.cuda.synchronize()
+        launches = tally.launch_counts()
+        added.update(launches)
+        runs[engine] = (miner, windows)
+        found = set()
+        for res, w in zip(results, windows):
+            check_result(np, res, w)
+            for fb in res.frequent:
+                found |= {tuple(e) for e in fb.etypes.tolist()}
+        n_top = max(fb.N for res in results for fb in res.frequent
+                    if fb.M)
+        top = max(top, n_top)
+        if chain not in found:
+            fail(f"path I {engine}: the planted chain {list(chain)} was not "
+                 f"found (highest level mined {n_top})")
+        for k in REQUIRED_I[engine]:
+            if launches.get(k, 0) <= 0:
+                fail(f"path I {engine}: the path launched no {k}")
+        print(f"[smoke] path I {engine}: {len(stream)} events, "
+              f"{len(windows)} windows, sustained "
+              f"{s['events_per_sec']:.1f} ev/s, window latency p99 "
+              f"{s['p99_latency_s'] * 1e3:.1f} ms, highest N mined {n_top}; "
+              f"engines per level " + "; ".join(
+                  f"L{lvl} " + ", ".join(f"{k} {v}"
+                                         for k, v in sorted(c.items()))
+                  for lvl, c in sorted(engine_table(miner).items()))
+              + f"; launches {launches}")
+        # a profiled replay of the first window names the generic kernels
+        # (a trace that recorded none of them is taken again: CUPTI has
+        # left whole traces of a long process empty)
+        for _ in range(PROFILE_ATTEMPTS):
+            replay = []
+            got = generic_seen(torch, lambda: replay.append(
+                run(engine, "cuda", windows[:1])[1][0]))
+            if got:
+                break
+        seen.update(got)
+        if not same_result(replay[0], results[0]):
+            fail(f"path I {engine}: the profiled replay of window 0 differs")
+        t0 = time.perf_counter()
+        cpu = run(engine, "cpu", windows)[1]
+        for i, res in enumerate(cpu):
+            if not same_result(res, results[i]):
+                fail(f"path I {engine} window {i}: the card differs from the "
+                     f"CPU plain path")
+        msg = (f"all {len(cpu)} window(s) equal the CPU plain path "
+               f"({time.perf_counter() - t0:.1f} s)")
+        if engine == "mapconcat_sharded":
+            alone = run(engine, "cuda", windows, sharded=False)[1]
+            if not all(same_result(a, b) for a, b in zip(results, alone)):
+                fail("path I: the sharded windows differ from the unsharded")
+            msg += f"; all {len(windows)} equal the unsharded miner's"
+        print(f"[smoke] path I {engine}: {msg}")
+    for name in ("a2_state_generic", "a1_state_generic", "a1_map_generic",
+                 "group_fold_generic", "shard_stitch_generic"):
+        if not seen.get(name):
+            fail(f"path I: the profiler saw no {name} ({dict(seen)})")
+
+    sessions, seconds = ENVELOPE_SERVICE
+    cfg = SessionConfig(intervals=(INTERVAL,), theta=THETA,
+                        theta_mode="per_window", max_level=ENVELOPE_LEVEL,
+                        window_ms=WINDOW_MS, engine="hybrid", two_pass=True,
+                        history_limit=8, lcap=ENVELOPE_LCAP)
+    tenants = [(f"I-{q}", list(partition_windows(
+        envelope_stream(seconds, q + 1), WINDOW_MS)))
+        for q in range(sessions)]
+    svc = MiningService(device="cuda")
+    for sid, wins in tenants:
+        svc.create_session(sid, cfg)
+        for j, w in enumerate(wins):
+            svc.ingest(sid, w, final=j == len(wins) - 1)
+    torch.cuda.synchronize()
+    tally.reset_counts()
+    t0 = time.perf_counter()
+    svc.pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tally.launch_counts()
+    added.update(launches)
+    for sid, wins in tenants:
+        alone = cfg.make_miner(device="cuda")
+        deltas = svc.poll(sid)
+        if [d.window_idx for d in deltas] != list(range(len(wins))):
+            fail(f"path I {sid}: windows {[d.window_idx for d in deltas]}")
+        for j, (d, w) in enumerate(zip(deltas, wins)):
+            if not same_result(d.result, alone.update(
+                    w, final=j == len(wins) - 1)):
+                fail(f"path I {sid} window {j}: the service differs from a "
+                     f"standalone miner on the card")
+    if not any(launches.get(k, 0) for k in FUSED):
+        fail(f"path I service: no fused launch ({launches})")
+    agg = svc.stats()["aggregate"]
+    print(f"[smoke] path I service: {sessions} sessions of {seconds} s in "
+          f"{wall:.2f} s, {agg['events_per_sec']:.1f} ev/s, window latency "
+          f"p99 {agg['p99_latency_s'] * 1e3:.1f} ms, every session equal to "
+          f"a standalone miner on the card; launches {launches}")
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    audit = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.audit",
+         "--fail-on-violation", "--json"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    if audit.returncode:
+        fail(f"path I: the audit exited {audit.returncode}:\n"
+             f"{audit.stdout[-3000:]}\n{audit.stderr[-3000:]}")
+    report = json.loads(audit.stdout)
+    print(f"[smoke] path I audit on the card: exit 0, "
+          f"{len(report['findings'])} findings, "
+          f"{len(report['suppressed'])} waived, summary keys "
+          f"{sorted(report['summary'])} ({time.perf_counter() - t0:.1f} s)")
+    print(f"[smoke] path I: highest N mined {top}, LCAP {ENVELOPE_LCAP}; "
+          f"generic kernels the profiler saw {dict(sorted(seen.items()))}")
+    return added, runs
+
+
+def envelope_shapes(runs):
+    """Path I's largest batch: the A1 batch of the most episodes the
+    ``ptpe`` miner carried (the higher level on a tie), with its last
+    window's events."""
+    miner, windows = runs["ptpe"]
+    frag = max((f for _, fs in miner._exact.values() for f in fs),
+               key=lambda f: (f.eps.M, f.eps.N))
+    return frag.eps, windows[-1]
+
+
+def time_generic(np, torch, cuda, calls, label, fast=False):
+    """Each generic instantiation's device time on ``calls``
+    (``generic_calls``): the mean of the kernel durations the profiler
+    records over back-to-back calls, every launch inside
+    ``cuda.generic_only``, with its bound; with ``fast`` (a case inside
+    the envelope) the fast templates' time of the same calls beside it.
+    Returns {tally name: (ms, launches recorded, Bound, what, fast ms or
+    None)}."""
+    rows = {}
+    for name, (call, _, b, what) in calls.items():
+        names = GENERIC_DEVICE_KERNELS[name]
+        with cuda.generic_only():
+            call()  # warm
+            ms, seen = device_ms(torch, call, TIMED_LAUNCHES, tuple(names),
+                                 names)
+        fast_ms = None
+        if fast:
+            names = {FAST_OF[k]: v for k, v in names.items()}
+            call()
+            fast_ms, _ = device_ms(torch, call, TIMED_LAUNCHES,
+                                   tuple(names), names)
+        rows[name] = (ms, seen, b, what, fast_ms)
+        print(f"[smoke] generic {name} at {label} ({what}): device "
+              f"{ms:.5f} ms (mean of {seen} recorded launches of "
+              f"{TIMED_LAUNCHES} calls); bound {b.ms:.5f} ms by {b.by}"
+              + (f"; fast template {fast_ms:.5f} ms, generic / fast "
+                 f"{ms / fast_ms:.2f}" if fast else ""))
+    return rows
+
+
 # ----------------------------------------------------------------- phase 4
 
 
@@ -2329,7 +2993,7 @@ def time_mapc_call(torch, kernel, plain, args, kw, what, errs, name):
                          TIMED_LAUNCHES, DEVICE_KERNELS[name])
     wrapper_ms = cuda_median_ms(torch, lambda: kernel(*args, **kw),
                                 TIMED_LAUNCHES)
-    plain_ms = cuda_median_ms(torch, lambda: plain(*args, **kw), PLAIN_RUNS)
+    plain_ms = cuda_median_ms(torch, lambda: plain(*args, **kw), 1)
     return ms, seen, wrapper_ms, plain_ms
 
 
@@ -2896,25 +3560,27 @@ def main() -> int:
                        and not single.get(k, (0, 0))[1])
         print(f"[smoke]   {lanes_kernel} spills at N <= 5 that "
               f"{kernel} lacks: {added or 'none'}")
+    generic = {}
+    for src in ("a2_count", "a1_count", "a2_mapconcat", "a1_mapconcat"):
+        for name in sorted({k for v in GENERIC_DEVICE_KERNELS.values()
+                            for k in v}):
+            for regs in ptxas_kernels(log[src]["ptxas"], name).values():
+                generic[f"{src}:{name}"] = regs
+    print(f"[smoke]   generic instantiations {{source:kernel: (registers, "
+          f"spill store bytes)}}: {generic}")
     print(f"[smoke]   resident blocks per SM at N=3: a2_lanes_kernel "
           f"{k_a2.lanes_resident_blocks(3, 'cuda')}; a1_lanes_kernel "
           + ", ".join(f"LCAP {c}: {k_a1.lanes_resident_blocks(3, c, 'cuda')}"
                       for c in (1, 2, 4, 8)))
 
     errs = {k: 0 for k in KERNELS}
+    gen_errs = {k: 0 for k in KERNELS}
     t0 = time.perf_counter()
-    edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
-    walk_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
-    mapc_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
-                     errs)
-    mapc_walk_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, EventStream,
-                     errs)
-    fused_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch, errs)
-    sharded_edge_shapes(np, torch, ops, k_a1, k_a2, EpisodeBatch,
-                        EventStream, errs)
-    group_fold_edge(np, torch, k_a1, k_a2, errs)
-    sharded_lanes_edge(np, torch, ops, k_a1, EpisodeBatch, errs)
-    print(f"[smoke] phase 2 (kernels against plain versions): "
+    run_phase2(errs, gen_errs)
+    print(f"[smoke] phase 2 (kernels and their generic instantiations "
+          f"against plain versions and the fast templates, "
+          f"{len(phase2_jobs())} jobs on "
+          f"{min(PHASE2_WORKERS, os.cpu_count() or 1)} processes): "
           f"{time.perf_counter() - t0:.1f} s")
 
     launches = {k: 0 for k in KERNELS}
@@ -3005,6 +3671,10 @@ def main() -> int:
     t0 = time.perf_counter()
     add(calibrated_path(np, torch, tally, args.lcap, path_a_h, smi))
     print(f"[smoke] phase 3 path H: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    got, runs_i = envelope_path(np, torch, tally)
+    add(got)
+    print(f"[smoke] phase 3 path I: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():
@@ -3039,6 +3709,25 @@ def main() -> int:
     rows.update(time_sharded(np, torch, ops, k_a1, k_a2, miner_e,
                              path_a[0][-1], restart_results,
                              restart_windows, recorder_f, args.lcap, errs))
+    n, cap = GENERIC_TIMED
+    types, times, batches = generic_case(np, ops, EpisodeBatch, n, 100 + n)
+    generic_rows = time_generic(np, torch, cuda, generic_calls(
+        np, torch, ops, k_a1, k_a2, EventStream, types, times, batches, cap),
+        f"N={n}, LCAP={cap}")
+    n, cap = GENERIC_RATIO
+    types, times, batches = generic_case(np, ops, EpisodeBatch, n, 100 + n)
+    time_generic(np, torch, cuda, generic_calls(
+        np, torch, ops, k_a1, k_a2, EventStream, types, times, batches, cap),
+        f"N={n}, LCAP={cap}", fast=True)
+    eps_i, w_i = envelope_shapes(runs_i)
+    calls_i = generic_calls(np, torch, ops, k_a1, k_a2, EventStream,
+                            w_i.types, w_i.times, [eps_i, eps_i],
+                            ENVELOPE_LCAP)
+    check_generic(torch, cuda, calls_i, False,
+                  f"path I's largest batch (N={eps_i.N}, M={eps_i.M})",
+                  gen_errs)
+    generic_rows_i = time_generic(np, torch, cuda, calls_i,
+                                  "path I's largest batch")
     kernels = []
     for k in KERNELS:
         ms, seen, wrapper_ms, plain_ms, b, what, *per_call = rows[k]
@@ -3050,11 +3739,21 @@ def main() -> int:
               f"({b.nbytes} B, {b.ops} int32 ops); launches {launches[k]}"
               + (f" (tally), {per_call[0]:.2f} device launches a call "
                  f"(profiler)" if per_call else ""))
+        g, g_i = generic_rows[k], generic_rows_i[k]
+        print(f"[smoke] {k} generic instantiation: max_abs_err "
+              f"{gen_errs[k]}; device {g[0]:.5f} ms at {g[3]} (bound "
+              f"{g[2].ms:.5f} ms by {g[2].by}), {g_i[0]:.5f} ms at path I's "
+              f"largest batch, {g_i[3]} (bound {g_i[2].ms:.5f} ms by "
+              f"{g_i[2].by})")
         kernels.append({"name": k, "route": "cuda", "source": SOURCES[k][0],
                         "replaces": SOURCES[k][1], "launches": launches[k],
                         "max_abs_err": errs[k], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b.ms,
-                        "bound_by": b.by, "library_ms": None})
+                        "bound_by": b.by, "library_ms": None,
+                        "generic_max_abs_err": gen_errs[k],
+                        "generic_ms": g[0], "generic_bound_ms": g[2].ms,
+                        "generic_ms_path_i": g_i[0],
+                        "generic_bound_ms_path_i": g_i[2].ms})
         if per_call:  # the tally counts K5 by shard group, K6d by shard
             kernels[-1]["device_launches_per_call"] = per_call[0]
     print(f"[smoke] phase 4 (timing): {time.perf_counter() - t0:.1f} s")

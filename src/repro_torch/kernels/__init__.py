@@ -30,10 +30,20 @@ Modules:
     128-episode tiles over all lanes, ``csrc/lane_grid.cuh``); replace
     ``repro.kernels.ops``'s ``a2_state_vmapped``, ``a1_state_vmapped``
     and ``a1_mapc_vmapped``.
+  Every kernel has, beside its fast templates (N 2..8 × LCAP 1, 2, 4,
+    8, registers unrolled), a generic instantiation that takes any N and
+    LCAP (runtime loops, the machines' state in global memory; the
+    ``*_generic`` C entry points and ``__global__`` names): ``cuda.entry``
+    sends a launch outside the templates there, under the kernel's own
+    tally name (``cuda.generic_only`` forces it, for the card tests).
+  ref — the layout oracles ``a2_count_ref``/``a1_count_ref`` (port of
+    ``repro.kernels.ref``): fresh-state wrappers over K1's and K2's plain
+    versions, which never launch a kernel.
   ops — host↔kernel layout contract and the one-shot, stateful,
     segmented and fused (``*_vmapped``) wrappers.
   cuda — nvcc build at first use (``build/kernels/``), ctypes loading,
-    operand checks, lane tables (``tiled_lanes``: K6a/K6b's tile order).
+    operand checks, lane tables (``tiled_lanes``: K6a/K6b's tile order),
+    the fast templates' envelope and ``entry``.
   tally — launch counts per kernel (``a2_count_state``, ``a1_count_state``,
     ``a2_mapconcat``, ``a1_mapconcat``, ``a2_state_vmapped``,
     ``a1_state_vmapped``, ``a1_mapc_vmapped``) and the fused launches'

@@ -21,7 +21,9 @@ Layout (all int32, level-major, episodes on the last axis):
   cnt, ovf   (M,)         cumulative completions; sticky live-eviction flag
 
 The tensors' device chooses the path: CUDA tensors launch the kernel (or
-raise), CPU tensors run the plain version. Either way the state is
+raise), CPU tensors run the plain version. Every N and LCAP outside the
+fast templates (N 2..8 × LCAP 1, 2, 4, 8) launches the kernel's generic
+instantiation (``cuda.entry``). Either way the state is
 advanced in place: the kernel reads it at its start and writes it back at
 its end, which stands in for the Pallas call's ``input_output_aliases``.
 """
@@ -34,22 +36,21 @@ import math
 import torch
 
 from . import cuda
-from .a2_count import (GROUP_SIGNATURES, check_mapc_operands, device_of,
-                       group_segments, group_slots, mapc_call,
+from .a2_count import (GROUP_SIGNATURES, check_device, check_mapc_operands,
+                       device_of, group_segments, group_slots, mapc_call,
                        mapc_fold_plain, mapc_group_fold, mapc_launch,
                        mapc_map_scan, mapc_shard_fold_plain, mapc_sharded,
-                       mapc_sharded_plain, shard_groups)
+                       mapc_sharded_plain, shard_groups, with_generic)
 from .tally import record_launch, record_plain
 
 KERNEL = "a1_count_state"
 LANES_KERNEL = "a1_state_vmapped"  # K6b, named after the reference's vmap
-MAX_LEVELS = 8  # the CUDA kernel is instantiated for N = 2 .. MAX_LEVELS
-KERNEL_LCAPS = (1, 2, 4, 8)  # ... and for these list capacities
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"a1_count_state": (
-    _I, [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "a1_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P]),
+_SIGNATURES = {**with_generic({
+    "a1_count_state": (
+        _I, [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "a1_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P])}),
     "a1_lanes_resident_blocks": (_I, [_I, _I, _I, ctypes.POINTER(_I)])}
 
 
@@ -81,23 +82,13 @@ def _launch(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events: int) -> None:
     lib = cuda.library("a1_count", _SIGNATURES)
     n, lcap, m = s.shape
     dev = et.device
-    rc = lib.a1_count_state(
+    rc = getattr(lib, cuda.entry("a1_count_state", n, lcap))(
         et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
         ev.shape[1], n_events, s.data_ptr(), ptr.data_ptr(), cnt.data_ptr(),
         ovf.data_ptr(), m, n, lcap, cuda.device_index(dev),
         cuda.stream_handle(dev))
     cuda.check_launch(lib, KERNEL, rc)
     record_launch(KERNEL)
-
-
-def _check_envelope(dev, n: int, lcap: int) -> None:
-    if dev.type == "cuda" and (not 2 <= n <= MAX_LEVELS
-                               or lcap not in KERNEL_LCAPS):
-        raise ValueError(
-            f"the CUDA kernel takes 2..{MAX_LEVELS} levels and lcap in "
-            f"{KERNEL_LCAPS}, got N={n}, lcap={lcap}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
 
 
 def _check(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events: int | None) -> int:
@@ -116,7 +107,7 @@ def _check(et, tlo, thi, ev, s, ptr, cnt, ovf, n_events: int | None) -> int:
     n_events = ep if n_events is None else int(n_events)
     if not 0 <= n_events <= ep:
         raise ValueError(f"n_events={n_events} outside [0, {ep}]")
-    _check_envelope(dev, n, lcap)
+    check_device(dev)
     return n_events
 
 
@@ -166,7 +157,7 @@ def a1_count_state_lanes(lanes) -> None:
           et.shape[1], ev.shape[1], n_events]
          for (et, tlo, thi, ev, s, ptr, cnt, ovf), n_events in lanes], 8, 10)
     table = cuda.lane_table(rows, dev)
-    rc = lib.a1_count_state_lanes(
+    rc = getattr(lib, cuda.entry("a1_count_state_lanes", n, lcap))(
         table.data_ptr(), len(rows), n_tiles, n, lcap,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, LANES_KERNEL, rc)
@@ -179,7 +170,7 @@ def lanes_resident_blocks(n_levels: int, lcap: int, device) -> int:
     instantiation)."""
     lib = cuda.library("a1_count", _SIGNATURES)
     blocks = ctypes.c_int(0)
-    rc = lib.a1_lanes_resident_blocks(
+    rc = lib.a1_lanes_resident_blocks(  # audit-ok: KC102 a query, no launch
         n_levels, lcap, cuda.device_index(torch.device(device)),
         ctypes.byref(blocks))
     cuda.check_launch(lib, LANES_KERNEL, rc)
@@ -215,11 +206,11 @@ def a1_count_kernel(et, tlo, thi, ev, *, lcap: int = 4,
 MAPC_KERNEL = "a1_mapconcat"
 MAPC_LANES_KERNEL = "a1_mapc_vmapped"  # K6c, after the reference's vmap
 
-_MAPC_SIGNATURES = {"a1_mapconcat": (
+_MAPC_SIGNATURES = {**with_generic({"a1_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
          _P, _I, _P]),
     "a1_mapconcat_lanes": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "a1_mapc_shard_fold_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P]),
+    "a1_mapc_shard_fold_lanes": (_I, [_P, _I, _I, _I, _I, _I, _P])}),
     **{f"a1_{fn}": sig for fn, sig in GROUP_SIGNATURES.items()}}
 
 
@@ -289,11 +280,11 @@ def a1_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, lcap: int = 4,
     ``f[0] | ovf`` — and ovf i32[M]; without it, the per-segment
     (a, c, b, ovf) i32[P, N, M] of the Map step (the ``mapconcatenate``
     engine folds those with its Concatenate tree)."""
-    n, m, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    check_mapc_operands(et, tlo, thi, cum, w, segs)
     dev = et.device
     if lcap < 1:
         raise ValueError("lcap must be at least 1")
-    _check_envelope(dev, n, lcap)
+    check_device(dev)
     if dev.type == "cpu":
         record_plain(MAPC_KERNEL)
         return a1_mapconcat_plain(et, tlo, thi, cum, w, segs, lcap=lcap,
@@ -320,7 +311,7 @@ def _check_lanes(lanes, lcap: int):
                              "P and the device")
     if lcap < 1:
         raise ValueError("lcap must be at least 1")
-    _check_envelope(dev, n, lcap)
+    check_device(dev)
     return n, p, dev, [args[0].shape[1] for args in lanes]
 
 
@@ -356,16 +347,17 @@ def a1_mapconcat_lanes(lanes, *, lcap: int) -> list[tuple]:
         return a1_mapconcat_lanes_plain(lanes, lcap=lcap)
     lib = _a1_mapc_lib()
     outs = _lane_outputs(n, ms, dev)
-    # every lane's [4, P, N, M] Map scratch, back to back
-    scratch = torch.empty(4 * p * n * sum(ms), dtype=torch.int32,
-                          device=dev)
+    # every lane's [4, P, N, M] Map scratch (and, on the generic path, its
+    # machines' state after it), back to back
+    sizes = [cuda.map_scratch_ints(p, n, m, lcap, True) for m in ms]
+    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
     at, rows = scratch.data_ptr(), []
-    for args, out, m in zip(lanes, outs, ms):
+    for args, out, m, size in zip(lanes, outs, ms, sizes):
         rows.append([*(x.data_ptr() for x in args), at,
                      *(o.data_ptr() for o in out), m, args[5].shape[2]])
-        at += 16 * p * n * m
+        at += 4 * size
     table = cuda.lane_table(rows, dev)
-    rc = lib.a1_mapconcat_lanes(
+    rc = getattr(lib, cuda.entry("a1_mapconcat_lanes", n, lcap))(
         table.data_ptr(), len(lanes), p, 1, max(ms), n, lcap,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, MAPC_LANES_KERNEL, rc)
@@ -421,11 +413,11 @@ def a1_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, lcap: int,
     counts equal the unsharded K4's; a flagged episode's ``c`` may
     differ, as the fold tree differs. Each segment's real events must be in
     time order, as for ``a1_mapconcat_kernel``."""
-    n, _, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    check_mapc_operands(et, tlo, thi, cum, w, segs)
     dev = et.device
     if lcap < 1:
         raise ValueError("lcap must be at least 1")
-    _check_envelope(dev, n, lcap)
+    check_device(dev)
     if dev.type == "cpu":
         def map_step(operands, s, tuples):
             tuples.copy_(torch.stack(a1_mapconcat_plain(
@@ -435,7 +427,7 @@ def a1_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, lcap: int,
             mapc_call(_a1_mapc_lib(), "a1_mapconcat", operands, s, (lcap,),
                       tuples)
     return mapc_sharded(et, tlo, thi, cum, w, segs, devices, SHARD_KERNEL,
-                        map_step, _a1_mapc_lib, "a1")
+                        map_step, _a1_mapc_lib, "a1", lcap)
 
 
 def a1_mapconcat_sharded_lanes_plain(lanes, *, lcap: int, devices):
@@ -509,24 +501,26 @@ def a1_mapconcat_sharded_lanes(lanes, *, lcap: int, devices) -> list:
                                     *operands, lcap=lcap, fold=False)),
                                 g, *slot)
             continue
-        # every lane's [4, g * P/d, N, M] Map scratch, back to back
-        scratch = torch.empty(4 * g * pl * n * sum(ms), dtype=torch.int32,
-                              device=dev)
+        # every lane's [4, g * P/d, N, M] Map scratch (and generic state),
+        # back to back
+        sizes = [cuda.map_scratch_ints(g * pl, n, m, lcap, True)
+                 for m in ms]
+        scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
         at, rows = scratch.data_ptr(), []
-        for operands, (shard, sovf), m in zip(here, slots, ms):
+        for operands, (shard, sovf), m, size in zip(here, slots, ms, sizes):
             a = shard.data_ptr()
             plane = 4 * n * m  # bytes of one [N, M] plane of a group slot
             rows.append([*(x.data_ptr() for x in operands), at, a,
                          a + plane, a + 2 * plane, a + 3 * plane,
                          sovf.data_ptr(), m, operands[5].shape[2]])
-            at += 16 * g * pl * n * m
+            at += 4 * size
         if dev == home:  # one table, one copy, for all three launches
             off = 8 * sum(map(len, rows))  # bytes of the Map rows
             rows += stitch
         table = cuda.lane_table(rows, dev)
         if dev == home:
             stitch_at = table, off
-        rc = lib.a1_mapconcat_lanes(
+        rc = getattr(lib, cuda.entry("a1_mapconcat_lanes", n, lcap))(
             table.data_ptr(), len(lanes), g * pl, g, max(ms), n, lcap,
             cuda.device_index(dev), cuda.stream_handle(dev))
         cuda.check_launch(lib, SHARDED_LANES_KERNEL, rc)
@@ -540,7 +534,7 @@ def a1_mapconcat_sharded_lanes(lanes, *, lcap: int, devices) -> list:
         return [mapc_shard_fold_plain(shard, sovf)
                 for shard, sovf in gathered]
     table, off = stitch_at or (cuda.lane_table(stitch, home), 0)
-    rc = lib.a1_mapc_shard_fold_lanes(
+    rc = getattr(lib, cuda.entry("a1_mapc_shard_fold_lanes", n))(
         table.data_ptr() + off, len(lanes), d, max(ms), n,
         cuda.device_index(home), cuda.stream_handle(home))
     cuda.check_launch(lib, SHARD_FOLD_LANES, rc)

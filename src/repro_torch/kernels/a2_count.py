@@ -19,7 +19,9 @@ Layout (all int32, level-major, episodes on the last axis):
   cnt        (M,)     cumulative completions
 
 The tensors' device chooses the path: CUDA tensors launch the kernel (or
-raise), CPU tensors run the plain version. Either way ``s`` and ``cnt`` are
+raise), CPU tensors run the plain version. Every N outside the fast
+templates' 2..8 launches the kernel's generic instantiation
+(``cuda.entry``). Either way ``s`` and ``cnt`` are
 advanced in place: the kernel reads the state at its start and writes it
 back at its end, which stands in for the Pallas call's
 ``input_output_aliases``.
@@ -36,12 +38,20 @@ from .tally import record_launch, record_plain
 
 KERNEL = "a2_count_state"
 LANES_KERNEL = "a2_state_vmapped"  # K6a, named after the reference's vmap
-MAX_LEVELS = 8  # the CUDA kernel is instantiated for N = 2 .. MAX_LEVELS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"a2_count_state": (
-    _I, [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
-    "a2_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _P]),
+
+
+def with_generic(signatures: dict) -> dict:
+    """``signatures`` and, for each entry point, its generic instantiation
+    (``<fn>_generic``, the same arguments; ``cuda.entry`` picks one)."""
+    return {**signatures,
+            **{f"{fn}_generic": sig for fn, sig in signatures.items()}}
+
+
+_SIGNATURES = {**with_generic({
+    "a2_count_state": (_I, [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
+    "a2_count_state_lanes": (_I, [_P, _I, _I, _I, _I, _P])}),
     "a2_lanes_resident_blocks": (_I, [_I, _I, ctypes.POINTER(_I)])}
 
 
@@ -69,12 +79,20 @@ def _launch(et, tlo, thi, ev, s, cnt, n_events: int) -> None:
     lib = cuda.library("a2_count", _SIGNATURES)
     n, m = et.shape
     dev = et.device
-    rc = lib.a2_count_state(
+    rc = getattr(lib, cuda.entry("a2_count_state", n))(
         et.data_ptr(), tlo.data_ptr(), thi.data_ptr(), ev.data_ptr(),
         ev.shape[1], n_events, s.data_ptr(), cnt.data_ptr(), m, n,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, KERNEL, rc)
     record_launch(KERNEL)
+
+
+def check_device(dev) -> None:
+    """Raise unless ``dev`` is a CPU or a CUDA device (the kernels take any
+    N and LCAP: ``cuda.entry`` sends a launch outside the fast templates
+    to the generic instantiation)."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
 
 
 def _check(et, tlo, thi, ev, s, cnt, n_events: int | None) -> int:
@@ -92,11 +110,7 @@ def _check(et, tlo, thi, ev, s, cnt, n_events: int | None) -> int:
     n_events = ep if n_events is None else int(n_events)
     if not 0 <= n_events <= ep:
         raise ValueError(f"n_events={n_events} outside [0, {ep}]")
-    if dev.type == "cuda" and not 2 <= n <= MAX_LEVELS:
-        raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
-                         f"got {n}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+    check_device(dev)
     return n_events
 
 
@@ -143,7 +157,7 @@ def a2_count_state_lanes(lanes) -> None:
           s.data_ptr(), cnt.data_ptr(), et.shape[1], ev.shape[1], n_events]
          for (et, tlo, thi, ev, s, cnt), n_events in lanes], 6, 8)
     table = cuda.lane_table(rows, dev)
-    rc = lib.a2_count_state_lanes(
+    rc = getattr(lib, cuda.entry("a2_count_state_lanes", n))(
         table.data_ptr(), len(rows), n_tiles, n,
         cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, LANES_KERNEL, rc)
@@ -155,7 +169,7 @@ def lanes_resident_blocks(n_levels: int, device) -> int:
     (the occupancy calculator's answer for that instantiation)."""
     lib = cuda.library("a2_count", _SIGNATURES)
     blocks = ctypes.c_int(0)
-    rc = lib.a2_lanes_resident_blocks(
+    rc = lib.a2_lanes_resident_blocks(  # audit-ok: KC102 a query, no launch
         n_levels, cuda.device_index(torch.device(device)),
         ctypes.byref(blocks))
     cuda.check_launch(lib, LANES_KERNEL, rc)
@@ -194,13 +208,13 @@ SEG_TYPE, SEG_TIME, SEG_DUP, SEG_TAU_LO, SEG_TAU_HI = range(5)
 SEG_ROWS = 5
 
 # the folds of K5, exported by both segmented libraries
-GROUP_SIGNATURES = {
+GROUP_SIGNATURES = with_generic({
     "mapc_shard_fold": (
         _I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]),
-    "mapc_group_fold": (_I, [_P, _I, _I, _I, _I, _P, _P, _I, _P])}
-_MAPC_SIGNATURES = {"a2_mapconcat": (
+    "mapc_group_fold": (_I, [_P, _I, _I, _I, _I, _P, _P, _I, _P])})
+_MAPC_SIGNATURES = {**with_generic({"a2_mapconcat": (
     _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-         _I, _P]),
+         _I, _P])}),
     **{f"a2_{fn}": sig for fn, sig in GROUP_SIGNATURES.items()}}
 
 
@@ -356,18 +370,33 @@ def a2_mapconcat_plain(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     return mapc_fold_plain(a, c, b, ovf) if fold else (a, c, b, ovf)
 
 
+def map_tuples(p: int, n: int, m: int, dev, lcap: int = 1,
+               ovf: bool = False):
+    """A segmented Map launch's output scratch [4, P, N, M] (K3's: one slot
+    and no flag; K4's: ``lcap`` and the flag), on the card followed in its
+    buffer by the generic Map's state when the launch takes the generic
+    instantiation (``cuda.map_scratch_ints``)."""
+    size = (cuda.map_scratch_ints(p, n, m, lcap, ovf)
+            if torch.device(dev).type == "cuda" else 4 * p * n * m)
+    flat = torch.empty(size, dtype=torch.int32, device=dev)
+    return flat[:4 * p * n * m].view(4, p, n, m)
+
+
 def mapc_call(lib, fn: str, operands, segs, extra, tuples, outs=None):
     """One segmented CUDA call (K3 or K4) on ``operands`` (et, tlo, thi,
-    cum, w) and ``segs``: the Map launch into ``tuples`` ([4, P, K, M])
-    and, with ``outs`` (a, c, b, f [K, M] and ovf [M]), the fold launch
-    into them; every tensor contiguous, on the operands' device.
-    ``extra`` are the kernel-specific ints after ``n_levels``. Raises on
-    a failed launch."""
+    cum, w) and ``segs``: the Map launch into ``tuples`` ([4, P, K, M],
+    from ``map_tuples``) and, with ``outs`` (a, c, b, f [K, M] and ovf
+    [M]), the fold launch into them; every tensor contiguous, on the
+    operands' device. ``extra`` are the kernel-specific ints after
+    ``n_levels`` (K4's list capacity; none for K3). Raises on a failed
+    launch."""
     et = operands[0]
     n, m = et.shape
     p, _, lw = segs.shape
     dev = et.device
-    rc = getattr(lib, fn)(
+    name = cuda.entry(fn, n, *extra)
+    # counted by the callers: mapc_launch, and K5 once a shard group
+    rc = getattr(lib, name)(  # audit-ok: KC102 its callers count it
         *(x.data_ptr() for x in operands), segs.data_ptr(), p, lw, m, n,
         *extra, int(outs is not None), tuples.data_ptr(),
         *((o.data_ptr() for o in outs) if outs is not None else [None] * 5),
@@ -383,7 +412,8 @@ def mapc_launch(lib, fn: str, kernel: str, et, tlo, thi, cum, w, segs,
     n, m = et.shape
     p = segs.shape[0]
     dev = et.device
-    tuples = torch.empty((4, p, n, m), dtype=torch.int32, device=dev)
+    # K4 passes its list capacity and keeps the flag; K3 has neither
+    tuples = map_tuples(p, n, m, dev, *extra, ovf=bool(extra))
     outs = _fold_outs(n, m, dev) if fold else None
     mapc_call(lib, fn, (et, tlo, thi, cum, w), segs, extra, tuples, outs)
     record_launch(kernel)
@@ -510,9 +540,11 @@ def mapc_group_fold(lib_of, fn: str, tuples, groups: int, shard,
         sovf.copy_(got_ovf)
         return
     lib = lib_of()
-    rc = getattr(lib, fn)(tuples.data_ptr(), p, groups, m, n,
-                          shard.data_ptr(), sovf.data_ptr(),
-                          cuda.device_index(dev), cuda.stream_handle(dev))
+    name = cuda.entry(fn, n)
+    # a part of a K5 or K6d call, which its caller counts
+    rc = getattr(lib, name)(  # audit-ok: KC102 K5's callers count it
+        tuples.data_ptr(), p, groups, m, n, shard.data_ptr(),
+        sovf.data_ptr(), cuda.device_index(dev), cuda.stream_handle(dev))
     cuda.check_launch(lib, fn, rc)
 
 
@@ -529,16 +561,17 @@ def mapc_shard_fold(lib_of, fn: str, shard, sovf) -> tuple:
         return mapc_shard_fold_plain(shard, sovf)
     lib = lib_of()
     outs = _fold_outs(n, m, dev)
-    rc = getattr(lib, fn)(shard.data_ptr(), sovf.data_ptr(), d, m, n,
-                          *(o.data_ptr() for o in outs),
-                          cuda.device_index(dev), cuda.stream_handle(dev))
+    rc = getattr(lib, cuda.entry(fn, n))(
+        shard.data_ptr(), sovf.data_ptr(), d, m, n,
+        *(o.data_ptr() for o in outs), cuda.device_index(dev),
+        cuda.stream_handle(dev))
     cuda.check_launch(lib, SHARD_FOLD, rc)
     record_launch(SHARD_FOLD)
     return tuple(outs)
 
 
 def mapc_sharded(et, tlo, thi, cum, w, segs, devices, kernel: str,
-                 map_step, lib_of, prefix: str):
+                 map_step, lib_of, prefix: str, lcap: int = 1):
     """The sharded segmented call of K5's two kinds (``prefix`` "a1" or
     "a2"): their CUDA launches, and for CPU tensors their plain versions,
     through the same grouping by device (``shard_groups``). Shard q holds
@@ -546,8 +579,9 @@ def mapc_sharded(et, tlo, thi, cum, w, segs, devices, kernel: str,
     ``devices[q]``. ``map_step(operands, segs, tuples)`` runs K3's or
     K4's Map step on the episode operands (copied once to each device
     other than theirs) over ``segs`` into the scratch ``tuples`` [4, P',
-    K, M]: each device's once, over the segments of all its shards, in
-    shard order. Counts ``kernel`` once per shard group (d per call, as
+    K, M] (``map_tuples``; ``lcap`` is K4's list capacity, and "a1" keeps
+    the flag): each device's once, over the segments of all its shards,
+    in shard order. Counts ``kernel`` once per shard group (d per call, as
     the reference counts it). Returns the stitched (a, c, b, f) i32[K, M]
     and ovf i32[M]."""
     n, m, p, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
@@ -568,8 +602,8 @@ def mapc_sharded(et, tlo, thi, cum, w, segs, devices, kernel: str,
     for dev, qs in shard_groups(devs).items():
         here = operands if dev == home else tuple(x.to(dev)
                                                   for x in operands)
-        tuples = torch.empty((4, len(qs) * pl, n, m), dtype=torch.int32,
-                             device=dev)
+        tuples = map_tuples(len(qs) * pl, n, m, dev, lcap,
+                            ovf=prefix == "a1")
         map_step(here, group_segments(segs, qs, pl).to(dev), tuples)
         *slot, new = group_slots(shard, sovf, qs, dev)
         if new:
@@ -605,18 +639,15 @@ def a2_mapconcat_sharded(et, tlo, thi, cum, w, segs, *, devices):
     Returns (a, c, b, f) i32[N, M] and ovf i32[M] (zero), the reference's
     ``a2_mapconcat_sharded_tuples`` contract; for a stream the
     unsharded K3 stitches without a flag, the counts are the same."""
-    n, _, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    check_mapc_operands(et, tlo, thi, cum, w, segs)
     dev = et.device
     if dev.type == "cpu":
         def map_step(operands, s, tuples):
             tuples.copy_(torch.stack(a2_mapconcat_plain(*operands, s,
                                                         fold=False)))
-    elif dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    elif not 2 <= n <= MAX_LEVELS:
-        raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
-                         f"got {n}")
     else:
+        check_device(dev)
+
         def map_step(operands, s, tuples):
             mapc_call(_a2_lib(), "a2_mapconcat", operands, s, (), tuples)
     return mapc_sharded(et, tlo, thi, cum, w, segs, devices, SHARD_KERNEL,
@@ -636,15 +667,11 @@ def a2_mapconcat_kernel(et, tlo, thi, cum, w, segs, *, fold: bool = True):
     ``c`` is the count, of ``f`` the unmatched flag — and ovf i32[M]
     (zero: single slots cannot overflow); without it, the per-segment
     (a, c, b, ovf) i32[P, N, M] of the Map step."""
-    n, m, _, _ = check_mapc_operands(et, tlo, thi, cum, w, segs)
+    check_mapc_operands(et, tlo, thi, cum, w, segs)
     dev = et.device
     if dev.type == "cpu":
         record_plain(MAPC_KERNEL)
         return a2_mapconcat_plain(et, tlo, thi, cum, w, segs, fold=fold)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not 2 <= n <= MAX_LEVELS:
-        raise ValueError(f"the CUDA kernel takes 2..{MAX_LEVELS} levels, "
-                         f"got {n}")
+    check_device(dev)
     return mapc_launch(_a2_lib(), "a2_mapconcat", MAPC_KERNEL, et, tlo, thi,
                        cum, w, segs, fold)

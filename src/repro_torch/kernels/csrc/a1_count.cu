@@ -250,6 +250,141 @@ a1_lanes_kernel(const long long* __restrict__ lanes, int n_lanes) {
       (tile - static_cast<int>(d[kTile0Word])) * kThreads + threadIdx.x);
 }
 
+// ---------------------------------------------------------------- generic
+//
+// The generic instantiation of K2 and K6b: any number of levels n >= 1 and
+// any list capacity lcap >= 1, for the counters outside the templates' N =
+// 2..8 x LCAP in {1, 2, 4, 8}. Simple and right, not fast: the episode's
+// bounds are read from their (N, M) tensors where a step needs them, and
+// its lists and pointers are advanced where they live, in the carried
+// s [N, LCAP, M] and ptr [N, M] (the thread owns column j, so a warp's
+// accesses are coalesced); the slot at the pointer is an indexed access.
+// The walk is a1_walk_indexed's: the same chunk staging and type index (a
+// 64-bit mask of the episode's buckets stands in for the unrolled r_b),
+// the same unsigned window test (type_index::advances) and live-eviction
+// rule. All levels still advance from the pre-event state: the last level
+// is tested first (a completion resets every list and pointer and stores
+// nothing), then the levels are written from the top down, so level i's
+// witness reads level i - 1's list before this event can write it.
+__device__ __forceinline__ void a1_walk_any(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ ev_types,
+    const int* __restrict__ ev_times, const int* __restrict__ ev_dup,
+    int n_events, int* s, int* ptr, int* __restrict__ cnt,
+    int* __restrict__ ovf, int m, int j, int n, int lcap) {
+  using namespace type_index;
+  __shared__ int sh_type[kChunk];
+  __shared__ int sh_time[kChunk];
+  __shared__ int sh_dup[kChunk];
+  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
+  const bool real = j < m;
+  const unsigned long long mask = real ? bucket_mask(et, n, m, j) : 0ull;
+  int c = real ? cnt[j] : 0;
+  int o = real ? ovf[j] : 0;
+
+  for (int base = 0; base < n_events; base += kChunk) {
+    const int len = min(kChunk, n_events - base);
+    __syncthreads();  // every thread is done with the previous chunk
+    stage_chunk<kThreads>(ev_types, ev_times, ev_dup, base, len, sh_type,
+                          sh_time, sh_dup, sh_bits);
+    __syncthreads();
+    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
+    for (int g = 0; g < n_groups; ++g) {
+      unsigned word = group_word_mask(sh_bits, g, mask);
+      while (word) {
+        const int k = g * kWarpSize + __ffs(word) - 1;
+        word &= word - 1u;
+        const int e = sh_type[k];
+        const int t = sh_time[k];
+        const bool dup = sh_dup[k] != 0;
+        if (advances(et, tlo, thi, s + j, m, j, n - 1, lcap, e, t)) {
+          ++c;
+          for (int i = 0; i < n; ++i) {
+            ptr[static_cast<size_t>(i) * m + j] = 0;
+            for (int l = 0; l < lcap; ++l)
+              s[(static_cast<size_t>(i) * lcap + l) * m + j] = kNegInf;
+          }
+          continue;
+        }
+        for (int i = n - 2; i >= 0; --i) {
+          if (!advances(et, tlo, thi, s + j, m, j, i, lcap, e, t)) continue;
+          const size_t at = static_cast<size_t>(i) * m + j;
+          const int p = ptr[at];
+          int* slot = s + (static_cast<size_t>(i) * lcap + p) * m + j;
+          const int v = *slot;
+          *slot = t;
+          o |= (v > kNegInf) & (delta(t, v) <= thi[at]) &
+               ((tlo[at] > 0) | dup);
+          ptr[at] = p + 1 == lcap ? 0 : p + 1;
+        }
+      }
+    }
+  }
+  if (real) {
+    cnt[j] = c;
+    ovf[j] = o;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+a1_state_generic(const int* __restrict__ et, const int* __restrict__ tlo,
+                 const int* __restrict__ thi,
+                 const int* __restrict__ ev_types,
+                 const int* __restrict__ ev_times,
+                 const int* __restrict__ ev_dup, int n_events, int* s,
+                 int* ptr, int* __restrict__ cnt, int* __restrict__ ovf,
+                 int m, int n, int lcap) {
+  a1_walk_any(et, tlo, thi, ev_types, ev_times, ev_dup, n_events, s, ptr,
+              cnt, ovf, m, blockIdx.x * kThreads + threadIdx.x, n, lcap);
+}
+
+// K6b's generic instantiation: a1_lanes_kernel's lane table and grid.
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks)
+a1_lanes_generic(const long long* __restrict__ lanes, int n_lanes, int n,
+                 int lcap) {
+  const int tile = blockIdx.x;
+  const long long* d =
+      lanes + static_cast<size_t>(lane_grid::find_lane(
+                  lanes, n_lanes, kLaneWords, kTile0Word, tile)) *
+                  kLaneWords;
+  const int ep = static_cast<int>(d[9]);
+  const int* ev = reinterpret_cast<const int*>(d[3]);
+  a1_walk_any(
+      reinterpret_cast<const int*>(d[0]), reinterpret_cast<const int*>(d[1]),
+      reinterpret_cast<const int*>(d[2]), ev, ev + ep, ev + 2 * ep,
+      static_cast<int>(d[10]), reinterpret_cast<int*>(d[4]),
+      reinterpret_cast<int*>(d[5]), reinterpret_cast<int*>(d[6]),
+      reinterpret_cast<int*>(d[7]), static_cast<int>(d[8]),
+      (tile - static_cast<int>(d[kTile0Word])) * kThreads + threadIdx.x, n,
+      lcap);
+}
+
+cudaError_t launch_generic(const int* et, const int* tlo, const int* thi,
+                           const int* ev, int ep, int n_events, int* s,
+                           int* ptr, int* cnt, int* ovf, int m, int n,
+                           int lcap, cudaStream_t stream) {
+  if (n < 1 || lcap < 1) return cudaErrorInvalidValue;
+  const int blocks = (m + kThreads - 1) / kThreads;
+  a1_state_generic<<<blocks, kThreads, 0, stream>>>(
+      et, tlo, thi, ev, ev + ep, ev + 2 * ep, n_events, s, ptr, cnt, ovf, m,
+      n, lcap);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_lanes_generic(const long long* lanes, int n_lanes,
+                                 int n_tiles, int n, int lcap,
+                                 cudaStream_t stream) {
+  if (n < 1 || lcap < 1) return cudaErrorInvalidValue;
+  a1_lanes_generic<<<n_tiles, kThreads, 0, stream>>>(lanes, n_lanes, n,
+                                                     lcap);
+  return cudaGetLastError();
+}
+
+cudaError_t generic_resident(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, a1_lanes_generic, kThreads, 0);
+}
+
 template <int N, int L>
 cudaError_t launch(const int* et, const int* tlo, const int* thi,
                    const int* ev, int ep, int n_events, int* s, int* ptr,
@@ -274,7 +409,8 @@ cudaError_t launch_lcap(int lcap, const int* et, const int* tlo,
                                 ovf, m, st);
     case 8: return launch<N, 8>(et, tlo, thi, ev, ep, n_events, s, ptr, cnt,
                                 ovf, m, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch_generic(et, tlo, thi, ev, ep, n_events, s, ptr,
+                                   cnt, ovf, m, N, lcap, st);
   }
 }
 
@@ -293,7 +429,7 @@ cudaError_t launch_lanes_lcap(int lcap, const long long* lanes, int n_lanes,
     case 2: return launch_lanes<N, 2>(lanes, n_lanes, n_tiles, st);
     case 4: return launch_lanes<N, 4>(lanes, n_lanes, n_tiles, st);
     case 8: return launch_lanes<N, 8>(lanes, n_lanes, n_tiles, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch_lanes_generic(lanes, n_lanes, n_tiles, N, lcap, st);
   }
 }
 
@@ -310,7 +446,7 @@ cudaError_t lanes_resident(int lcap, int* blocks) {
     case 2: return resident<N, 2>(blocks);
     case 4: return resident<N, 4>(blocks);
     case 8: return resident<N, 8>(blocks);
-    default: return cudaErrorInvalidValue;
+    default: return generic_resident(blocks);
   }
 }
 
@@ -341,9 +477,24 @@ int a1_count_state(const int* et, const int* tlo, const int* thi,
     A1_CASE(6)
     A1_CASE(7)
     A1_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default: return launch_generic(et, tlo, thi, ev, ep, n_events, s, ptr,
+                                   cnt, ovf, m, n_levels, lcap, st);
   }
 #undef A1_CASE
+}
+
+// K2's generic instantiation (any n_levels >= 1 and lcap >= 1; the entry
+// point above sends everything outside 2..8 x {1, 2, 4, 8} here), with
+// a1_count_state's contract.
+int a1_count_state_generic(const int* et, const int* tlo, const int* thi,
+                           const int* ev, int ep, int n_events, int* s,
+                           int* ptr, int* cnt, int* ovf, int m, int n_levels,
+                           int lcap, int device, void* stream) {
+  if (m <= 0 || n_events <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_generic(et, tlo, thi, ev, ep, n_events, s, ptr, cnt, ovf, m,
+                        n_levels, lcap, static_cast<cudaStream_t>(stream));
 }
 
 // K6b: lanes is a device int64[n_lanes, 12] table (see a1_lanes_kernel),
@@ -367,14 +518,27 @@ int a1_count_state_lanes(const long long* lanes, int n_lanes, int n_tiles,
     A1L_CASE(6)
     A1L_CASE(7)
     A1L_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default: return launch_lanes_generic(lanes, n_lanes, n_tiles, n_levels,
+                                         lcap, st);
   }
 #undef A1L_CASE
 }
 
+// K6b's generic instantiation, with a1_count_state_lanes' contract.
+int a1_count_state_lanes_generic(const long long* lanes, int n_lanes,
+                                 int n_tiles, int n_levels, int lcap,
+                                 int device, void* stream) {
+  if (n_lanes <= 0 || n_tiles <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_lanes_generic(lanes, n_lanes, n_tiles, n_levels, lcap,
+                              static_cast<cudaStream_t>(stream));
+}
+
 // K6b's resident blocks per SM at (n_levels, lcap) (the occupancy
-// calculator's answer for a1_lanes_kernel<n_levels, lcap> on ``device``),
-// into *blocks. Returns 0 or a cudaError_t code.
+// calculator's answer for a1_lanes_kernel<n_levels, lcap> on ``device``,
+// or for a1_lanes_generic outside the templates), into *blocks. Returns 0
+// or a cudaError_t code.
 int a1_lanes_resident_blocks(int n_levels, int lcap, int device,
                              int* blocks) {
   cudaError_t err = cudaSetDevice(device);
@@ -387,7 +551,7 @@ int a1_lanes_resident_blocks(int n_levels, int lcap, int device,
     case 6: return lanes_resident<6>(lcap, blocks);
     case 7: return lanes_resident<7>(lcap, blocks);
     case 8: return lanes_resident<8>(lcap, blocks);
-    default: return cudaErrorInvalidValue;
+    default: return generic_resident(blocks);
   }
 }
 

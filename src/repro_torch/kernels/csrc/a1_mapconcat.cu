@@ -87,6 +87,64 @@ a1_map_lanes_kernel(const long long* __restrict__ lanes, int P) {
                        lane_ptr<int>(d, kLaneTuples));
 }
 
+// K4's and K6c's generic instantiation (any N and LCAP; mapc_walk.cuh's
+// map_body_any, its machines' state following the Map output in the
+// scratch), then the generic folds of mapc_common.cuh.
+__global__ void __launch_bounds__(kThreads)
+a1_map_generic(const int* __restrict__ et, const int* __restrict__ tlo,
+               const int* __restrict__ thi, const int* __restrict__ cum,
+               const int* __restrict__ wspan, const int* __restrict__ segs,
+               int lw, int m, int n, int lcap, int* __restrict__ tuples) {
+  map_body_any<true>(et, tlo, thi, cum, wspan, segs, lw, m,
+                     blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                     blockIdx.z, gridDim.z, n, lcap, tuples);
+}
+
+__global__ void __launch_bounds__(kThreads)
+a1_map_lanes_generic(const long long* __restrict__ lanes, int P, int n,
+                     int lcap) {
+  const int lane = blockIdx.z / P;
+  const long long* d = lanes + static_cast<size_t>(lane) * kLaneWords;
+  const int m = static_cast<int>(d[kLaneM]);
+  if (static_cast<int>(blockIdx.x) * kThreads >= m) return;
+  map_body_any<true>(lane_ptr<const int>(d, kLaneEt),
+                     lane_ptr<const int>(d, kLaneTlo),
+                     lane_ptr<const int>(d, kLaneThi),
+                     lane_ptr<const int>(d, kLaneCum),
+                     lane_ptr<const int>(d, kLaneW),
+                     lane_ptr<const int>(d, kLaneSegs),
+                     static_cast<int>(d[kLaneLw]), m,
+                     blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                     blockIdx.z - lane * P, P, n, lcap,
+                     lane_ptr<int>(d, kLaneTuples));
+}
+
+cudaError_t launch_generic(const int* et, const int* tlo, const int* thi,
+                           const int* cum, const int* w, const int* segs,
+                           int p, int lw, int m, int n, int lcap, bool fold,
+                           int* tuples, int* a, int* c, int* b, int* f,
+                           int* ovf, cudaStream_t st) {
+  if (n < 1 || lcap < 1) return cudaErrorInvalidValue;
+  a1_map_generic<<<map_grid(m, n, p), kThreads, 0, st>>>(
+      et, tlo, thi, cum, w, segs, lw, m, n, lcap, tuples);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !fold) return err;
+  return launch_fold_generic(tuples, p, m, n, true, a, c, b, f, ovf, st);
+}
+
+cudaError_t launch_lanes_generic(const long long* lanes, int n_lanes, int p,
+                                 int groups, int max_m, int n, int lcap,
+                                 cudaStream_t st) {
+  if (n < 1 || lcap < 1) return cudaErrorInvalidValue;
+  const int tiles = (max_m + kThreads - 1) / kThreads;
+  a1_map_lanes_generic<<<dim3(tiles, n, n_lanes * p), kThreads, 0, st>>>(
+      lanes, p, n, lcap);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_group_fold_lanes_generic(lanes, n_lanes, p, groups, max_m, n,
+                                         st);
+}
+
 template <int N, int L>
 cudaError_t launch_lanes(const long long* lanes, int n_lanes, int p,
                          int groups, int max_m, cudaStream_t st) {
@@ -109,7 +167,8 @@ cudaError_t launch_lanes_lcap(int lcap, const long long* lanes, int n_lanes,
     case 2: return launch_lanes<N, 2>(lanes, n_lanes, p, groups, max_m, st);
     case 4: return launch_lanes<N, 4>(lanes, n_lanes, p, groups, max_m, st);
     case 8: return launch_lanes<N, 8>(lanes, n_lanes, p, groups, max_m, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch_lanes_generic(lanes, n_lanes, p, groups, max_m, N,
+                                         lcap, st);
   }
 }
 
@@ -140,7 +199,8 @@ cudaError_t launch_lcap(int lcap, const int* et, const int* tlo,
                                 tuples, a, c, b, f, ovf, st);
     case 8: return launch<N, 8>(et, tlo, thi, cum, w, segs, p, lw, m, fold,
                                 tuples, a, c, b, f, ovf, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch_generic(et, tlo, thi, cum, w, segs, p, lw, m, N,
+                                   lcap, fold, tuples, a, c, b, f, ovf, st);
   }
 }
 
@@ -149,7 +209,9 @@ cudaError_t launch_lcap(int lcap, const int* et, const int* tlo,
 extern "C" {
 
 // et/tlo/thi/cum: int32[n_levels, m]; w: int32[m]; segs: int32[p, 5, lw];
-// tuples: int32[4, p, n_levels, m] scratch (the Map output). With fold != 0
+// tuples: int32[4, p, n_levels, m] scratch (the Map output), followed by
+// map_state_ints(p, n_levels, lcap, m, true) more ints when (n_levels, lcap)
+// is outside 2..8 x {1, 2, 4, 8} (the generic Map's state). With fold != 0
 // also writes the stitched a/c/b/f int32[n_levels, m] and ovf int32[m].
 // Returns 0 or a cudaError_t code.
 int a1_mapconcat(const int* et, const int* tlo, const int* thi,
@@ -173,9 +235,26 @@ int a1_mapconcat(const int* et, const int* tlo, const int* thi,
     A1M_CASE(6)
     A1M_CASE(7)
     A1M_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default: return launch_generic(et, tlo, thi, cum, w, segs, p, lw, m,
+                                   n_levels, lcap, fold != 0, tuples, a, c,
+                                   b, f, ovf, st);
   }
 #undef A1M_CASE
+}
+
+// K4's generic instantiation (any n_levels, lcap >= 1), with a1_mapconcat's
+// contract; tuples is always followed by the generic Map's state.
+int a1_mapconcat_generic(const int* et, const int* tlo, const int* thi,
+                         const int* cum, const int* w, const int* segs,
+                         int p, int lw, int m, int n_levels, int lcap,
+                         int fold, int* tuples, int* a, int* c, int* b,
+                         int* f, int* ovf, int device, void* stream) {
+  if (m <= 0 || p <= 0 || lw <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_generic(et, tlo, thi, cum, w, segs, p, lw, m, n_levels, lcap,
+                        fold != 0, tuples, a, c, b, f, ovf,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K6c and K6d's Map: lanes is a device int64[n_lanes, 14] table
@@ -207,9 +286,26 @@ int a1_mapconcat_lanes(const long long* lanes, int n_lanes, int p,
     A1ML_CASE(6)
     A1ML_CASE(7)
     A1ML_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default: return launch_lanes_generic(lanes, n_lanes, p, groups, max_m,
+                                         n_levels, lcap, st);
   }
 #undef A1ML_CASE
+}
+
+// K6c's (and K6d's Map's) generic instantiation, with a1_mapconcat_lanes'
+// contract; each lane's Map scratch is followed by its generic Map state
+// (map_state_ints(p, n_levels, lcap, m, true) ints).
+int a1_mapconcat_lanes_generic(const long long* lanes, int n_lanes, int p,
+                               int groups, int max_m, int n_levels, int lcap,
+                               int device, void* stream) {
+  if (n_lanes <= 0 || max_m <= 0 || p <= 0) return 0;
+  if (static_cast<long long>(n_lanes) * p > 65535 || n_lanes > 65535 ||
+      groups <= 0 || p % groups)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_lanes_generic(lanes, n_lanes, p, groups, max_m, n_levels,
+                              lcap, static_cast<cudaStream_t>(stream));
 }
 
 // K5's cross-shard fold (mapc_common.cuh): shard int32[d, 4, n_levels, m]
@@ -241,6 +337,29 @@ int a1_mapc_group_fold(const int* tuples, int p, int groups, int m,
                        void* stream) {
   return mapc::group_fold(tuples, p, groups, m, n_levels, shard, sovf,
                           device, stream);
+}
+
+// The generic instantiations of the three folds above (any n_levels >= 1),
+// with their contracts.
+int a1_mapc_shard_fold_generic(const int* shard, const int* sovf, int d,
+                               int m, int n_levels, int* a, int* c, int* b,
+                               int* f, int* ovf, int device, void* stream) {
+  return mapc::shard_fold_any(shard, sovf, d, m, n_levels, a, c, b, f, ovf,
+                              device, stream);
+}
+
+int a1_mapc_shard_fold_lanes_generic(const long long* lanes, int n_lanes,
+                                     int d, int max_m, int n_levels,
+                                     int device, void* stream) {
+  return mapc::shard_fold_lanes_any(lanes, n_lanes, d, max_m, n_levels,
+                                    device, stream);
+}
+
+int a1_mapc_group_fold_generic(const int* tuples, int p, int groups, int m,
+                               int n_levels, int* shard, int* sovf,
+                               int device, void* stream) {
+  return mapc::group_fold_any(tuples, p, groups, m, n_levels, shard, sovf,
+                              device, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -219,6 +219,109 @@ cudaError_t lanes_resident(int* blocks) {
       blocks, a2_lanes_kernel<N>, kThreads, 0);
 }
 
+// ---------------------------------------------------------------- generic
+//
+// The generic instantiation of K1 and K6a: any number of levels n >= 1,
+// for the counters outside the templates' N = 2..8. Simple and right, not
+// fast: the episode's bounds are read from their (N, M) tensors where a
+// step needs them, and its state is advanced where it lives, in the carried
+// s [N, M] (the thread owns column j, so a warp's accesses are coalesced).
+// The walk is a2_walk_indexed's: the same chunk staging and type index (a
+// 64-bit mask of the episode's buckets stands in for the unrolled r_b),
+// the same unsigned window test (type_index::advances). All levels still
+// advance from the pre-event state: the last level is tested first (a
+// completion resets every level and stores nothing), then the levels are
+// written from the top down, so level i reads level i - 1 before this
+// event can write it.
+__device__ __forceinline__ void a2_walk_any(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ ev_types,
+    const int* __restrict__ ev_times, int n_events, int* s,
+    int* __restrict__ cnt, int m, int j, int n) {
+  using namespace type_index;
+  __shared__ int sh_type[kChunk];
+  __shared__ int sh_time[kChunk];
+  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
+  const bool real = j < m;
+  const unsigned long long mask = real ? bucket_mask(et, n, m, j) : 0ull;
+  int c = real ? cnt[j] : 0;
+
+  for (int base = 0; base < n_events; base += kChunk) {
+    const int len = min(kChunk, n_events - base);
+    __syncthreads();  // every thread is done with the previous chunk
+    stage_chunk<kThreads>(ev_types, ev_times, nullptr, base, len, sh_type,
+                          sh_time, nullptr, sh_bits);
+    __syncthreads();
+    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
+    for (int g = 0; g < n_groups; ++g) {
+      unsigned word = group_word_mask(sh_bits, g, mask);
+      while (word) {
+        const int k = g * kWarpSize + __ffs(word) - 1;
+        word &= word - 1u;
+        const int e = sh_type[k];
+        const int t = sh_time[k];
+        if (advances(et, tlo, thi, s + j, m, j, n - 1, 1, e, t)) {
+          ++c;
+          for (int i = 0; i < n; ++i)
+            s[static_cast<size_t>(i) * m + j] = kNegInf;
+          continue;
+        }
+        for (int i = n - 2; i >= 0; --i)
+          if (advances(et, tlo, thi, s + j, m, j, i, 1, e, t))
+            s[static_cast<size_t>(i) * m + j] = t;
+      }
+    }
+  }
+  if (real) cnt[j] = c;
+}
+
+__global__ void __launch_bounds__(kThreads)
+a2_state_generic(const int* __restrict__ et, const int* __restrict__ tlo,
+                 const int* __restrict__ thi,
+                 const int* __restrict__ ev_types,
+                 const int* __restrict__ ev_times, int n_events, int* s,
+                 int* __restrict__ cnt, int m, int n) {
+  a2_walk_any(et, tlo, thi, ev_types, ev_times, n_events, s, cnt, m,
+              blockIdx.x * kThreads + threadIdx.x, n);
+}
+
+// K6a's generic instantiation: a2_lanes_kernel's lane table and grid.
+__global__ void __launch_bounds__(kThreads, kLaneMinBlocks)
+a2_lanes_generic(const long long* __restrict__ lanes, int n_lanes, int n) {
+  const int tile = blockIdx.x;
+  const long long* d =
+      lanes + static_cast<size_t>(lane_grid::find_lane(
+                  lanes, n_lanes, kLaneWords, kTile0Word, tile)) *
+                  kLaneWords;
+  const int ep = static_cast<int>(d[7]);
+  const int* ev = reinterpret_cast<const int*>(d[3]);
+  a2_walk_any(reinterpret_cast<const int*>(d[0]),
+              reinterpret_cast<const int*>(d[1]),
+              reinterpret_cast<const int*>(d[2]), ev, ev + ep,
+              static_cast<int>(d[8]), reinterpret_cast<int*>(d[4]),
+              reinterpret_cast<int*>(d[5]), static_cast<int>(d[6]),
+              (tile - static_cast<int>(d[kTile0Word])) * kThreads +
+                  threadIdx.x,
+              n);
+}
+
+cudaError_t launch_generic(const int* et, const int* tlo, const int* thi,
+                           const int* ev, int ep, int n_events, int* s,
+                           int* cnt, int m, int n, cudaStream_t stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  const int blocks = (m + kThreads - 1) / kThreads;
+  a2_state_generic<<<blocks, kThreads, 0, stream>>>(
+      et, tlo, thi, ev, ev + ep, n_events, s, cnt, m, n);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_lanes_generic(const long long* lanes, int n_lanes,
+                                 int n_tiles, int n, cudaStream_t stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  a2_lanes_generic<<<n_tiles, kThreads, 0, stream>>>(lanes, n_lanes, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,8 +344,23 @@ int a2_count_state(const int* et, const int* tlo, const int* thi,
     case 6: return launch<6>(et, tlo, thi, ev, ep, n_events, s, cnt, m, st);
     case 7: return launch<7>(et, tlo, thi, ev, ep, n_events, s, cnt, m, st);
     case 8: return launch<8>(et, tlo, thi, ev, ep, n_events, s, cnt, m, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_generic(et, tlo, thi, ev, ep, n_events, s, cnt, m,
+                            n_levels, st);
   }
+}
+
+// K1's generic instantiation (any n_levels >= 1; the entry point above
+// sends every n_levels outside 2..8 here), with a2_count_state's contract.
+int a2_count_state_generic(const int* et, const int* tlo, const int* thi,
+                           const int* ev, int ep, int n_events, int* s,
+                           int* cnt, int m, int n_levels, int device,
+                           void* stream) {
+  if (m <= 0 || n_events <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_generic(et, tlo, thi, ev, ep, n_events, s, cnt, m, n_levels,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K6a: lanes is a device int64[n_lanes, 10] table (see a2_lanes_kernel),
@@ -262,8 +380,20 @@ int a2_count_state_lanes(const long long* lanes, int n_lanes, int n_tiles,
     case 6: return launch_lanes<6>(lanes, n_lanes, n_tiles, st);
     case 7: return launch_lanes<7>(lanes, n_lanes, n_tiles, st);
     case 8: return launch_lanes<8>(lanes, n_lanes, n_tiles, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_lanes_generic(lanes, n_lanes, n_tiles, n_levels, st);
   }
+}
+
+// K6a's generic instantiation, with a2_count_state_lanes' contract.
+int a2_count_state_lanes_generic(const long long* lanes, int n_lanes,
+                                 int n_tiles, int n_levels, int device,
+                                 void* stream) {
+  if (n_lanes <= 0 || n_tiles <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_lanes_generic(lanes, n_lanes, n_tiles, n_levels,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K6a's resident blocks per SM at n_levels (the occupancy calculator's
@@ -280,7 +410,9 @@ int a2_lanes_resident_blocks(int n_levels, int device, int* blocks) {
     case 6: return lanes_resident<6>(blocks);
     case 7: return lanes_resident<7>(blocks);
     case 8: return lanes_resident<8>(blocks);
-    default: return cudaErrorInvalidValue;
+    default:
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, a2_lanes_generic, kThreads, 0);
   }
 }
 

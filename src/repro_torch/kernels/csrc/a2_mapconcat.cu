@@ -48,6 +48,32 @@ a2_map_kernel(const int* __restrict__ et, const int* __restrict__ tlo,
                         blockIdx.z, gridDim.z, tuples);
 }
 
+// K3's generic instantiation (any N; mapc_walk.cuh's map_body_any at one
+// slot, its machines' state following the Map output in the scratch), then
+// the generic segment fold of mapc_common.cuh.
+__global__ void __launch_bounds__(kThreads)
+a2_map_generic(const int* __restrict__ et, const int* __restrict__ tlo,
+               const int* __restrict__ thi, const int* __restrict__ cum,
+               const int* __restrict__ wspan, const int* __restrict__ segs,
+               int lw, int m, int n, int* __restrict__ tuples) {
+  map_body_any<false>(et, tlo, thi, cum, wspan, segs, lw, m,
+                      blockIdx.x * kThreads + threadIdx.x, blockIdx.y,
+                      blockIdx.z, gridDim.z, n, 1, tuples);
+}
+
+cudaError_t launch_generic(const int* et, const int* tlo, const int* thi,
+                           const int* cum, const int* w, const int* segs,
+                           int p, int lw, int m, int n, bool fold,
+                           int* tuples, int* a, int* c, int* b, int* f,
+                           int* ovf, cudaStream_t st) {
+  if (n < 1) return cudaErrorInvalidValue;
+  a2_map_generic<<<map_grid(m, n, p), kThreads, 0, st>>>(
+      et, tlo, thi, cum, w, segs, lw, m, n, tuples);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !fold) return err;
+  return launch_fold_generic(tuples, p, m, n, false, a, c, b, f, ovf, st);
+}
+
 template <int N>
 cudaError_t launch(const int* et, const int* tlo, const int* thi,
                    const int* cum, const int* w, const int* segs, int p,
@@ -65,8 +91,10 @@ cudaError_t launch(const int* et, const int* tlo, const int* thi,
 extern "C" {
 
 // As a1_mapconcat (csrc/a1_mapconcat.cu) without the list capacity; tlo
-// holds the A2 pass's inclusive lower bound (tlo - 1). Returns 0 or a
-// cudaError_t code.
+// holds the A2 pass's inclusive lower bound (tlo - 1). Outside n_levels
+// 2..8 the scratch ``tuples`` is followed by map_state_ints(p, n_levels, 1,
+// m, false) ints (the generic Map's state). Returns 0 or a cudaError_t
+// code.
 int a2_mapconcat(const int* et, const int* tlo, const int* thi,
                  const int* cum, const int* w, const int* segs, int p,
                  int lw, int m, int n_levels, int fold, int* tuples, int* a,
@@ -88,9 +116,26 @@ int a2_mapconcat(const int* et, const int* tlo, const int* thi,
     A2M_CASE(6)
     A2M_CASE(7)
     A2M_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default: return launch_generic(et, tlo, thi, cum, w, segs, p, lw, m,
+                                   n_levels, fold != 0, tuples, a, c, b, f,
+                                   ovf, st);
   }
 #undef A2M_CASE
+}
+
+// K3's generic instantiation (any n_levels >= 1), with a2_mapconcat's
+// contract; tuples is always followed by the generic Map's state.
+int a2_mapconcat_generic(const int* et, const int* tlo, const int* thi,
+                         const int* cum, const int* w, const int* segs,
+                         int p, int lw, int m, int n_levels, int fold,
+                         int* tuples, int* a, int* c, int* b, int* f,
+                         int* ovf, int device, void* stream) {
+  if (m <= 0 || p <= 0 || lw <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_generic(et, tlo, thi, cum, w, segs, p, lw, m, n_levels,
+                        fold != 0, tuples, a, c, b, f, ovf,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // K5's cross-shard fold for the single-slot machines (mapc_common.cuh),
@@ -112,6 +157,22 @@ int a2_mapc_group_fold(const int* tuples, int p, int groups, int m,
                        void* stream) {
   return mapc::group_fold(tuples, p, groups, m, n_levels, shard, sovf,
                           device, stream);
+}
+
+// The generic instantiations of the two folds above (any n_levels >= 1),
+// with their contracts.
+int a2_mapc_shard_fold_generic(const int* shard, const int* sovf, int d,
+                               int m, int n_levels, int* a, int* c, int* b,
+                               int* f, int* ovf, int device, void* stream) {
+  return mapc::shard_fold_any(shard, sovf, d, m, n_levels, a, c, b, f, ovf,
+                              device, stream);
+}
+
+int a2_mapc_group_fold_generic(const int* tuples, int p, int groups, int m,
+                               int n_levels, int* shard, int* sovf,
+                               int device, void* stream) {
+  return mapc::group_fold_any(tuples, p, groups, m, n_levels, shard, sovf,
+                              device, stream);
 }
 
 const char* kernel_error_string(int code) {

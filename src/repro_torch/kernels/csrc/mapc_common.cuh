@@ -381,6 +381,223 @@ cudaError_t launch_group_fold(const int* tuples, int p, int groups, int m,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- generic
+//
+// The generic folds, for any number of phases K: fold_body's and
+// shard_fold_body's rule (fold_pair's, bit for bit), the carried tuple held
+// in the outputs themselves instead of in registers — the thread owns
+// column j of a/c/b/f [K, M] — and the right tuple read where it lies.
+// Each phase k of the carry reads only its own b and the right tuple, so
+// the stitch runs in place, one phase at a time.
+
+// One stitch step in place: the right tuple's fields at ra/rc/rb[/rf]
+// (column j already added; phase k' at k' * m), rf null for segment tuples
+// (no flag of their own).
+__device__ __forceinline__ void stitch_any(int kk, int m, int j,
+                                           const int* __restrict__ ra,
+                                           const int* __restrict__ rc,
+                                           const int* __restrict__ rb,
+                                           const int* __restrict__ rf,
+                                           int* __restrict__ out_c,
+                                           int* __restrict__ out_b,
+                                           int* __restrict__ out_f) {
+  for (int k = 0; k < kk; ++k) {
+    const size_t at = static_cast<size_t>(k) * m + j;
+    const int cb = out_b[at];
+    int kp = 0;
+    bool matched = false;
+    for (int q = 0; q < kk && !matched; ++q) {
+      if (ra[static_cast<size_t>(q) * m] == cb) {
+        kp = q;
+        matched = true;
+      }
+    }
+    const size_t r = static_cast<size_t>(kp) * m;
+    out_c[at] += rc[r];
+    out_b[at] = rb[r];
+    const bool gf = rf != nullptr && rf[r] != 0;
+    out_f[at] = (out_f[at] != 0 || gf || !matched) ? 1 : 0;
+  }
+}
+
+// fold_body at runtime K = kk.
+__device__ __forceinline__ void fold_body_any(
+    const int* __restrict__ tuples, size_t plane, int q0, int q1, int m,
+    int j, int kk, bool with_ovf, int* __restrict__ out_a,
+    int* __restrict__ out_c, int* __restrict__ out_b,
+    int* __restrict__ out_f, int* __restrict__ out_ovf) {
+  if (j >= m) return;
+  const int* ta = tuples;
+  const int* tc = tuples + plane;
+  const int* tb = tuples + 2 * plane;
+  const int* to = tuples + 3 * plane;
+  const size_t first = static_cast<size_t>(q0) * kk * m + j;
+  int o = 0;
+  for (int k = 0; k < kk; ++k) {
+    const size_t at = static_cast<size_t>(k) * m;
+    out_a[at + j] = ta[first + at];
+    out_c[at + j] = tc[first + at];
+    out_b[at + j] = tb[first + at];
+    out_f[at + j] = 0;
+    if (with_ovf) o |= to[first + at];
+  }
+  for (int q = q0 + 1; q < q1; ++q) {
+    const size_t off = static_cast<size_t>(q) * kk * m + j;
+    if (with_ovf)
+      for (int k = 0; k < kk; ++k) o |= to[off + static_cast<size_t>(k) * m];
+    stitch_any(kk, m, j, ta + off, tc + off, tb + off, nullptr, out_c, out_b,
+               out_f);
+  }
+  out_ovf[j] = o != 0;
+}
+
+// shard_fold_body at runtime K = kk.
+__device__ __forceinline__ void shard_fold_body_any(
+    const int* __restrict__ shard, const int* __restrict__ sovf, int d,
+    int m, int j, int kk, int* __restrict__ out_a, int* __restrict__ out_c,
+    int* __restrict__ out_b, int* __restrict__ out_f,
+    int* __restrict__ out_ovf) {
+  if (j >= m) return;
+  const size_t plane = static_cast<size_t>(kk) * m;
+  int o = sovf[j];
+  for (int k = 0; k < kk; ++k) {
+    const size_t at = static_cast<size_t>(k) * m + j;
+    out_a[at] = shard[at];
+    out_c[at] = shard[plane + at];
+    out_b[at] = shard[2 * plane + at];
+    out_f[at] = shard[3 * plane + at] != 0;
+  }
+  for (int q = 1; q < d; ++q) {
+    const int* s = shard + 4 * plane * q + j;
+    o |= sovf[static_cast<size_t>(q) * m + j];
+    stitch_any(kk, m, j, s, s + plane, s + 2 * plane, s + 3 * plane, out_c,
+               out_b, out_f);
+  }
+  out_ovf[j] = o != 0;
+}
+
+// fold_kernel's generic instantiation.
+__global__ void __launch_bounds__(kThreads)
+seg_fold_generic(const int* __restrict__ tuples, int p, int m, int kk,
+                 bool with_ovf, int* __restrict__ out_a,
+                 int* __restrict__ out_c, int* __restrict__ out_b,
+                 int* __restrict__ out_f, int* __restrict__ out_ovf) {
+  fold_body_any(tuples, static_cast<size_t>(p) * kk * m, 0, p, m,
+                blockIdx.x * kThreads + threadIdx.x, kk, with_ovf, out_a,
+                out_c, out_b, out_f, out_ovf);
+}
+
+// fold_groups_kernel's generic instantiation.
+__global__ void __launch_bounds__(kThreads)
+group_fold_generic(const int* __restrict__ tuples, int p, int groups, int m,
+                   int kk, int* __restrict__ shard, int* __restrict__ sovf) {
+  const int g = blockIdx.y;
+  const int pl = p / groups;
+  const size_t plane = static_cast<size_t>(kk) * m;
+  int* out = shard + 4 * plane * g;
+  fold_body_any(tuples, static_cast<size_t>(p) * kk * m, g * pl,
+                (g + 1) * pl, m, blockIdx.x * kThreads + threadIdx.x, kk,
+                true, out, out + plane, out + 2 * plane, out + 3 * plane,
+                sovf + static_cast<size_t>(g) * m);
+}
+
+// fold_groups_lanes_kernel's generic instantiation.
+__global__ void __launch_bounds__(kThreads)
+group_fold_lanes_generic(const long long* __restrict__ lanes, int p,
+                         int groups, int kk) {
+  const long long* d = lanes + static_cast<size_t>(blockIdx.y) * kLaneWords;
+  const int m = static_cast<int>(d[kLaneM]);
+  const int g = blockIdx.z;
+  const int pl = p / groups;
+  const size_t slot = static_cast<size_t>(g) * 4 * kk * m;
+  fold_body_any(lane_ptr<const int>(d, kLaneTuples),
+                static_cast<size_t>(p) * kk * m, g * pl, (g + 1) * pl, m,
+                blockIdx.x * kThreads + threadIdx.x, kk, true,
+                lane_ptr<int>(d, kLaneA) + slot,
+                lane_ptr<int>(d, kLaneC) + slot,
+                lane_ptr<int>(d, kLaneB) + slot,
+                lane_ptr<int>(d, kLaneF) + slot,
+                lane_ptr<int>(d, kLaneOvf) + static_cast<size_t>(g) * m);
+}
+
+// stitch_shards_kernel's generic instantiation.
+__global__ void __launch_bounds__(kThreads)
+shard_stitch_generic(const int* __restrict__ shard,
+                     const int* __restrict__ sovf, int d, int m, int kk,
+                     int* __restrict__ out_a, int* __restrict__ out_c,
+                     int* __restrict__ out_b, int* __restrict__ out_f,
+                     int* __restrict__ out_ovf) {
+  shard_fold_body_any(shard, sovf, d, m, blockIdx.x * kThreads + threadIdx.x,
+                      kk, out_a, out_c, out_b, out_f, out_ovf);
+}
+
+// stitch_shard_lanes_kernel's generic instantiation.
+__global__ void __launch_bounds__(kThreads)
+shard_stitch_lanes_generic(const long long* __restrict__ lanes, int d,
+                           int kk) {
+  const long long* s =
+      lanes + static_cast<size_t>(blockIdx.y) * kShardLaneWords;
+  shard_fold_body_any(lane_ptr<const int>(s, kSLaneShard),
+                      lane_ptr<const int>(s, kSLaneSovf), d,
+                      static_cast<int>(s[kSLaneM]),
+                      blockIdx.x * kThreads + threadIdx.x, kk,
+                      lane_ptr<int>(s, kSLaneA), lane_ptr<int>(s, kSLaneC),
+                      lane_ptr<int>(s, kSLaneB), lane_ptr<int>(s, kSLaneF),
+                      lane_ptr<int>(s, kSLaneOvf));
+}
+
+inline cudaError_t launch_fold_generic(const int* tuples, int p, int m,
+                                       int kk, bool with_ovf, int* a, int* c,
+                                       int* b, int* f, int* ovf,
+                                       cudaStream_t st) {
+  if (kk < 1) return cudaErrorInvalidValue;
+  seg_fold_generic<<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      tuples, p, m, kk, with_ovf, a, c, b, f, ovf);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_group_fold_generic(const int* tuples, int p,
+                                             int groups, int m, int kk,
+                                             int* shard, int* sovf,
+                                             cudaStream_t st) {
+  if (kk < 1) return cudaErrorInvalidValue;
+  const dim3 grid((m + kThreads - 1) / kThreads, groups);
+  group_fold_generic<<<grid, kThreads, 0, st>>>(tuples, p, groups, m, kk,
+                                                shard, sovf);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_group_fold_lanes_generic(const long long* lanes,
+                                                   int n_lanes, int p,
+                                                   int groups, int max_m,
+                                                   int kk, cudaStream_t st) {
+  if (kk < 1) return cudaErrorInvalidValue;
+  const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes, groups);
+  group_fold_lanes_generic<<<grid, kThreads, 0, st>>>(lanes, p, groups, kk);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_shard_fold_generic(const int* shard,
+                                             const int* sovf, int d, int m,
+                                             int kk, int* a, int* c, int* b,
+                                             int* f, int* ovf,
+                                             cudaStream_t st) {
+  if (kk < 1) return cudaErrorInvalidValue;
+  shard_stitch_generic<<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      shard, sovf, d, m, kk, a, c, b, f, ovf);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_shard_fold_lanes_generic(const long long* lanes,
+                                                   int n_lanes, int d,
+                                                   int max_m, int kk,
+                                                   cudaStream_t st) {
+  if (kk < 1) return cudaErrorInvalidValue;
+  const dim3 grid((max_m + kThreads - 1) / kThreads, n_lanes);
+  shard_stitch_lanes_generic<<<grid, kThreads, 0, st>>>(lanes, d, kk);
+  return cudaGetLastError();
+}
+
 // The C entry points' bodies (one per library that exports them). Return
 // 0 or a cudaError_t code.
 inline int shard_fold(const int* shard, const int* sovf, int d, int m,
@@ -401,7 +618,9 @@ inline int shard_fold(const int* shard, const int* sovf, int d, int m,
     SHARD_FOLD_CASE(6)
     SHARD_FOLD_CASE(7)
     SHARD_FOLD_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_shard_fold_generic(shard, sovf, d, m, n_levels, a, c, b,
+                                       f, ovf, st);
   }
 #undef SHARD_FOLD_CASE
 }
@@ -422,7 +641,9 @@ inline int shard_fold_lanes(const long long* lanes, int n_lanes, int d,
     case 6: return launch_shard_fold_lanes<6>(lanes, n_lanes, d, max_m, st);
     case 7: return launch_shard_fold_lanes<7>(lanes, n_lanes, d, max_m, st);
     case 8: return launch_shard_fold_lanes<8>(lanes, n_lanes, d, max_m, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_shard_fold_lanes_generic(lanes, n_lanes, d, max_m,
+                                             n_levels, st);
   }
 }
 
@@ -445,9 +666,46 @@ inline int group_fold(const int* tuples, int p, int groups, int m,
     GROUP_FOLD_CASE(6)
     GROUP_FOLD_CASE(7)
     GROUP_FOLD_CASE(8)
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_group_fold_generic(tuples, p, groups, m, n_levels, shard,
+                                       sovf, st);
   }
 #undef GROUP_FOLD_CASE
+}
+
+// The generic folds' C entry points' bodies (any n_levels >= 1), with the
+// contracts of shard_fold, shard_fold_lanes and group_fold above, which
+// send every n_levels outside 2..8 to the same launches.
+inline int shard_fold_any(const int* shard, const int* sovf, int d, int m,
+                          int n_levels, int* a, int* c, int* b, int* f,
+                          int* ovf, int device, void* stream) {
+  if (m <= 0 || d <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_shard_fold_generic(shard, sovf, d, m, n_levels, a, c, b, f,
+                                   ovf, static_cast<cudaStream_t>(stream));
+}
+
+inline int shard_fold_lanes_any(const long long* lanes, int n_lanes, int d,
+                                int max_m, int n_levels, int device,
+                                void* stream) {
+  if (n_lanes <= 0 || max_m <= 0 || d <= 0) return 0;
+  if (n_lanes > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_shard_fold_lanes_generic(lanes, n_lanes, d, max_m, n_levels,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+inline int group_fold_any(const int* tuples, int p, int groups, int m,
+                          int n_levels, int* shard, int* sovf, int device,
+                          void* stream) {
+  if (m <= 0 || groups <= 0) return 0;
+  if (p % groups || groups > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_group_fold_generic(tuples, p, groups, m, n_levels, shard,
+                                   sovf, static_cast<cudaStream_t>(stream));
 }
 
 // Map launch geometry: x = episode tile, y = phase, z = segment.

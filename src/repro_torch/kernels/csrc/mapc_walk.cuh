@@ -170,4 +170,126 @@ __device__ __forceinline__ void map_body(
   }
 }
 
+// ---------------------------------------------------------------- generic
+//
+// The generic Map body of K3, K4 and K6c (and so of K5's and K6d's Map
+// launches), for any N and list capacity: map_body's walk, gating and
+// stitch zones, with runtime loops and the machine's state in a scratch
+// in global memory instead of registers. The state of machine (p, k) of an
+// m-episode launch over P segments (K = N phases) follows the Map output in
+// the launch's scratch, ``tuples`` + 4 * P * N * m (map_state_ints says how
+// many ints; the wrapper sizes the scratch so):
+//   s   [P, K, N, L, M]   the lists (L = 1 for the single-slot machines)
+//   ptr [P, K, N, M]      the write pointers (kOvf only)
+// The thread owns column j of both, so a warp's accesses are coalesced.
+// All levels still advance from the pre-event state: the last level is
+// tested first (a completion resets the lists, stores nothing and cannot
+// raise ovf), then the levels are written from the top down, so level i
+// reads level i - 1 before this event can write it (type_index::advances).
+__host__ __device__ __forceinline__ size_t map_state_ints(int p, int n,
+                                                          int lcap, int m,
+                                                          bool ovf) {
+  return static_cast<size_t>(p) * n * n * m * (lcap + (ovf ? 1 : 0));
+}
+
+template <bool kOvf>
+__device__ __forceinline__ void map_body_any(
+    const int* __restrict__ et, const int* __restrict__ tlo,
+    const int* __restrict__ thi, const int* __restrict__ cum,
+    const int* __restrict__ wspan, const int* __restrict__ segs, int lw,
+    int m, int j, int k, int p, int P, int n, int lcap,
+    int* __restrict__ tuples) {
+  using type_index::kBuckets;
+  using type_index::kWarpSize;
+  __shared__ int sh_type[kChunk];
+  __shared__ int sh_time[kChunk];
+  __shared__ int sh_dup[kOvf ? kChunk : 1];
+  __shared__ unsigned sh_bits[kChunk / kWarpSize][kBuckets];
+  const bool real = j < m;
+  const int* seg = segs + static_cast<size_t>(p) * kSegRows * lw;
+  const size_t plane = static_cast<size_t>(P) * n * m;
+  const size_t mach = static_cast<size_t>(p) * n + k;
+  int* s = tuples + 4 * plane + mach * n * lcap * m + j;
+  int* ptr = tuples + 4 * plane +
+             static_cast<size_t>(P) * n * n * lcap * m + mach * n * m + j;
+  if (real) {
+    for (int i = 0; i < n; ++i) {
+      if (kOvf) ptr[static_cast<size_t>(i) * m] = 0;
+      for (int l = 0; l < lcap; ++l)
+        s[(static_cast<size_t>(i) * lcap + l) * m] = kNegInf;
+    }
+  }
+  const unsigned long long mask =
+      real ? type_index::bucket_mask(et, n, m, j) : 0ull;
+  Zones z;
+  z.init(seg[kRowTauLo * lw], seg[kRowTauHi * lw], real ? wspan[j] : 0,
+         real ? cum[static_cast<size_t>(k) * m + j] : 0);
+  bool ended = !real;
+  int o = 0;
+
+  for (int base = 0; base < lw; base += kChunk) {
+    if (__syncthreads_and(ended)) break;
+    const int len = min(kChunk, lw - base);
+    type_index::stage_chunk<kThreads>(
+        seg + kRowType * lw, seg + kRowTime * lw,
+        kOvf ? seg + kRowDup * lw : nullptr, base, len, sh_type, sh_time,
+        sh_dup, sh_bits);
+    __syncthreads();
+    const int n_groups = (len + kWarpSize - 1) / kWarpSize;
+    for (int g = 0; g < n_groups && !ended; ++g) {
+      unsigned word = type_index::group_word_mask(sh_bits, g, mask);
+      while (word) {
+        const int q = g * kWarpSize + __ffs(word) - 1;
+        word &= word - 1u;
+        const int e = sh_type[q];
+        if (e == kPadType) continue;
+        const int t = sh_time[q];
+        if (t > z.tau_hi + z.w) {
+          ended = true;
+          break;
+        }
+        if (t <= z.start) continue;
+        [[maybe_unused]] const bool dup = kOvf && sh_dup[q] != 0;
+        if (type_index::advances(et, tlo, thi, s, m, j, n - 1, lcap, e, t)) {
+          for (int i = 0; i < n; ++i) {
+            if (kOvf) ptr[static_cast<size_t>(i) * m] = 0;
+            for (int l = 0; l < lcap; ++l)
+              s[(static_cast<size_t>(i) * lcap + l) * m] = kNegInf;
+          }
+          z.complete(t);
+          if (z.done) {
+            ended = true;
+            break;
+          }
+          continue;
+        }
+        for (int i = n - 2; i >= 0; --i) {
+          if (!type_index::advances(et, tlo, thi, s, m, j, i, lcap, e, t))
+            continue;
+          if constexpr (!kOvf) {
+            s[static_cast<size_t>(i) * m] = t;  // the single slot
+          } else {
+            const size_t at = static_cast<size_t>(i) * m;
+            const int pi = ptr[at];
+            int* slot = s + (static_cast<size_t>(i) * lcap + pi) * m;
+            const int v = *slot;
+            *slot = t;
+            o |= (v > kNegInf) & (delta(t, v) <= thi[at + j]) &
+                 ((tlo[at + j] > 0) | dup);
+            ptr[at] = pi + 1 == lcap ? 0 : pi + 1;
+          }
+        }
+      }
+    }
+  }
+
+  if (real) {
+    const size_t at = mach * m + j;
+    tuples[at] = z.a;
+    tuples[plane + at] = z.cnt;
+    tuples[2 * plane + at] = z.b;
+    tuples[3 * plane + at] = o;
+  }
+}
+
 }  // namespace mapc

@@ -71,6 +71,28 @@ __device__ __forceinline__ unsigned group_word(
   return word;
 }
 
+// The generic walks' form of group_word, for any number of levels: ``mask``
+// has bit b set when one of the episode's levels falls in bucket b
+// (bucket_mask over its et column, stride m), and a group's word ORs those
+// buckets' words.
+__device__ __forceinline__ unsigned long long bucket_mask(
+    const int* __restrict__ et, int n, int m, int j) {
+  unsigned long long mask = 0ull;
+  for (int i = 0; i < n; ++i)
+    mask |= 1ull << bucket(et[static_cast<size_t>(i) * m + j]);
+  return mask;
+}
+
+__device__ __forceinline__ unsigned group_word_mask(
+    unsigned (*bits)[kBuckets], int g, unsigned long long mask) {
+  unsigned word = 0u;
+  while (mask) {
+    word |= bits[g][__ffsll(static_cast<long long>(mask)) - 1];
+    mask &= mask - 1ull;
+  }
+  return word;
+}
+
 // lo < t - s <= hi (signed, t - s wrapped) as one unsigned compare:
 // (t - (lo + 1)) - s < span, with span = hi - lo where hi > lo and 0
 // (nothing matches) otherwise. ``base`` = lo + 1; the caller computes
@@ -83,6 +105,32 @@ __device__ __forceinline__ unsigned window_span(int lo, int hi) {
 __device__ __forceinline__ bool in_window(unsigned t_minus_base, int s,
                                           unsigned span) {
   return t_minus_base - static_cast<unsigned>(s) < span;
+}
+
+// The generic walks' step test (K1, K2, K3 and K4 at any N and LCAP):
+// whether level i of the episode in column j of its (N, M) et/tlo/thi
+// advances on event (e, t) — its type matches and, above level 0, a slot of
+// level i - 1 lies in the window — read from the pre-event state
+// ``lists``: level i' slot l at lists[(i' * lcap + l) * m], the column's
+// ints of an [N, LCAP, M] state (one slot a level for the single-slot
+// machines).
+__device__ __forceinline__ bool advances(const int* __restrict__ et,
+                                         const int* __restrict__ tlo,
+                                         const int* __restrict__ thi,
+                                         const int* lists, int m, int j,
+                                         int i, int lcap, int e, int t) {
+  const size_t at = static_cast<size_t>(i) * m + j;
+  if (et[at] != e) return false;
+  if (i == 0) return true;
+  const int lo = tlo[at - m];
+  const unsigned tb =
+      static_cast<unsigned>(t) - (static_cast<unsigned>(lo) + 1u);
+  const unsigned span = window_span(lo, thi[at - m]);
+  const int* below = lists + static_cast<size_t>(i - 1) * lcap * m;
+  bool witness = false;
+  for (int l = 0; l < lcap; ++l)
+    witness |= in_window(tb, below[static_cast<size_t>(l) * m], span);
+  return witness;
 }
 
 }  // namespace type_index

@@ -12,6 +12,7 @@ one and builds only when it first launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -121,6 +122,54 @@ def stream_handle(device: torch.device) -> int:
 def device_index(device: torch.device) -> int:
     return (device.index if device.index is not None
             else torch.cuda.current_device())
+
+
+# The fast templates' envelope: every kernel is instantiated for these
+# levels (and the bounded-list ones for these list capacities), registers
+# unrolled. Every other N >= 1 and LCAP >= 1 runs the kernel's generic
+# instantiation (the ``*_generic`` C entry points: runtime loops, the
+# machines' state in global memory). ``generic_only`` sends every launch of
+# the block to the generic instantiations, inside the envelope too (the
+# card tests hold the two against each other there).
+FAST_LEVELS = range(2, 9)
+FAST_LCAPS = (1, 2, 4, 8)
+_FORCE = threading.local()
+
+
+def generic(n_levels: int, lcap: int = 1) -> bool:
+    """Whether a launch at (``n_levels``, ``lcap``) takes the generic
+    instantiation: outside the fast templates, or inside ``generic_only``."""
+    return (getattr(_FORCE, "on", False) or n_levels not in FAST_LEVELS
+            or lcap not in FAST_LCAPS)
+
+
+@contextlib.contextmanager
+def generic_only():
+    """Launch the generic instantiations only, in this thread, for the
+    block."""
+    was = getattr(_FORCE, "on", False)
+    _FORCE.on = True
+    try:
+        yield
+    finally:
+        _FORCE.on = was
+
+
+def entry(fn: str, n_levels: int, lcap: int = 1) -> str:
+    """The C entry point that launches ``fn``'s kernel at (``n_levels``,
+    ``lcap``): ``fn`` itself or its generic instantiation."""
+    return f"{fn}_generic" if generic(n_levels, lcap) else fn
+
+
+def map_scratch_ints(p: int, n: int, m: int, lcap: int, ovf: bool) -> int:
+    """Ints of a segmented Map launch's scratch: its [4, P, N, M] output,
+    followed on the generic path by its machines' state
+    (``csrc/mapc_walk.cuh``'s ``map_state_ints``: lists [P, N, N, LCAP, M]
+    and, with the live-eviction flag, pointers [P, N, N, M])."""
+    out = 4 * p * n * m
+    if generic(n, lcap):
+        out += p * n * n * m * (lcap + (1 if ovf else 0))
+    return out
 
 
 LANE_TILE = 128  # episodes a block of the fused state kernels walks

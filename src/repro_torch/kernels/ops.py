@@ -91,7 +91,7 @@ def event_brick(types, times, with_dup: bool, device,
     ev[1, :n] = times
     if with_dup and n:
         ev[2, :n] = dup_flags(types, times).to(torch.int32)
-    return ev.to(device)
+    return to_device(ev, device)
 
 
 def a2_count(stream: EventStream, eps: EpisodeBatch,
@@ -252,8 +252,20 @@ def a1_count_stateful(stream: EventStream, eps: EpisodeBatch,
     return out[0].astype(np.int64), out[1] != 0, new_state
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """The host tensor ``t`` on ``device``. To a card it is staged in pinned
+    memory and copied without blocking the host (the caching host
+    allocator keeps the staging block until the copy is done), so a
+    streaming commit's uploads never wait for the card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _int32_tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(x, np.int32)),
+                     device)
 
 
 # --------------------------------------------------------------------------

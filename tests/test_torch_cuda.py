@@ -152,12 +152,57 @@ def test_cuda_type_indexed_walk_matches_plain_and_old_walk(card, num_types):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_unsupported_shapes(card):
+    """Any N takes a kernel (N = 9 its generic instantiation); a state of
+    the wrong shape is refused before a launch."""
     eps = random_batch(0, m=10, n=9)
     lay = ops.episode_layout(eps.relaxed(), True, card)
     s2 = ops.a2_state_layout(init_a2_state(eps.relaxed(), card), card)
     ev = ops.event_brick(*tie_stream(0, 10), with_dup=False, device=card)
-    with pytest.raises(ValueError, match="levels"):
-        k_a2.a2_count_state(*lay, ev, *s2)
+    k_a2.a2_count_state(*lay, ev, *s2)
+    with pytest.raises(ValueError, match="shape"):
+        k_a2.a2_count_state(*lay, ev, s2[0][:-1], s2[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lcap", chip_smoke.GENERIC_OUT
+                         + chip_smoke.GENERIC_IN)
+def test_cuda_generic_instantiations_match(card, n, lcap):
+    """Each kernel's generic instantiation, K1–K6d, against its plain
+    version on the same CUDA tensors, bit for bit (every output, the
+    carried state included): outside the fast templates at N 9, 12, 16 x
+    LCAP 3, 5, 16 (N = 12 on types that share one bucket of the type
+    index), and inside them at N 3, 8 x LCAP 4, 8, where it is also held
+    against the fast template (``chip_smoke.check_generic``)."""
+    errs = {k: 0 for k in chip_smoke.KERNELS}
+    types, times, batches = chip_smoke.generic_case(
+        np, ops, EpisodeBatch, n, 100 + n, collide=n == 12)
+    calls = chip_smoke.generic_calls(np, torch, ops, k_a1, k_a2,
+                                     EventStream, types, times, batches,
+                                     lcap)
+    chip_smoke.check_generic(torch, cuda, calls,
+                             (n, lcap) in chip_smoke.GENERIC_IN,
+                             f"N={n}, LCAP={lcap}", errs)
+    assert set(errs.values()) == {0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["ptpe", "hybrid"])
+def test_streaming_outside_envelope_on_card_equals_cpu(card, engine):
+    """The streaming miner at LCAP 3 and ``max_level`` 10 on a stream with
+    a planted 10-node chain (the generic instantiations) equals the same
+    miner on the CPU, and finds the chain."""
+    stream = chip_smoke.envelope_stream(6, 3)
+    wins = list(partition_windows(stream, 2000))
+    miners = [StreamingMiner([(5, 10)], 8, max_level=10, engine=engine,
+                             lcap=3, device=d) for d in (card, "cpu")]
+    found = set()
+    for i, w in enumerate(wins):
+        final = i == len(wins) - 1
+        got, want = (m.update(w, final=final) for m in miners)
+        assert chip_smoke.same_result(got, want), i
+        for fb in got.frequent:
+            found |= {tuple(e) for e in fb.etypes.tolist()}
+    assert tuple(range(10)) in found
 
 
 @pytest.mark.cuda
@@ -626,6 +671,33 @@ def test_cuda_k6d_launches_per_call(card, d):
         "void mapc::stitch_shard_lanes_kernel<3>": 5}, by_name
     assert per_call == 3
     assert sum(copies.values()) == 5, copies
+
+
+@pytest.mark.cuda
+def test_cuda_generic_kernels_are_the_ones_launched(card):
+    """Outside the envelope every wrapper launches its generic kernels, and
+    only those (the profiler's names, ``chip_smoke.profiled_launches``:
+    a warm-up call before the recorded ones, a trace short of a kernel
+    taken again), and counts them under the kernel's own tally name;
+    inside it ``generic_only`` does the same."""
+    for n, lcap in ((9, 3), (3, 4)):
+        types, times, batches = chip_smoke.generic_case(np, ops,
+                                                        EpisodeBatch, n, 7)
+        calls = chip_smoke.generic_calls(np, torch, ops, k_a1, k_a2,
+                                         EventStream, types, times,
+                                         batches, lcap)
+        for name, (call, _, _, _) in calls.items():
+            want = chip_smoke.GENERIC_DEVICE_KERNELS[name]
+            tally.reset_counts()
+            with cuda.generic_only():
+                per_call, by_name = chip_smoke.profiled_launches(
+                    torch, call, 2, expect=want)
+            got = {k: sum(v for key, v in by_name.items() if k in key)
+                   for k in want}
+            assert got == {k: 2 * v for k, v in want.items()}, (name,
+                                                                 by_name)
+            assert per_call == sum(want.values()), (name, by_name)
+            assert tally.launch_counts().get(name, 0) > 0, name
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Each module of the port's kernel layer imports first, on its own, in a
 fresh interpreter: no import cycle between ``repro_torch.kernels`` and
 ``repro_torch.core`` (whose package imports ``core.streaming``, which uses
-``kernels.ops``). The calibration and profiling modules import first too,
-and pull in neither JAX nor the reference package."""
+``kernels.ops``). The calibration, profiling and audit modules and the
+layout oracles import first too, and pull in neither JAX nor the
+reference package."""
 
 import os
 import subprocess
@@ -15,7 +16,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 @pytest.mark.parametrize("module", ["a1_count", "a2_count", "ops", "cuda",
-                                    "tally"])
+                                    "tally", "ref"])
 def test_kernel_module_imports_first(module):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -27,7 +28,9 @@ def test_kernel_module_imports_first(module):
 
 
 @pytest.mark.parametrize("module", ["core.calibrate", "launch.calibrate",
-                                    "obs.torchprof"])
+                                    "obs.torchprof", "analysis.contracts",
+                                    "analysis.vmem", "analysis.tracecheck",
+                                    "launch.audit", "kernels.ref"])
 def test_module_imports_first(module):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

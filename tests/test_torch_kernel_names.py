@@ -50,7 +50,8 @@ def test_no_kernel_name_contains_another():
 
 
 @pytest.mark.parametrize("table", ["DEVICE_KERNELS",
-                                   "SHARDED_DEVICE_KERNELS"])
+                                   "SHARDED_DEVICE_KERNELS",
+                                   "GENERIC_DEVICE_KERNELS"])
 def test_smoke_looks_for_kernels_that_exist(table):
     """Every kernel name ``chip_smoke.py`` times or counts by is a
     ``__global__`` name of the sources (a stale name would match nothing)."""
