@@ -140,6 +140,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      2-session service at ``SessionConfig(lcap=3, max_level=10)``, equal
      to standalone miners; then ``python -m repro_torch.launch.audit
      --fail-on-violation --json`` on the card, exit 0;
+   - path J, the LM serving path (``repro_torch.launch.serve``) at full
+     width and depth, random weights: moonshot_v1_16b_a3b (28.9 B
+     parameters in bfloat16) serves a batch of 4 prompts of 512 tokens
+     and decodes 32 (every logit finite; ``prefill_s``, ``decode_s``,
+     tok/s, peak memory), its embedding goes through every layer's
+     ``ln2`` and router over 512 motif tokens (chip-on-chip part 1),
+     layers 0 and 1's top-6 choices are mined on the card with two-pass
+     ptpe (K1 and K2 must launch) and equal the CPU plain path with at
+     least one cascade, and a second run with the same seed gives the
+     same tokens; gemma3_1b (prompt 1,024, past its 512 window) and
+     falcon_mamba_7b (prompt 512) serve, then, in bfloat16 and in
+     float32, hold decode steps 1, 8 and 15 against one prefill over the
+     prompt and the tokens fed (relative L2 within its model's and
+     dtype's ``GAP_BOUND``) and read the same gap at step 1 with each of
+     ``HANDOFF_FAULTS`` planted, which in float32 must read past the
+     bound; each model is freed before the next;
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -181,6 +197,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -402,6 +419,27 @@ ENVELOPE_SERVICE = (2, 10)             # sessions, seconds
 REQUIRED_I = {"ptpe": ("a2_count_state", "a1_count_state"),
               "hybrid": ("a2_count_state", "a1_mapconcat"),
               "mapconcat_sharded": ("a2_count_state", "a1_mapc_shard")}
+# path J: the LM serving path at full width and depth (one card)
+SERVE_MOE = ("moonshot_v1_16b_a3b", 4, 512, 32)   # arch, batch, prompt, gen
+ROUTING_T = 512                # chip-on-chip tokens (motif every 16)
+ROUTING_LAYERS = [0, 1]        # the layers whose choices are mined
+ROUTING_CPU_S = 60.0           # the CPU plain run's budget (else cut T)
+SERVE_CACHE = (("gemma3_1b", 2, 1024, 16), ("falcon_mamba_7b", 2, 512, 16))
+GAP_STEPS = (1, 8, 15)         # decode steps held against one prefill
+# the bound on that gap (relative L2 of the logits) per dtype and model.
+# On the H100 the sound handoff reads 1.2e-2 (gemma3_1b) and 2.2e-2
+# (falcon_mamba_7b) in bfloat16, from the rounding of decode's and
+# prefill's different products alone, and 1.2e-6 and 2.5e-6 in float32;
+# the planted faults read 2.9e-3 and more in float32 (PERF.md)
+GAP_BOUND = {"bfloat16": {"gemma3_1b": 2e-2, "falcon_mamba_7b": 3e-2},
+             "float32": {"gemma3_1b": 1e-4, "falcon_mamba_7b": 1e-4}}
+# handoff faults planted (``planted``) to show the gap check can fail: each
+# must read past its model's float32 bound at decode step 1 (in bfloat16 a
+# KV one position late or a window one key wider hides in the rounding)
+HANDOFF_FAULTS = {"gemma3_1b": ("KV one position late",
+                                "window one key wider"),
+                  "falcon_mamba_7b": ("conv tail one row early",)}
+REQUIRED_J = ("a2_count_state", "a1_count_state")
 
 
 def fail(msg: str) -> None:
@@ -2803,6 +2841,263 @@ def envelope_path(np, torch, tally):
     return added, runs
 
 
+def gib(n: int) -> str:
+    return f"{n / 2 ** 30:.2f} GiB"
+
+
+def lm_busy(torch, model, batch, prompt):
+    """Device busy share of one warm prefill and one warm decode step of
+    ``model`` (the profiler's summed kernel time over the host wall time,
+    each call ending in a synchronise), with the three kernels of the
+    largest summed time: {phase: (busy ms, wall ms, [(ms, name)])}."""
+    from repro_torch.launch.serve import prompt_batch, start_decode
+    from repro_torch.models import decode_step, prefill
+    cfg, dev = model.cfg, model.embed.device
+    batch_in = prompt_batch(cfg, batch, prompt, 0, dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(fn):
+        fn()
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        # the kernels' own rows: an aten op's row repeats its kernels'
+        # time, and "Command Buffer Full" is the host waiting on a full
+        # launch queue, no device work
+        rows = [(e.self_device_time_total / 1e3, e.key[:60])
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key != "Command Buffer Full"]
+        busy = sum(ms for ms, _ in rows)
+        if busy <= 0:
+            fail("the profiler recorded no device time")
+        return busy, wall * 1e3, sorted(rows, reverse=True)[:3]
+
+    out = {"prefill": profiled(lambda: prefill(model, batch_in))}
+    logits, st = start_decode(model, batch_in, prompt + 2)
+    state = [st]
+    tok = logits.argmax(-1)
+
+    def step():
+        state[0] = decode_step(model, tok, state[0])[1]
+
+    out["decode step"] = profiled(step)
+    return out
+
+
+def print_busy(arch, busy) -> None:
+    for phase, (ms, wall, top) in busy.items():
+        print(f"[smoke] path J {arch} one warm {phase}: device busy "
+              f"{ms:.3f} ms of {wall:.3f} ms wall = {ms / wall:.4f} (idle "
+              f"{1 - ms / wall:.4f}); largest: "
+              + "; ".join(f"{name} {t:.3f} ms" for t, name in top))
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """Plant one handoff fault in the port for the length of the block:
+    the prefill's KV spliced one position late ("KV one position late"),
+    its raw conv tail one row early ("conv tail one row early"), or each
+    sliding-window layer's decode attending one key more than its prefill
+    ("window one key wider")."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import Attention
+
+    if fault == "window one key wider":
+        real, name, owner = Attention.decode, "decode", Attention
+
+        def patched(self, x, cache_k, cache_v, pos, window=0):
+            return real(self, x, cache_k, cache_v, pos,
+                        window=window + 1 if window else 0)
+    else:
+        kind = {"KV one position late": "attn",
+                "conv tail one row early": "mamba"}[fault]
+        real, name, owner = serve._splice, "_splice", serve
+
+        def late(t):
+            return torch.cat([t[:, :1], t[:, :-1]], dim=1)
+
+        def patched(cfg, caches, prefill_caches, prompt_len):
+            moved = []
+            for i, pc in enumerate(prefill_caches):
+                if cfg.layer_kind(i % cfg.period) == kind:
+                    pc = (tuple(late(t) for t in pc) if kind == "attn"
+                          else (pc[0], late(pc[1])))
+                moved.append(pc)
+            return real(cfg, caches, moved, prompt_len)
+    setattr(owner, name, patched)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def lm_path(np, torch, tally):
+    """Path J, the LM serving path (``repro_torch.launch.serve``) at full
+    width and depth, with chip-on-chip on its routing. ``SERVE_MOE``'s
+    model with random weights (seed 0) serves a batch: every logit finite;
+    the same weights, initialised again from seed 0, give the parameter
+    count and the busy share, and their embedding goes through each
+    layer's ``ln2`` and
+    router over ``ROUTING_T`` motif tokens (the chip-on-chip example's
+    part 1), the chosen experts of ``ROUTING_LAYERS`` become an event
+    stream, mined on the card with two-pass ptpe (the launch counts zeroed
+    just before, read just after: K1 and K2 must launch, no plain version
+    run) and equal, count for count, to the same ``mine`` on the CPU plain
+    path, with at least one cascade; a second ``serve_batch`` with the
+    same seed gives the same tokens. Then each of ``SERVE_CACHE`` serves,
+    and in each dtype of ``GAP_BOUND`` decode steps ``GAP_STEPS`` after
+    the handoff are held against one prefill over the prompt and the
+    tokens fed (relative L2 within the bound), and step 1 again with each
+    of the model's ``HANDOFF_FAULTS`` planted (in float32 each must read
+    past the bound). Every model is freed before the next. Returns the
+    mining run's launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import chip_on_chip as coc
+    from repro_torch.launch.serve import (decode_prefill_gap, prompt_batch,
+                                          serve_batch)
+    from repro_torch.models import init_params
+    from repro_torch.telemetry import routing_events
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()  # the memory statistics need the context
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    free()
+    print(f"[smoke] path J: {gib(torch.cuda.memory_allocated(dev))} "
+          f"allocated before it")
+    arch, batch, prompt, gen = SERVE_MOE
+    cfg = get_config(arch)
+    toks, stats = serve_batch(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                              device=dev)
+    if not stats["finite"] or tuple(toks.shape) != (batch, gen):
+        fail(f"path J {arch}: tokens {tuple(toks.shape)}, finite "
+             f"{stats['finite']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    free()
+    # the same weights again, for the count, the busy share and the routing
+    t0 = time.perf_counter()
+    model = init_params(cfg, 0, dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.num_params():
+        fail(f"path J {arch}: {n_params} parameters, the config counts "
+             f"{cfg.num_params()}")
+    print(f"[smoke] path J {arch} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, "
+          f"{n_params / 1e9:.2f} B parameters in {cfg.dtype}, init "
+          f"{init_s:.2f} s): batch {batch}, prompt {prompt}, gen {gen}: "
+          f"prefill_s {stats['prefill_s']:.4f}, decode_s "
+          f"{stats['decode_s']:.4f}, tok_per_s {stats['tok_per_s']:.1f}; "
+          f"peak {gib(peak)}")
+    print_busy(arch, lm_busy(torch, model, batch, prompt))
+
+    # chip-on-chip, part 1, on the same parameters
+    t0 = time.perf_counter()
+    motif = coc.motif_tokens(ROUTING_T, cfg.vocab_size)
+    topk = coc.capture_routing(model, motif[None, :])
+    if topk.shape != (cfg.num_layers, ROUTING_T, cfg.top_k):
+        fail(f"path J routing shape {topk.shape}")
+    stream = routing_events(topk, cfg.num_experts, layers=ROUTING_LAYERS)
+    capture_s = time.perf_counter() - t0
+    del model
+    free()
+    tally.reset_counts()
+    t0 = time.perf_counter()
+    res = coc.mine_routing(stream, ROUTING_T, device=dev, engine="ptpe")
+    card_s = time.perf_counter() - t0
+    launches, plain = tally.launch_counts(), tally.plain_counts()
+    missing = [k for k in REQUIRED_J if not launches.get(k)]
+    if missing or plain:
+        fail(f"path J mining: no launch of {missing}; plain runs {plain}")
+    t0 = time.perf_counter()
+    ref = coc.mine_routing(stream, ROUTING_T, device="cpu", engine="ptpe")
+    cpu_s = time.perf_counter() - t0
+    if not same_result(res, ref):
+        fail("path J: the routing mined on the card differs from the CPU "
+             "plain path")
+    cascades = coc.top_cascades(res, cfg.num_experts)
+    if not cascades:
+        fail("path J: no frequent expert cascade")
+    print(f"[smoke] path J chip-on-chip: {len(stream)} routing events "
+          f"(layers {ROUTING_LAYERS} of {cfg.num_layers}, T {ROUTING_T}, "
+          f"θ {int(ROUTING_T * coc.THETA_SHARE)}), captured in "
+          f"{capture_s:.3f} s; frequent per level "
+          f"{[int(f.M) for f in res.frequent]}; mined on the card in "
+          f"{card_s:.3f} s (launches {launches}), on the CPU plain path in "
+          f"{cpu_s:.3f} s: equal; top cascades {cascades[:3]}")
+    if cpu_s > ROUTING_CPU_S:
+        print(f"[smoke] path J: the CPU plain run took {cpu_s:.1f} s, over "
+              f"its {ROUTING_CPU_S:.0f}-s budget")
+
+    again, stats = serve_batch(cfg, batch=batch, prompt_len=prompt,
+                               gen=gen, seed=0, device=dev)
+    if not torch.equal(toks, again):
+        fail(f"path J {arch}: a second run with the same seed gave other "
+             f"tokens")
+    print(f"[smoke] path J {arch}: a second run (fresh init, same seed) "
+          f"gave the same {toks.numel()} tokens; prefill_s "
+          f"{stats['prefill_s']:.4f}, decode_s {stats['decode_s']:.4f}, "
+          f"tok_per_s {stats['tok_per_s']:.1f}")
+    del again, toks
+    free()
+
+    for arch, batch, prompt, gen in SERVE_CACHE:
+        cfg = get_config(arch)
+        toks, stats = serve_batch(cfg, batch=batch, prompt_len=prompt,
+                                  gen=gen, device=dev)
+        if not stats["finite"]:
+            fail(f"path J {arch}: a logit is not finite")
+        print(f"[smoke] path J {arch} ({cfg.num_layers} layers, d "
+              f"{cfg.d_model}, {cfg.num_params() / 1e9:.2f} B parameters, "
+              f"window {cfg.window}): batch {batch}, prompt {prompt}, gen "
+              f"{gen}: prefill_s {stats['prefill_s']:.4f}, decode_s "
+              f"{stats['decode_s']:.4f}, tok_per_s {stats['tok_per_s']:.1f}"
+              f"; peak {gib(torch.cuda.max_memory_allocated(dev))}")
+        del toks
+        free()
+        for dtype, bounds in GAP_BOUND.items():
+            model = init_params(dataclasses.replace(cfg, dtype=dtype), 0,
+                                dev)
+            batch_in = prompt_batch(cfg, batch, prompt, 0, dev)
+            gaps = decode_prefill_gap(model, batch_in, gen, GAP_STEPS)
+            bound = bounds[arch]
+            faults = {}
+            for fault in HANDOFF_FAULTS[arch]:
+                with planted(fault):
+                    faults[fault] = decode_prefill_gap(model, batch_in, gen,
+                                                       (1,))[1]
+            print(f"[smoke] path J {arch} in {dtype}: decode against "
+                  f"prefill, relative L2 "
+                  + ", ".join(f"t={t}: {e:.4e}" for t, e in gaps.items())
+                  + f" (bound {bound}); planted at t=1: "
+                  + ", ".join(f"{f} {e:.4e}" for f, e in faults.items()))
+            if max(gaps.values()) > bound:
+                fail(f"path J {arch} in {dtype}: decode drifts from "
+                     f"prefill: {gaps}")
+            if dtype == "float32" and min(faults.values()) <= bound:
+                fail(f"path J {arch}: the gap check misses a planted "
+                     f"fault: {faults}")
+            if dtype == cfg.dtype:
+                print_busy(arch, lm_busy(torch, model, batch, prompt))
+            del model
+            free()
+    return launches
+
+
 def envelope_shapes(runs):
     """Path I's largest batch: the A1 batch of the most episodes the
     ``ptpe`` miner carried (the higher level on a tie), with its last
@@ -2868,22 +3163,30 @@ def device_ms(torch, fn, n, kernel_names, per_call=1) -> tuple[float, int]:
     dict), its mean duration as the profiler records it on the card times
     its launches per call, summed over the kernels. The host's
     enqueue time between launches is not counted. The mean is over the
-    launches the profiler recorded: CUPTI may drop records of a trace (19
-    of 21 have been seen, and once 3 of 21), so fewer than all are
-    accepted, down to half, and a trace that kept fewer is taken again, up
-    to ``PROFILE_ATTEMPTS`` times. Returns (ms, the fewest launches
-    recorded of any of the kernels)."""
+    launches the profiler recorded. The ``n`` recorded calls follow a
+    warm-up cycle of ``n`` calls in the same trace, as in
+    ``profiled_launches``: late in the smoke process a trace that starts
+    with the recorded calls has lost 10 of 21 records in each of three
+    traces, and one after a warm-up of a single call 5–7, while one after
+    ``n`` warm-up calls has lost at most 1. CUPTI may still drop
+    records of a trace (19 of 21 have been seen, and once 3 of 21), so
+    fewer than all are accepted, down to half, and a trace that kept fewer
+    is taken again, up to ``PROFILE_ATTEMPTS`` times. Returns (ms, the
+    fewest launches recorded of any of the kernels)."""
     if not isinstance(per_call, dict):
         per_call = dict.fromkeys(kernel_names, per_call)
     expect = {name: n * per_call[name] for name in kernel_names}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         stats = prof.key_averages()
         rows = {name: [e for e in stats if name in e.key]
                 for name in kernel_names}
@@ -3311,9 +3614,9 @@ def profiled_launches(torch, fn, n, expect=None) -> tuple[float, dict]:
     """The device work ``n`` back-to-back calls of ``fn`` put on the card,
     by the profiler's records: kernel launches per call (copies and fills,
     ``Memcpy``/``Memset`` records, left out), and every record by name
-    (copies and fills too). One call runs in a warm-up cycle of the trace
-    before the ``n`` recorded ones. With ``expect`` ({kernel name: launches per
-    call}), a trace that holds fewer than ``n`` times that of a kernel
+    (copies and fills too). ``n`` calls run in a warm-up cycle of the trace
+    before the ``n`` recorded ones (see ``device_ms``). With ``expect``
+    ({kernel name: launches per call}), a trace that holds fewer than ``n`` times that of a kernel
     (CUPTI has dropped records) is taken again, up to
     ``PROFILE_ATTEMPTS`` times, so the count returned is complete; a
     launch beyond the expected ones is counted, never hidden."""
@@ -3324,8 +3627,8 @@ def profiled_launches(torch, fn, n, expect=None) -> tuple[float, dict]:
     for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-            for calls in (1, n):
-                for _ in range(calls):
+            for _ in range(2):
+                for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -3675,6 +3978,9 @@ def main() -> int:
     got, runs_i = envelope_path(np, torch, tally)
     add(got)
     print(f"[smoke] phase 3 path I: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(lm_path(np, torch, tally))
+    print(f"[smoke] phase 3 path J: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():

@@ -1,6 +1,7 @@
 """Sustained-throughput accounting for the streaming loop and the mining
 service (port of ``ThroughputMeter`` and ``MeterBank`` from
-``repro.telemetry``).
+``repro.telemetry``), and the routing bridge: an MoE model's top-k expert
+choices as an event stream the miner consumes (``routing_events``).
 
 The chip-on-chip constraint is *sustained* throughput: the miner keeps up
 with a multi-electrode array only if events/sec over the whole session
@@ -13,6 +14,7 @@ import time
 
 import numpy as np
 
+from repro_torch.core.events import EventStream
 from repro_torch.obs.registry import REGISTRY
 
 
@@ -153,3 +155,36 @@ class MeterBank:
                          for label, m in sorted(self.meters.items())},
             "aggregate": out,
         }
+
+
+def routing_events(topk_indices: np.ndarray, num_experts: int,
+                   layers: list[int] | None = None,
+                   ticks_per_token: int = 1) -> EventStream:
+    """Encode expert-routing decisions as an event stream.
+
+    Args:
+      topk_indices: int[L, T, K] — per layer, per token, the top-k expert
+        ids chosen by the router (batch already flattened into T).
+      num_experts: router width E.
+      layers: which layers to encode (default: all).
+      ticks_per_token: time distance between consecutive tokens.
+
+    Event alphabet: type = layer_pos * E + expert_id; time = (token + 1)
+    ticks. Simultaneous events (same token, k experts, several layers)
+    are the tie case the inclusive-lower A2 handles.
+    """
+    topk_indices = np.asarray(topk_indices)
+    nl, t, k = topk_indices.shape
+    layers = list(range(nl)) if layers is None else list(layers)
+    # (layer_pos, token, choice) in C order: the reference's loop order
+    types = (np.arange(len(layers))[:, None, None] * num_experts
+             + topk_indices[layers].astype(np.int64))
+    times = np.broadcast_to(
+        (np.arange(t)[None, :, None] + 1) * ticks_per_token, types.shape)
+    pairs = zip(types.ravel().tolist(), times.ravel().tolist())
+    return EventStream.from_pairs(pairs, num_types=len(layers) * num_experts)
+
+
+def decode_expert_episode(etype: int, num_experts: int) -> tuple[int, int]:
+    """type → (layer_pos, expert_id)."""
+    return etype // num_experts, etype % num_experts

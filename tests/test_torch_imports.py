@@ -1,9 +1,11 @@
 """Each module of the port's kernel layer imports first, on its own, in a
 fresh interpreter: no import cycle between ``repro_torch.kernels`` and
 ``repro_torch.core`` (whose package imports ``core.streaming``, which uses
-``kernels.ops``). The calibration, profiling and audit modules and the
-layout oracles import first too, and pull in neither JAX nor the
-reference package."""
+``kernels.ops``). The calibration, profiling and audit modules, the
+layout oracles, the model zoo, the serving launcher, the routing bridge
+(``telemetry``, which imports ``core.events``) and the chip-on-chip
+example import first too, and pull in neither JAX nor the reference
+package."""
 
 import os
 import subprocess
@@ -30,7 +32,10 @@ def test_kernel_module_imports_first(module):
 @pytest.mark.parametrize("module", ["core.calibrate", "launch.calibrate",
                                     "obs.torchprof", "analysis.contracts",
                                     "analysis.vmem", "analysis.tracecheck",
-                                    "launch.audit", "kernels.ref"])
+                                    "launch.audit", "kernels.ref",
+                                    "models", "models.moe", "configs",
+                                    "launch.serve", "launch.shapes",
+                                    "telemetry", "examples.chip_on_chip"])
 def test_module_imports_first(module):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

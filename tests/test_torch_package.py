@@ -83,13 +83,21 @@ def _wire_load_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("entry", ["miner", "counter", "mine", "count_a1",
                                    "count_a2", "two_pass", "wire_server",
-                                   "daemon", "wire_load"])
+                                   "daemon", "wire_load", "init_params",
+                                   "serve_batch", "launch_serve", "serve_lm",
+                                   "chip_on_chip"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            tmp_path, entry):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import chip_on_chip, serve_lm
+    from repro_torch.launch import serve
     from repro_torch.launch.wire_load import run_load
+    from repro_torch.models import init_params
     from repro_torch.service import (DaemonConfig, MiningDaemon,
                                      MiningService, WireServer)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm = get_smoke_config("falcon_mamba_7b")
+    serve_argv = ["--arch", "falcon_mamba_7b", "--smoke", "--gen", "3"]
     stream, eps = _tiny()
     data = str(tmp_path / "data")
     calls = {
@@ -103,6 +111,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "daemon": lambda: MiningDaemon(DaemonConfig(data_dir=data)),
         # raises before it connects: no server listens here
         "wire_load": lambda: run_load("127.0.0.1:9", verify=True),
+        "init_params": lambda: init_params(lm),
+        "serve_batch": lambda: serve.serve_batch(lm, batch=1, prompt_len=8,
+                                                 gen=2),
+        "launch_serve": lambda: serve.main(serve_argv),
+        "serve_lm": lambda: serve_lm.main([]),
+        "chip_on_chip": lambda: chip_on_chip.main([]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -112,6 +126,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "daemon": lambda: MiningDaemon(DaemonConfig(data_dir=data,
                                                     device="cpu")),
         "wire_load": lambda: _wire_load_on_cpu(tmp_path),
+        "init_params": lambda: init_params(lm, device="cpu"),
+        "serve_batch": lambda: serve.serve_batch(
+            lm, batch=1, prompt_len=8, gen=2, device="cpu"),
+        "launch_serve": lambda: serve.main(serve_argv + ["--device", "cpu"]),
+        "serve_lm": lambda: serve_lm.main(["--device", "cpu"]),
+        # part 1 (the routing bridge); the service of part 2 is the
+        # "wire_server" case's
+        "chip_on_chip": lambda: chip_on_chip.routing_part("cpu"),
     }
     if entry in on_cpu:
         on_cpu[entry]()
