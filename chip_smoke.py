@@ -156,6 +156,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      dtype's ``GAP_BOUND``) and read the same gap at step 1 with each of
      ``HANDOFF_FAULTS`` planted, which in float32 must read past the
      bound; each model is freed before the next;
+   - path K, LM training (``repro_torch.launch.train``; no kernel of its
+     own): K-a, ``loss_fn`` and its backward for the 10 archs' smoke
+     configs in float32 on the card against the CPU from the same weights
+     (loss, ce, aux, gradient norm within 1e-5 relative, every gradient
+     within 1e-4 relative L2); K-b, gemma3_1b at full width and depth
+     (bfloat16 weights, float32 moments, remat) through ``train_loop``, 8
+     steps at batch 4 x seq 1,024 (past its 512 window), every loss
+     finite; K-c, moonshot_v1_16b_a3b at 4 of 48 layers and
+     falcon_mamba_7b at 8 of 64, full width, 3 steps of
+     ``make_train_step(cfg, warmup=1)`` at batch 2 x seq 512 (finite, aux
+     > 0 for the MoE, the third loss unlike the second); K-d, the
+     ``train_lm`` example (200 steps, its loss falls) in a process of its
+     own beside K-a and K-e, and its step-100 checkpoint resumed in a
+     fresh directory by a new ``train_loop`` beside its second half, the
+     resumed losses within 1e-4 of the example's (K-b and K-c run after
+     the example's process has ended); K-e, ``compressed_psum_ef`` over 4 logical shards
+     of the card equal to the CPU's bit for bit; K-b to K-d print the
+     median of the warm steps, tokens a second, peak memory and one
+     step's busy share;
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -199,6 +218,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -440,6 +460,16 @@ HANDOFF_FAULTS = {"gemma3_1b": ("KV one position late",
                                 "window one key wider"),
                   "falcon_mamba_7b": ("conv tail one row early",)}
 REQUIRED_J = ("a2_count_state", "a1_count_state")
+# path K: LM training
+TRAIN_GRAD = (2, 32)                       # K-a: batch, seq (smoke configs)
+TRAIN_FULL = ("gemma3_1b", 4, 1024, 8)     # K-b: arch, batch, seq, steps
+TRAIN_CUT = (("moonshot_v1_16b_a3b", 4), ("falcon_mamba_7b", 8))  # K-c
+TRAIN_CUT_RUN = (2, 512, 3)                # K-c: batch, seq, steps
+TRAIN_EXAMPLE = (200, 100)                 # K-d: steps, the first run's stop
+TRAIN_TIMED = 3                            # warm steps timed after a run
+TRAIN_TOL = (1e-5, 1e-4)                   # K-a: metrics (rel), grads (rel L2)
+RESUME_TOL = 1e-4                          # K-d: resumed losses (rel)
+COMPRESS_SHARDS = 4                        # K-e: logical shards of the card
 
 
 def fail(msg: str) -> None:
@@ -2854,30 +2884,8 @@ def lm_busy(torch, model, batch, prompt):
     from repro_torch.models import decode_step, prefill
     cfg, dev = model.cfg, model.embed.device
     batch_in = prompt_batch(cfg, batch, prompt, 0, dev)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-
-    def profiled(fn):
-        fn()
-        torch.cuda.synchronize(dev)
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t0
-        # the kernels' own rows: an aten op's row repeats its kernels'
-        # time, and "Command Buffer Full" is the host waiting on a full
-        # launch queue, no device work
-        rows = [(e.self_device_time_total / 1e3, e.key[:60])
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key != "Command Buffer Full"]
-        busy = sum(ms for ms, _ in rows)
-        if busy <= 0:
-            fail("the profiler recorded no device time")
-        return busy, wall * 1e3, sorted(rows, reverse=True)[:3]
-
-    out = {"prefill": profiled(lambda: prefill(model, batch_in))}
+    out = {"prefill": profiled_busy(torch, dev,
+                                    lambda: prefill(model, batch_in))}
     logits, st = start_decode(model, batch_in, prompt + 2)
     state = [st]
     tok = logits.argmax(-1)
@@ -2885,13 +2893,43 @@ def lm_busy(torch, model, batch, prompt):
     def step():
         state[0] = decode_step(model, tok, state[0])[1]
 
-    out["decode step"] = profiled(step)
+    out["decode step"] = profiled_busy(torch, dev, step)
     return out
 
 
-def print_busy(arch, busy) -> None:
+def profiled_busy(torch, dev, fn, warm=True):
+    """Device busy share of one call of ``fn`` (after one unprofiled call
+    unless ``warm`` is false): the profiler's summed kernel time over the
+    host wall time, each call ending in a synchronise. Only the device's
+    activity is traced: the host's op events (tens of thousands in a
+    train step) cost seconds to collect and are not read. Returns (busy
+    ms, wall ms, the three kernels of the largest summed time as [(ms,
+    name)])."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if warm:
+        fn()
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    # the kernels' own rows: an aten op's row repeats its kernels' time,
+    # and "Command Buffer Full" is the host waiting on a full launch
+    # queue, no device work
+    rows = [(e.self_device_time_total / 1e3, e.key[:60])
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != "Command Buffer Full"]
+    busy = sum(ms for ms, _ in rows)
+    if busy <= 0:
+        fail("the profiler recorded no device time")
+    return busy, wall * 1e3, sorted(rows, reverse=True)[:3]
+
+
+def print_busy(arch, busy, path="J") -> None:
     for phase, (ms, wall, top) in busy.items():
-        print(f"[smoke] path J {arch} one warm {phase}: device busy "
+        print(f"[smoke] path {path} {arch} one warm {phase}: device busy "
               f"{ms:.3f} ms of {wall:.3f} ms wall = {ms / wall:.4f} (idle "
               f"{1 - ms / wall:.4f}); largest: "
               + "; ".join(f"{name} {t:.3f} ms" for t, name in top))
@@ -3816,6 +3854,361 @@ def time_walks(np, torch, ops, k_a1, k_a2, shapes, lcap, errs):
 # -------------------------------------------------------------------- main
 
 
+def free_card(torch, dev) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def train_grads(torch, model, batch):
+    """``loss_fn`` and its backward on ``model``: ({loss, ce, aux, gnorm}
+    as floats, {name: gradient} in float64 on the host)."""
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import global_norm
+    model.requires_grad_(True)
+    for p in model.parameters():
+        p.grad = None
+    loss, metrics = loss_fn(model, batch)
+    loss.backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in model.named_parameters()}
+    vals = {"loss": loss, "ce": metrics["ce"], "aux": metrics["aux"],
+            "gnorm": global_norm(grads)}
+    return ({k: float(v.detach()) for k, v in vals.items()},
+            {n: g.detach().double().cpu() for n, g in grads.items()})
+
+
+def rel_l2(torch, got, want) -> float:
+    norm = float(torch.linalg.vector_norm(want))
+    diff = float(torch.linalg.vector_norm(got - want))
+    return diff / norm if norm > 0 else (0.0 if diff <= 1e-9 else math.inf)
+
+
+def train_timing(torch, cfg, model, opt, batch, seq, dev):
+    """``TRAIN_TIMED`` warm train steps of ``model`` (batches made before
+    the clock starts), each between synchronises, then the busy share of
+    one more under the profiler. Returns (median step s, tokens a second,
+    the last step's metrics as floats, (busy ms, wall ms, top kernels))."""
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.launch.steps import make_train_step
+    step_fn = make_train_step(cfg)
+    it = synthetic_lm_batches(cfg, batch, seq, seed=1, device=dev)
+    data = [next(it) for _ in range(TRAIN_TIMED + 1)]
+    state, times = [opt], []
+    for d in data[:TRAIN_TIMED]:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, state[0], metrics = step_fn(model, state[0], d)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+
+    def one():
+        _, state[0], _ = step_fn(model, state[0], data[-1])
+
+    busy = profiled_busy(torch, dev, one, warm=False)
+    med = statistics.median(times)
+    return (med, batch * seq / med, {k: float(v) for k, v in metrics.items()},
+            busy)
+
+
+def print_train(what, med, tok_s, peak, busy, metrics,
+                n=TRAIN_TIMED) -> None:
+    ms, wall, top = busy
+    print(f"[smoke] path {what}: step {med:.4f} s (median of {n} warm "
+          f"steps), {tok_s:.1f} tok/s, peak {gib(peak)}; "
+          f"one warm step: device busy {ms:.3f} ms of {wall:.3f} ms wall = "
+          f"{ms / wall:.4f} (idle {1 - ms / wall:.4f}); largest: "
+          + "; ".join(f"{name} {t:.3f} ms" for t, name in top)
+          + "; metrics " + ", ".join(f"{k} {v:.6g}"
+                                      for k, v in metrics.items()))
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"path K {what}: a metric is not finite: {metrics}")
+
+
+def start_example(total: int, ckpt_dir: str):
+    """The ``train_lm`` example on the card in a process of its own
+    (``run(total, ckpt_dir)``: the user's call, with the example's own
+    assert that the loss falls); its last line of output is the losses as
+    JSON. Its steps are host-bound, so it trains beside the checks that
+    time nothing instead of after them."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.examples.train_lm import run; "
+            "print(json.dumps(run(int(sys.argv[2]), sys.argv[3])))")
+    return subprocess.Popen([sys.executable, "-c", code, str(SRC),
+                             str(total), ckpt_dir], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def resume_check(torch, proc, t_start, example, resume, dev):
+    """K-d: once the example has checkpointed step ``TRAIN_EXAMPLE[1]``,
+    that checkpoint alone in a fresh directory is resumed by a new
+    ``train_loop`` to ``TRAIN_EXAMPLE[0]``: it must run the rest, its
+    losses within ``RESUME_TOL`` (relative) of the example's."""
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import train_loop
+
+    total, stop = TRAIN_EXAMPLE
+    cfg = train_lm.mini_config()
+    deadline = time.perf_counter() + 600
+    while (ckpt.latest_step(example) or 0) < stop:
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            fail(f"path K-d: the example ended ({proc.returncode}) or "
+                 f"stalled before its step-{stop} checkpoint")
+        time.sleep(0.2)
+    name = f"step_{stop:08d}"
+    shutil.copytree(os.path.join(example, name), os.path.join(resume, name))
+    t0 = time.perf_counter()
+    model, opt, resumed = train_loop(cfg, steps=total, batch=8, seq=64,
+                                     ckpt_dir=resume, ckpt_every=50,
+                                     log_every=total, device=dev)
+    resume_s = time.perf_counter() - t0
+    out, _ = proc.communicate(timeout=600)
+    example_s = time.perf_counter() - t_start
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[smoke] path K-d example | {line}")
+    if proc.returncode:
+        fail(f"path K-d: the example exited {proc.returncode}")
+    losses = json.loads(lines[-1])
+    if len(losses) != total or len(resumed) != total - stop:
+        fail(f"path K-d: the example ran {len(losses)} steps, the resumed "
+             f"run {len(resumed)}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[stop:]))
+    print(f"[smoke] path K-d {cfg.name} ({cfg.num_params() / 1e6:.1f} M "
+          f"parameters, float32): the example's {total} steps (its own "
+          f"process, beside K-a, K-e and the resume) done {example_s:.2f} s "
+          f"after its start, loss {losses[0]:.4f} -> {losses[-1]:.4f}; its "
+          f"step-{stop} checkpoint resumed to {total} in {resume_s:.2f} s: "
+          f"{len(resumed)} steps, losses within {err:.3e} (relative; bound "
+          f"{RESUME_TOL}) of the uninterrupted run's")
+    if err > RESUME_TOL:
+        fail(f"path K-d: resumed losses {err:.3e} from the uninterrupted "
+             f"run's")
+    med, tok_s, metrics, busy = train_timing(torch, cfg, model, opt, 8, 64,
+                                             dev)
+    print_train(f"K-d {cfg.name}", med, tok_s,
+                torch.cuda.max_memory_allocated(dev), busy, metrics)
+
+
+def compress_check(torch, dev):
+    """K-e: ``compressed_psum_ef`` over ``COMPRESS_SHARDS`` logical shards
+    of the card equals the CPU's bit for bit (the int8 q at the agreed
+    scale, their int32 sum, the scaled sum, the residuals), two steps."""
+    from repro_torch.core import data_mesh, stream_mesh
+    from repro_torch.runtime import (compressed_psum_ef, quantize,
+                                     zero_residual)
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"w": ((2048, 1024), torch.float32),
+              "e": ((512, 2048), torch.bfloat16),
+              "b": ((4096,), torch.float32)}
+    with stream_mesh([dev] * COMPRESS_SHARDS):
+        mesh = data_mesh(COMPRESS_SHARDS)
+    t0 = time.perf_counter()
+    res = {"cpu": None, "card": None}
+    bad, nbytes = 0, 0
+    for _ in range(2):  # the second step carries the first's residual
+        grads = [{k: (torch.randn(s, generator=gen) * 0.1).to(dt)
+                  for k, (s, dt) in shapes.items()} for _ in mesh]
+        per = {"cpu": grads,
+               "card": [{k: v.to(d) for k, v in g.items()}
+                        for g, d in zip(grads, mesh)]}
+        outs = {}
+        for side, gs in per.items():
+            if res[side] is None:
+                res[side] = [zero_residual(g) for g in gs]
+            outs[side] = []
+            for k in shapes:  # the int8 q at the agreed scale, their sum
+                xs = [g[k].float() + r[k] for g, r in zip(gs, res[side])]
+                amax = max(float(x.abs().max()) for x in xs)
+                q = [quantize(x, amax)[0] for x in xs]
+                outs[side] += q + [sum(x.to(torch.int32) for x in q)]
+            sums, res[side] = compressed_psum_ef(gs, res[side])
+            outs[side] += [t[k] for t in sums + res[side] for k in shapes]
+        for a, b in zip(outs["cpu"], outs["card"]):
+            bad += int((a != b.cpu()).sum())
+            nbytes += a.numel() * a.element_size()
+    e_s = time.perf_counter() - t0
+    leaves = ", ".join(f"{k} {tuple(s)} {str(dt)[6:]}"
+                       for k, (s, dt) in shapes.items())
+    print(f"[smoke] path K-e: compressed_psum_ef over {len(mesh)} logical "
+          f"shards of the card ({leaves}), 2 steps: the int8 q, int32 "
+          f"sums, scaled sums and residuals ({nbytes} bytes) differ "
+          f"from the CPU's in {bad} elements; "
+          f"{e_s:.2f} s")
+    if bad:
+        fail(f"path K-e: {bad} elements differ from the CPU")
+
+
+def grad_check(torch, dev):
+    """K-a: for every arch's smoke config (float32), one ``loss_fn``
+    and backward from the same weights on the card and on the CPU: loss,
+    ce, aux and the gradient norm within ``TRAIN_TOL[0]`` relative, every
+    gradient within ``TRAIN_TOL[1]`` relative L2."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.models import (init_params, params_from_numpy,
+                                    params_to_numpy)
+
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in ARCHS:
+        cfg = get_smoke_config(arch)
+        cpu_model = init_params(cfg, 0, "cpu")
+        card_model = params_from_numpy(params_to_numpy(cpu_model, cfg), cfg,
+                                       dev)
+        batch = next(synthetic_lm_batches(cfg, *TRAIN_GRAD, seed=0,
+                                          device="cpu"))
+        got, g_card = train_grads(torch, card_model,
+                                  {k: v.to(dev) for k, v in batch.items()})
+        want, g_cpu = train_grads(torch, cpu_model, batch)
+        m_err = max(abs(got[k] - want[k]) / abs(want[k]) if want[k]
+                    else abs(got[k]) * math.inf for k in want)
+        g_err = max(rel_l2(torch, g_card[n], g_cpu[n]) for n in g_cpu)
+        worst[arch] = (m_err, g_err)
+        if not (m_err <= TRAIN_TOL[0] and g_err <= TRAIN_TOL[1]):
+            fail(f"path K-a {arch}: card {got} against CPU {want}; metric "
+                 f"error {m_err:.3e}, worst gradient {g_err:.3e}")
+    print(f"[smoke] path K-a: loss_fn + backward of the 10 smoke archs "
+          f"(float32, batch {TRAIN_GRAD[0]} x {TRAIN_GRAD[1]}) on the card "
+          f"against the CPU, worst (metric rel, gradient rel L2): "
+          + ", ".join(f"{a} {m:.2e}/{g:.2e}" for a, (m, g) in worst.items())
+          + f" (bounds {TRAIN_TOL}); {time.perf_counter() - t0:.1f} s")
+
+
+def full_check(torch, dev):
+    """K-b: ``TRAIN_FULL``'s model at full width and depth (bfloat16
+    weights, float32 moments, remat) through ``train_loop``: every loss
+    finite; then ``train_timing``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+
+    arch, batch, seq, steps = TRAIN_FULL
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(cfg, steps=steps, batch=batch, seq=seq,
+                                    log_every=steps, device=dev)
+    loop_s = time.perf_counter() - t0
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"path K-b {arch}: losses {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[smoke] path K-b {arch} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.dtype}, moments {cfg.moment_dtype}, remat "
+          f"{cfg.remat}): train_loop {steps} steps at batch {batch} x seq "
+          f"{seq} in {loop_s:.2f} s; losses "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    med, tok_s, metrics, busy = train_timing(torch, cfg, model, opt, batch,
+                                             seq, dev)
+    print_train(f"K-b {arch}", med, tok_s,
+                torch.cuda.max_memory_allocated(dev), busy, metrics)
+
+
+def cut_check(torch, dev):
+    """K-c: each of ``TRAIN_CUT`` at full width, its depth cut to the
+    layers given, ``TRAIN_CUT_RUN`` steps of ``make_train_step(cfg,
+    warmup=1)``, each timed: finite, aux > 0 for the MoE, the last step's
+    loss unlike the one before (at step 0 the schedule's lr is 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_lm_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    batch, seq, steps = TRAIN_CUT_RUN
+    for arch, layers in TRAIN_CUT:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        t0 = time.perf_counter()
+        model = init_params(cfg, 0, dev).requires_grad_(True)
+        opt = adamw_init(dict(model.named_parameters()), cfg.moment_dtype)
+        step_fn = make_train_step(cfg, warmup=1)
+        it = synthetic_lm_batches(cfg, batch, seq, seed=0, device=dev)
+        runs, times = [], []
+        for _ in range(steps):
+            data = next(it)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            _, opt, m = step_fn(model, opt, data)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t1)
+            runs.append({k: float(v) for k, v in m.items()})
+        run_s = time.perf_counter() - t0
+        if not all(math.isfinite(v) for r in runs for v in r.values()):
+            fail(f"path K-c {arch}: {runs}")
+        if cfg.num_experts and not runs[-1]["aux"] > 0:
+            fail(f"path K-c {arch}: aux {runs[-1]['aux']}")
+        if runs[-1]["loss"] == runs[-2]["loss"]:
+            fail(f"path K-c {arch}: step {steps - 1} left the loss at "
+                 f"{runs[-1]['loss']}")
+        print(f"[smoke] path K-c {arch} at {layers} of {full.num_layers} "
+              f"layers (d {cfg.d_model}, {cfg.num_params() / 1e9:.3f} B "
+              f"parameters): {steps} steps of make_train_step(cfg, "
+              f"warmup=1) at batch {batch} x seq {seq} in {run_s:.2f} s "
+              f"(init included); " + "; ".join(
+                  f"step {i}: {t:.4f} s, loss {r['loss']:.5f} aux "
+                  f"{r['aux']:.5f} gnorm {r['gnorm']:.4f} lr {r['lr']:.3g}"
+                  for i, (t, r) in enumerate(zip(times, runs))))
+        med = statistics.median(times[1:])  # the first step is cold
+        busy = profiled_busy(torch, dev, lambda: step_fn(model, opt, data),
+                             warm=False)
+        print_train(f"K-c {arch}", med, batch * seq / med,
+                    torch.cuda.max_memory_allocated(dev), busy, runs[-1],
+                    steps - 1)
+        del model, opt, step_fn
+        free_card(torch, dev)
+
+
+def train_path(torch, smi):
+    """Path K, LM training (``repro_torch.launch.train``) on the card, in
+    the order K-a (``grad_check``), K-e (``compress_check``), K-d (the
+    ``train_lm`` example in a process of its own, started first:
+    ``start_example``; then ``resume_check``), K-b (``full_check``), K-c
+    (``cut_check``). K-b and K-d time ``TRAIN_TIMED`` warm steps after
+    their runs, K-c the warm steps of its run; each profiles one more.
+    Nothing is timed while the example's process runs."""
+    import shutil
+    import tempfile
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    free_card(torch, dev)
+    print(f"[smoke] path K on {smi}: "
+          f"{gib(torch.cuda.memory_allocated(dev))} allocated before it")
+    tmp = tempfile.mkdtemp()
+    example, resume = (os.path.join(tmp, d) for d in ("ex", "resume"))
+    t_example = time.perf_counter()
+    proc = start_example(TRAIN_EXAMPLE[0], example)
+    seconds = {}
+
+    def timed(name, check, *args):
+        t0 = time.perf_counter()
+        check(torch, *args)
+        seconds[name] = time.perf_counter() - t0
+
+    try:
+        # the example (host-bound) trains beside the checks that time
+        # nothing, and the resume beside its second half; K-b and K-c,
+        # which time device-bound steps, run alone after it
+        timed("K-a", grad_check, dev)
+        timed("K-e", compress_check, dev)
+        timed("K-d", resume_check, proc, t_example, example, resume, dev)
+        for name, check in (("K-b", full_check), ("K-c", cut_check)):
+            free_card(torch, dev)
+            timed(name, check, dev)
+        print("[smoke] path K seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        free_card(torch, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lcap", type=int, default=DEFAULT_LCAP,
@@ -3981,6 +4374,9 @@ def main() -> int:
     t0 = time.perf_counter()
     add(lm_path(np, torch, tally))
     print(f"[smoke] phase 3 path J: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_path(torch, smi)
+    print(f"[smoke] phase 3 path K: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():

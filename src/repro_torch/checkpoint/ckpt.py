@@ -15,7 +15,8 @@ A state dict's keys are its leaves' key paths, in sorted order, as
 index is 0 (the reference's ``jax.process_index()`` on a single host).
 ``read_leaf`` fetches one leaf without the rest (the wire server's
 ``wire/last_seq``), and ``prune`` bounds a daemon's store to its newest
-checkpoints.
+checkpoints. ``flatten``/``unflatten`` turn a nested tree into such a dict
+and back, with the reference's key paths (``0/blocks/scan/0/attn/wq``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,46 @@ def _treedef(keys) -> str:
     """The dict's structure in ``jax.tree_util``'s repr, so a manifest reads
     the same whichever package wrote it."""
     return "PyTreeDef({" + ", ".join(f"{k!r}: *" for k in keys) + "})"
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """A nested tree of dicts, lists, tuples and NamedTuples as ``{key
+    path: leaf}``, the paths as the reference's ``_path_str`` writes
+    ``jax.tree_util``'s (dict keys, sequence indices and NamedTuple field
+    names joined by "/")."""
+    if hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """The inverse of ``flatten`` up to container types: nested dicts,
+    a level whose keys are 0..n-1 as a list."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and sorted(node) == sorted(map(str, range(len(node)))):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
 
 
 def config_fingerprint(obj) -> str:

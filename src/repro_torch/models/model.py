@@ -8,7 +8,8 @@ decode still feeds tokens through the (stub) embed table.
 
 The parameters are an ``LM`` module whose state-dict names are the
 reference's parameter tree flattened with dots, its stacked ``blocks.scan``
-unrolled into ``blocks.<layer>`` (``params_from_numpy``). The caches are one
+unrolled into ``blocks.<layer>`` (``unstack_params``; ``stack_params`` is
+its inverse, for gradients, moments and checkpoints too). The caches are one
 tuple per layer in layer order: (k, v) [B, S, Hkv, Dh] for attention,
 (h [B, din, st] float32, conv [B, ssm_conv - 1, din]) for mamba.
 """
@@ -88,21 +89,43 @@ def param_specs(cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
 
 def _as_tensor(a) -> torch.Tensor:
+    """A numpy leaf as a tensor. bfloat16 comes as ml_dtypes' bfloat16 or
+    as the 2-byte void that ``np.save`` writes for it (``|V2``): either
+    way its bits are carried."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                       and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(a.copy())
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
-    """The reference's parameter tree (numpy leaves, as
-    ``jax.tree.map(np.asarray, repro.models.init_params(key, cfg))``) as
-    the port's ``LM`` on ``device``. ``blocks.scan[j]`` (stacked over
+def as_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16 as the 2-byte void that
+    ``np.save`` writes for ml_dtypes' bfloat16 (numpy has no bfloat16 of
+    its own), so the bits round-trip through ``_as_tensor``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _layer_slot(cfg: ModelConfig, i: int) -> tuple[str, int, int | None]:
+    """Where layer i sits in the reference's ``blocks``: ("scan", j, r),
+    period repetition r of ``scan[j]``, or ("tail", j, None)."""
+    n = cfg.num_periods * cfg.period
+    if i < n:
+        return "scan", i % cfg.period, i // cfg.period
+    return "tail", i - n, None
+
+
+def unstack_params(tree: dict, cfg: ModelConfig) -> dict[str, Any]:
+    """The reference's parameter tree as the port's flat names (the
+    ``LM``'s ``named_parameters()``): ``blocks.scan[j]`` (stacked over
     ``num_periods``) unstacks into layers r·period + j and
-    ``blocks.tail[j]`` into layer num_periods·period + j; every tensor
-    keeps its layout (heads stay rep-major)."""
-    dev = resolve_device(device)
+    ``blocks.tail[j]`` into layer num_periods·period + j; every leaf keeps
+    its layout (heads stay rep-major). The same map carries gradients and
+    AdamW moments (their trees have the parameters' structure)."""
     flat: dict[str, Any] = {}
 
     def put(prefix, node, r=None):
@@ -113,25 +136,75 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
             flat[prefix] = node if r is None else np.asarray(node)[r]
 
     put("", {k: v for k, v in tree.items() if k != "blocks"})
-    for j, stacked in enumerate(tree["blocks"]["scan"]):
-        for r in range(cfg.num_periods):
-            put(f"blocks.{r * cfg.period + j}", stacked, r)
-    for j, pj in enumerate(tree["blocks"]["tail"]):
-        put(f"blocks.{cfg.num_periods * cfg.period + j}", pj)
-    model = LM(cfg, dev)
-    params = dict(model.named_parameters())
-    if set(flat) != set(params):
-        raise ValueError(f"parameter trees differ: only in the tree "
-                         f"{sorted(set(flat) - set(params))}, only in the "
-                         f"model {sorted(set(params) - set(flat))}")
+    for i in range(cfg.num_layers):
+        where, j, r = _layer_slot(cfg, i)
+        put(f"blocks.{i}", tree["blocks"][where][j], r)
+    return flat
+
+
+def stack_params(flat: dict[str, Any], cfg: ModelConfig) -> dict:
+    """The inverse of ``unstack_params``: the port's flat names (numpy
+    leaves) as the reference's tree, ``blocks.scan[j]`` stacked over
+    ``num_periods`` and ``blocks.tail`` a list."""
+    tree: dict = {}
+    layers: dict[int, dict] = {}
+    for name, leaf in flat.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            node = layers.setdefault(int(parts[1]), {})
+            parts = parts[2:]
+        else:
+            node = tree
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = leaf
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([np.asarray(n) for n in nodes])
+
+    scan = [stack([layers[r * cfg.period + j]
+                   for r in range(cfg.num_periods)])
+            for j in range(cfg.period)]
+    tail = [layers[cfg.num_periods * cfg.period + j]
+            for j in range(cfg.tail_layers)]
+    tree["blocks"] = {"scan": scan, "tail": tail}
+    return tree
+
+
+def load_flat_(tensors: dict[str, torch.Tensor], flat: dict[str, Any],
+               what: str = "parameter") -> None:
+    """Copy numpy leaves ``flat`` into ``tensors`` (the same names), each
+    cast to its tensor's dtype and device; the names and shapes must
+    match."""
+    if set(flat) != set(tensors):
+        raise ValueError(f"{what} trees differ: only in the tree "
+                         f"{sorted(set(flat) - set(tensors))}, only in the "
+                         f"model {sorted(set(tensors) - set(flat))}")
     with torch.no_grad():
         for name, leaf in flat.items():
             t = _as_tensor(leaf)
-            if t.shape != params[name].shape:
+            if t.shape != tensors[name].shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                 f"{tuple(params[name].shape)}")
-            params[name].copy_(t)
+                                 f"{tuple(tensors[name].shape)}")
+            tensors[name].copy_(t)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
+    """The reference's parameter tree (numpy leaves, as
+    ``jax.tree.map(np.asarray, repro.models.init_params(key, cfg))``) as
+    the port's ``LM`` on ``device`` (``unstack_params``)."""
+    model = LM(cfg, resolve_device(device))
+    load_flat_(dict(model.named_parameters()), unstack_params(tree, cfg))
     return model.eval()
+
+
+def params_to_numpy(model: LM, cfg: ModelConfig) -> dict:
+    """The port's parameters as the reference's tree of numpy leaves
+    (``stack_params``; bfloat16 as ``as_numpy`` gives it)."""
+    return stack_params({n: as_numpy(p) for n, p in model.named_parameters()},
+                        cfg)
 
 
 # ----------------------------------------------------------------- embed

@@ -2,16 +2,21 @@
 (attn/mamba × dense/MoE × local/global) in a repeating period.
 
 The reference scans over periods with per-block rematerialisation; here
-the stack is a loop over the layers in order, no scan and no remat. Layer
-i = r·period + j for the scanned periods, then the tail layers; each
-block's structure comes from j = i mod period, as the reference's does
-(its tail layers pass their tail index j, which is i mod period too).
+the stack is a loop over the layers in order. Layer i = r·period + j for
+the scanned periods, then the tail layers; each block's structure comes
+from j = i mod period, as the reference's does (its tail layers pass their
+tail index j, which is i mod period too). A training forward with
+``cfg.remat`` set runs each block under ``torch.utils.checkpoint``, the
+reference's per-block ``jax.checkpoint`` with ``nothing_saveable``: the
+backward keeps one block's internals live at a time. Serving never
+rematerialises.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import MLP, Attention, rms_norm
@@ -87,13 +92,22 @@ class Block(nn.Module):
 
 def apply_stack(blocks, x, positions, mode: str, caches=None, pos=None):
     """Every layer in order. caches: one per layer (decode), or None.
-    Returns (x, the per-layer caches (None in "train" mode), summed aux)."""
+    Returns (x, the per-layer caches (None in "train" mode), summed aux).
+    A "train" forward under autograd with ``cfg.remat`` recomputes each
+    block in the backward (the MoE's slots come from a cumsum, so the
+    recomputation routes the same tokens)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
+    remat = (mode == "train" and torch.is_grad_enabled()
+             and blocks[0].cfg.remat)
     for i, block in enumerate(blocks):
-        x, nc, aux_i = block(x, positions, mode,
-                             cache=None if caches is None else caches[i],
-                             pos=pos)
+        if remat:
+            x, nc, aux_i = checkpoint(block, x, positions, mode,
+                                      use_reentrant=False)
+        else:
+            x, nc, aux_i = block(x, positions, mode,
+                                 cache=None if caches is None else caches[i],
+                                 pos=pos)
         aux = aux + aux_i
         new_caches.append(nc)
     return x, (None if mode == "train" else new_caches), aux

@@ -4,8 +4,9 @@ fresh interpreter: no import cycle between ``repro_torch.kernels`` and
 ``kernels.ops``). The calibration, profiling and audit modules, the
 layout oracles, the model zoo, the serving launcher, the routing bridge
 (``telemetry``, which imports ``core.events``) and the chip-on-chip
-example import first too, and pull in neither JAX nor the reference
-package."""
+example, and the training modules (``optim``, ``data.tokens``,
+``launch.train``, ``runtime.compress``) import first too, and pull in
+neither JAX nor the reference package."""
 
 import os
 import subprocess
@@ -35,7 +36,9 @@ def test_kernel_module_imports_first(module):
                                     "launch.audit", "kernels.ref",
                                     "models", "models.moe", "configs",
                                     "launch.serve", "launch.shapes",
-                                    "telemetry", "examples.chip_on_chip"])
+                                    "telemetry", "examples.chip_on_chip",
+                                    "optim", "data.tokens", "launch.train",
+                                    "runtime.compress"])
 def test_module_imports_first(module):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

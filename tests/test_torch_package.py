@@ -85,12 +85,13 @@ def _wire_load_on_cpu(tmp_path):
                                    "count_a2", "two_pass", "wire_server",
                                    "daemon", "wire_load", "init_params",
                                    "serve_batch", "launch_serve", "serve_lm",
-                                   "chip_on_chip"])
+                                   "chip_on_chip", "train_loop",
+                                   "launch_train", "train_lm"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            tmp_path, entry):
     from repro_torch.configs import get_smoke_config
-    from repro_torch.examples import chip_on_chip, serve_lm
-    from repro_torch.launch import serve
+    from repro_torch.examples import chip_on_chip, serve_lm, train_lm
+    from repro_torch.launch import serve, train
     from repro_torch.launch.wire_load import run_load
     from repro_torch.models import init_params
     from repro_torch.service import (DaemonConfig, MiningDaemon,
@@ -98,6 +99,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     lm = get_smoke_config("falcon_mamba_7b")
     serve_argv = ["--arch", "falcon_mamba_7b", "--smoke", "--gen", "3"]
+    train_argv = ["--arch", "falcon_mamba_7b", "--smoke", "--steps", "2",
+                  "--batch", "1", "--seq", "8"]
     stream, eps = _tiny()
     data = str(tmp_path / "data")
     calls = {
@@ -117,6 +120,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "launch_serve": lambda: serve.main(serve_argv),
         "serve_lm": lambda: serve_lm.main([]),
         "chip_on_chip": lambda: chip_on_chip.main([]),
+        "train_loop": lambda: train.train_loop(lm, steps=2, batch=1, seq=8),
+        "launch_train": lambda: train.main(train_argv),
+        "train_lm": lambda: train_lm.main(["--ckpt-dir", data]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -134,6 +140,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         # part 1 (the routing bridge); the service of part 2 is the
         # "wire_server" case's
         "chip_on_chip": lambda: chip_on_chip.routing_part("cpu"),
+        "train_loop": lambda: train.train_loop(lm, steps=2, batch=1, seq=8,
+                                               device="cpu"),
+        "launch_train": lambda: train.main(train_argv + ["--device", "cpu"]),
     }
     if entry in on_cpu:
         on_cpu[entry]()
