@@ -71,8 +71,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      launcher's overlap: K3 and K4 must launch; window 0 held against the
      CPU plain path; the exact recounts of flagged episodes counted;
    - path C, the multi-tenant service (``repro_torch.service.
-     MiningService``): 8 Sym26 sessions of 60 s and 4 64-channel sessions
-     of 30 s, seeds 0-11, ``hybrid``, two-pass, ``history_limit`` = 8,
+     MiningService``): 8 Sym26 sessions of 30 s and 4 64-channel sessions
+     of 10 s, seeds 0-11, ``hybrid``, two-pass, ``history_limit`` = 8,
      LCAP 8, every multi-lane group fused (gate off): K6a, K6b and K6c must
      launch; every session equals a standalone miner on the card, the
      first 2 windows of sessions 0 and 1 the CPU plain path; ev/s, window
@@ -89,7 +89,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      2 the CPU plain path on 4 CPU shards; then path B's restart windows
      with ``engine="mapconcat_sharded"`` (K5 over K3 for the cull and
      over K4): every window equals path B's, window 0 the CPU plain path;
-   - path F, the 8 Sym26 sessions for 60 s through the service on the
+   - path F, the 8 Sym26 sessions for 30 s through the service on the
      same 4-shard mesh, gate off: K6d must launch; every session equals
      a standalone miner on the card;
    - path G, the wire-served daemon: 4 Sym26 sessions of 30 s (path C's
@@ -175,6 +175,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      of the card equal to the CPU's bit for bit; K-b to K-d print the
      median of the warm steps, tokens a second, peak memory and one
      step's busy share;
+   - path L, the multi-card LM's sharding policy (``models.sharding``,
+     ``launch.steps.build_*``, ``launch.dryrun``; no kernel of its own):
+     L-c, the dry run of llama3_405b x train_4k on the 16x16 production
+     mesh at full width, in a process of its own started before path K
+     (a fake process group of 256 ranks; it must end ``ok`` with no
+     tensor on the card and CUDA never initialised; GiB per device beside
+     the card's 80); on ``launch.mesh.host_mesh()`` (NCCL, one rank, a
+     1x1 mesh), L-a trains gemma3_1b at full width through ``train_loop(...,
+     mesh=...)`` for 3 steps at K-b's batch of 4 x 1,024 (the parameters'
+     placements those of ``build_train``; the losses within 1e-6
+     relative of K-b's first three; step time and peak memory beside
+     K-b's), and L-b serves gemma3_1b as path J does, on the mesh and
+     without: the greedy tokens identical;
    then the device busy share of one profiled steady window of each
    streaming run and of one step of the path-C fleet;
 4. each kernel timed at the main paths' own largest shapes (and at those
@@ -261,17 +274,18 @@ REQUIRED = {"ptpe": ("a2_count_state", "a1_count_state"),
 RESTART_WINDOWS = 6
 RESTART_ENGINE = "mapconcat_kernel"
 # path C, the service fleet: (channels, seconds, sessions), seeds counting
-# up from 0; cut from 120 s (the 64-channel sessions from 60 s) to keep the
-# whole run inside its time limit
-FLEET = ((26, 60, 8), (64, 30, 4))
-FLEET_GATED = ((26, 30, 8),)           # path C′ (60 s before path F)
+# up from 0; cut from 120 s (the 64-channel sessions from 60 s), then from
+# 60 s (30 s) to 30 s (10 s) to make room for path L, to keep the whole
+# run inside its time limit
+FLEET = ((26, 30, 8), (64, 10, 4))
+FLEET_GATED = ((26, 30, 8),)           # path C′
 FLEET_CPU_SESSIONS = 2                 # sessions held against the CPU path
 FLEET_CPU_WINDOWS = 2                  # ... over their first windows
 BOUNDED = (26, 60, 2, 4)               # path D: channels, seconds, K, LCAP
 FUSED = ("a2_state_vmapped", "a1_state_vmapped", "a1_mapc_vmapped")
 # paths E and F: the mesh of logical shards of the card, and the fleet
 SHARDS = 4
-FLEET_SHARDED = ((26, 60, 8),)
+FLEET_SHARDED = ((26, 30, 8),)         # path F (cut from 60 s for path L)
 K5 = ("a1_mapc_shard", "a2_mapc_shard")
 SHARDED = K5 + ("a1_mapc_sharded_vmapped",)
 KERNELS = ("a2_count_state", "a1_count_state", "a2_mapconcat",
@@ -470,6 +484,13 @@ TRAIN_TIMED = 3                            # warm steps timed after a run
 TRAIN_TOL = (1e-5, 1e-4)                   # K-a: metrics (rel), grads (rel L2)
 RESUME_TOL = 1e-4                          # K-d: resumed losses (rel)
 COMPRESS_SHARDS = 4                        # K-e: logical shards of the card
+# path L: the multi-card LM's sharding policy on the card's 1x1 mesh
+MESH_TRAIN = 3                             # L-a: steps at K-b's arch and batch
+MESH_LOSS_TOL = 1e-6                       # L-a: losses against K-b's (rel)
+MESH_SERVE = SERVE_CACHE[0]                # L-b: path J's gemma3_1b serve
+DRYRUN_CELL = ("llama3_405b", "train_4k", "single")  # L-c, full width
+DRYRUN_TIMEOUT = 300
+CARD_GIB = 80
 
 
 def fail(msg: str) -> None:
@@ -2613,7 +2634,12 @@ def checkpoint_split(session):
     return len(state), nbytes, t1 - t0, t2 - t1
 
 
-def service_busy(torch, tenants, n_warm=3):
+# warm service steps before the profiled one: the Sym26 sessions of
+# paths C and F have 3 windows (step 4 was profiled while they had 4)
+SERVICE_BUSY_WARM = 2
+
+
+def service_busy(torch, tenants, n_warm=SERVICE_BUSY_WARM):
     """Device busy share of one steady step of the path-C service: the
     26-channel sessions take ``n_warm`` windows each, then one more step
     (one window of every session) runs under ``torch.profiler``."""
@@ -3885,16 +3911,19 @@ def rel_l2(torch, got, want) -> float:
     return diff / norm if norm > 0 else (0.0 if diff <= 1e-9 else math.inf)
 
 
-def train_timing(torch, cfg, model, opt, batch, seq, dev):
+def train_timing(torch, cfg, model, opt, batch, seq, dev, mesh=None):
     """``TRAIN_TIMED`` warm train steps of ``model`` (batches made before
-    the clock starts), each between synchronises, then the busy share of
-    one more under the profiler. Returns (median step s, tokens a second,
-    the last step's metrics as floats, (busy ms, wall ms, top kernels))."""
+    the clock starts; on ``mesh`` the sharded step and batches), each
+    between synchronises, then the busy share of one more under the
+    profiler. Returns (median step s, tokens a second, the last step's
+    metrics as floats, (busy ms, wall ms, top kernels))."""
     from repro_torch.data.tokens import synthetic_lm_batches
-    from repro_torch.launch.steps import make_train_step
-    step_fn = make_train_step(cfg)
+    from repro_torch.launch.steps import make_train_step, shard_batch
+    step_fn = make_train_step(cfg, mesh)
     it = synthetic_lm_batches(cfg, batch, seq, seed=1, device=dev)
     data = [next(it) for _ in range(TRAIN_TIMED + 1)]
+    if mesh is not None:
+        data = [shard_batch(mesh, d) for d in data]
     state, times = [opt], []
     for d in data[:TRAIN_TIMED]:
         torch.cuda.synchronize(dev)
@@ -4082,7 +4111,8 @@ def grad_check(torch, dev):
 def full_check(torch, dev):
     """K-b: ``TRAIN_FULL``'s model at full width and depth (bfloat16
     weights, float32 moments, remat) through ``train_loop``: every loss
-    finite; then ``train_timing``."""
+    finite; then ``train_timing``. Returns the losses, the median warm
+    step and the peak memory (path L's yardstick)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train_loop
 
@@ -4103,8 +4133,9 @@ def full_check(torch, dev):
           + ", ".join(f"{x:.4f}" for x in losses))
     med, tok_s, metrics, busy = train_timing(torch, cfg, model, opt, batch,
                                              seq, dev)
-    print_train(f"K-b {arch}", med, tok_s,
-                torch.cuda.max_memory_allocated(dev), busy, metrics)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print_train(f"K-b {arch}", med, tok_s, peak, busy, metrics)
+    return {"losses": losses, "step_s": med, "peak": peak}
 
 
 def cut_check(torch, dev):
@@ -4169,7 +4200,8 @@ def train_path(torch, smi):
     ``start_example``; then ``resume_check``), K-b (``full_check``), K-c
     (``cut_check``). K-b and K-d time ``TRAIN_TIMED`` warm steps after
     their runs, K-c the warm steps of its run; each profiles one more.
-    Nothing is timed while the example's process runs."""
+    Nothing is timed while the example's process runs. Returns K-b's
+    numbers (``full_check``)."""
     import shutil
     import tempfile
 
@@ -4186,8 +4218,9 @@ def train_path(torch, smi):
 
     def timed(name, check, *args):
         t0 = time.perf_counter()
-        check(torch, *args)
+        got = check(torch, *args)
         seconds[name] = time.perf_counter() - t0
+        return got
 
     try:
         # the example (host-bound) trains beside the checks that time
@@ -4198,7 +4231,9 @@ def train_path(torch, smi):
         timed("K-d", resume_check, proc, t_example, example, resume, dev)
         for name, check in (("K-b", full_check), ("K-c", cut_check)):
             free_card(torch, dev)
-            timed(name, check, dev)
+            got = timed(name, check, dev)
+            if name == "K-b":
+                k_b = got
         print("[smoke] path K seconds: " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
     finally:
@@ -4206,6 +4241,168 @@ def train_path(torch, smi):
             proc.kill()
             proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+        free_card(torch, dev)
+    return k_b
+
+
+@contextlib.contextmanager
+def dryrun_process():
+    """L-c: ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` at
+    full width, in a process of its own (its fake process group of 256
+    ranks lives there; it touches no card, so it traces beside path K).
+    Yields (process, output directory); the process is stopped and the
+    directory removed on exit."""
+    import shutil
+    import tempfile
+
+    arch, shape, mesh = DRYRUN_CELL
+    out_dir = tempfile.mkdtemp()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--force", "--out", out_dir],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        yield proc, out_dir
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def mesh_train(torch, mesh, dev, k_b):
+    """L-a: ``train_loop`` on ``mesh`` (the launcher's path) for
+    ``MESH_TRAIN`` steps at K-b's arch and batch, seed 0: its parameters'
+    placements are ``build_train``'s, its losses are held against K-b's
+    first steps (within ``MESH_LOSS_TOL`` relative, else the distance is
+    printed and the run fails), then ``train_timing`` on the mesh beside
+    K-b's step and peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.steps import build_train
+    from repro_torch.launch.train import train_loop
+
+    arch, batch, seq, _ = TRAIN_FULL
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(cfg, steps=MESH_TRAIN, batch=batch,
+                                    seq=seq, log_every=MESH_TRAIN,
+                                    device=dev, mesh=mesh)
+    loop_s = time.perf_counter() - t0
+    _, (shaped, _, _) = build_train(
+        cfg, mesh, ShapeCell("L-a", "train", seq, batch), device="meta")
+    want = {n: tuple(p.placements) for n, p in shaped.named_parameters()}
+    got = {n: tuple(p.placements) for n, p in model.named_parameters()}
+    if got != want:
+        fail("path L-a: the trainer's placements are not build_train's")
+    dist = max(abs(a - b) / abs(b) for a, b in zip(losses, k_b["losses"]))
+    print(f"[smoke] path L-a {arch} on the {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"mesh ({len(got)} DTensor parameters, placements as "
+          f"build_train's): train_loop {MESH_TRAIN} steps at batch {batch}"
+          f" x seq {seq} in {loop_s:.2f} s; losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + "; K-b's "
+          + ", ".join(f"{x:.6f}" for x in k_b["losses"][:MESH_TRAIN])
+          + f"; largest relative distance {dist:.3e}")
+    if not dist <= MESH_LOSS_TOL:
+        fail(f"path L-a: losses {dist:.3e} from K-b's, over "
+             f"{MESH_LOSS_TOL}")
+    med, tok_s, metrics, busy = train_timing(torch, cfg, model, opt, batch,
+                                             seq, dev, mesh=mesh)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print_train(f"L-a {arch} on the mesh", med, tok_s, peak, busy, metrics)
+    print(f"[smoke] path L-a beside K-b: step {med:.4f} s against "
+          f"{k_b['step_s']:.4f} s ({med / k_b['step_s']:.3f}x), peak "
+          f"{gib(peak)} against {gib(k_b['peak'])}")
+
+
+def mesh_serve(torch, mesh, dev):
+    """L-b: ``serve_batch`` of ``MESH_SERVE`` on ``mesh`` and without
+    (the same seed): the greedy tokens identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+
+    arch, batch, prompt, gen = MESH_SERVE
+    cfg = get_config(arch)
+    runs = {}
+    for label, m in (("one device", None), ("mesh", mesh)):
+        free_card(torch, dev)
+        runs[label] = serve_batch(cfg, batch=batch, prompt_len=prompt,
+                                  gen=gen, device=dev, mesh=m)
+    (toks, stats), (toks_m, stats_m) = runs["one device"], runs["mesh"]
+    same = bool(torch.equal(toks, toks_m))
+    print(f"[smoke] path L-b {arch} served at batch {batch}, prompt "
+          f"{prompt}, gen {gen}: on the mesh prefill_s "
+          f"{stats_m['prefill_s']:.4f}, {stats_m['tok_per_s']:.1f} tok/s; "
+          f"one device prefill_s {stats['prefill_s']:.4f}, "
+          f"{stats['tok_per_s']:.1f} tok/s; greedy tokens identical {same}")
+    if not (same and stats_m["finite"]):
+        fail(f"path L-b: tokens identical {same}, finite "
+             f"{stats_m['finite']}")
+
+
+def dryrun_check(proc, out_dir: str) -> None:
+    """L-c: the dry run's process ends 0 and its cell ``ok``, with no
+    tensor on a CUDA device and CUDA never initialised in it."""
+    arch, shape, mesh = DRYRUN_CELL
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"path L-c: the dry run took over {DRYRUN_TIMEOUT} s")
+    for line in out.splitlines():
+        if line.startswith("["):
+            print(f"[smoke] path L-c | {line}")
+    path = Path(out_dir) / f"{arch}__{shape}__{mesh}.json"
+    if proc.returncode != 0 or not path.exists():
+        fail(f"path L-c: the dry run exited {proc.returncode}: "
+             f"{out[-3000:]}")
+    rec = json.loads(path.read_text())
+    if rec["status"] != "ok":
+        fail(f"path L-c: {rec['status']}: {rec.get('error')}")
+    mem = rec["memory"]
+    if "cuda" in mem["device_types"] or rec["cuda_initialized"]:
+        fail(f"path L-c: the dry run touched the card: {mem}")
+    print(f"[smoke] path L-c {arch} x {shape} x {mesh} ({rec['chips']} "
+          f"ranks, {rec['model']['params'] / 1e9:.1f} B parameters): ok in "
+          f"{rec['seconds']['build']:.1f} + {rec['seconds']['trace']:.1f} "
+          f"s; per device {gib(mem['per_device_total_bytes'])} of the "
+          f"card's {CARD_GIB} GiB (arguments "
+          f"{gib(mem['argument_size_in_bytes'])}, peak temporaries "
+          f"{gib(mem['temp_size_in_bytes'])}); tensors on "
+          f"{mem['device_types']}, CUDA initialised "
+          f"{rec['cuda_initialized']}")
+
+
+def mesh_path(torch, smi, k_b, dryrun):
+    """Path L, the multi-card LM's sharding policy on the card: on
+    ``launch.mesh.host_mesh()`` (NCCL, one rank, a 1x1 mesh, taken down
+    after), L-a (``mesh_train``) and L-b (``mesh_serve``); then L-c's
+    ``dryrun_check`` on ``dryrun`` (``dryrun_process``'s, started before
+    path K)."""
+    from repro_torch.launch.mesh import host_mesh
+
+    dev = torch.device("cuda", 0)
+    free_card(torch, dev)
+    seconds = {}
+    try:
+        with host_mesh(device=dev) as mesh:
+            print(f"[smoke] path L on {smi}: mesh {mesh}")
+            t0 = time.perf_counter()
+            mesh_train(torch, mesh, dev, k_b)
+            seconds["L-a"] = time.perf_counter() - t0
+            free_card(torch, dev)
+            t0 = time.perf_counter()
+            mesh_serve(torch, mesh, dev)
+            seconds["L-b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dryrun_check(*dryrun)
+        seconds["L-c wait"] = time.perf_counter() - t0
+        print("[smoke] path L seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
+    finally:
         free_card(torch, dev)
 
 
@@ -4374,9 +4571,13 @@ def main() -> int:
     t0 = time.perf_counter()
     add(lm_path(np, torch, tally))
     print(f"[smoke] phase 3 path J: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_path(torch, smi)
-    print(f"[smoke] phase 3 path K: {time.perf_counter() - t0:.1f} s")
+    with dryrun_process() as dryrun:  # path L-c, beside path K
+        t0 = time.perf_counter()
+        k_b = train_path(torch, smi)
+        print(f"[smoke] phase 3 path K: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_path(torch, smi, k_b, dryrun)
+        print(f"[smoke] phase 3 path L: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for name, (_, wins, engine) in main_runs.items():
@@ -4393,7 +4594,8 @@ def main() -> int:
             ("path-C", tenants, None), ("path-F", tenants_f, mesh)):
         with stream_mesh(ctx) if ctx else contextlib.nullcontext():
             busy, wall, n = service_busy(torch, fleet_tenants_)
-        print(f"[smoke] {label} device busy share, step 4 ({n} sessions, "
+        print(f"[smoke] {label} device busy share, step "
+              f"{SERVICE_BUSY_WARM + 1} ({n} sessions, "
               f"one window each): {busy:.3f} ms of device time in "
               f"{wall:.1f} ms wall = {busy / wall:.4f} (idle "
               f"{1 - busy / wall:.4f})")

@@ -8,7 +8,10 @@ Usage:
 
 Without ``--device`` it runs on the CUDA card. Each time is read after
 ``torch.cuda.synchronize()``, so ``prefill_s`` and ``decode_s`` are the
-work's, not its dispatch's.
+work's, not its dispatch's. ``main`` serves under
+``launch.mesh.host_mesh()`` as the reference's does (one card: a 1×1
+mesh): the weights, prompts and caches are DTensors with the sharding
+policy's placements.
 """
 
 from __future__ import annotations
@@ -22,9 +25,13 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_decode_step
+from repro_torch.launch.mesh import host_mesh
+from repro_torch.launch.steps import (decode_seq_mode, make_decode_step,
+                                      make_prefill_step, shard_batch,
+                                      shard_caches)
 from repro_torch.models import (DecodeState, decode_step, embed_inputs,
                                 init_params, make_decode_caches, prefill)
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import dtype_of
 
 
@@ -47,31 +54,39 @@ def prompt_batch(cfg, batch: int, prompt_len: int, seed: int, device):
 
 
 def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
-                seed: int = 0, device=None):
+                seed: int = 0, device=None, mesh=None):
     """Prefill ``batch`` random prompts and decode ``gen`` tokens each with
     the weights ``init_params(cfg, seed)`` on ``device`` (default: the CUDA
-    card). Returns (tokens [batch, gen], stats): ``prefill_s`` (the prefill
-    and its splice into the decode caches), ``decode_s``, ``tok_per_s``
-    (decode tokens a second over the batch) and ``finite`` (every logit of
-    the run finite)."""
+    card); on ``mesh`` the weights, prompts and caches are sharded by the
+    policy and the steps are the mesh's. Returns (tokens [batch, gen],
+    stats): ``prefill_s`` (the prefill and its splice into the decode
+    caches), ``decode_s``, ``tok_per_s`` (decode tokens a second over the
+    batch) and ``finite`` (every logit of the run finite)."""
     dev = resolve_device(device)
     model = init_params(cfg, seed, dev)
     batch_in = prompt_batch(cfg, batch, prompt_len, seed, dev)
-    decode_fn = make_decode_step(cfg)
+    if mesh is not None:
+        shd.shard_model_(model, mesh)
+        batch_in = shard_batch(mesh, batch_in)
+    decode_fn = make_decode_step(cfg, mesh)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, (caches, pos) = start_decode(model, batch_in, prompt_len + gen)
+    logits, (caches, pos) = start_decode(model, batch_in, prompt_len + gen,
+                                         mesh=mesh)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
+    logits = shd.full(logits)
     finite = torch.isfinite(logits).all()
     tok = logits.argmax(-1).to(torch.int32)
     out_tokens = [tok]
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(gen - 1):
-        logits, caches, pos = decode_fn(model, tok, caches, pos)
+        fed = tok if mesh is None else shard_batch(mesh, {"t": tok})["t"]
+        logits, caches, pos = decode_fn(model, fed, caches, pos)
+        logits = shd.full(logits)
         finite &= torch.isfinite(logits).all()
         tok = logits.argmax(-1).to(torch.int32)
         out_tokens.append(tok)
@@ -84,16 +99,27 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
 
 
 @torch.no_grad()
-def start_decode(model, batch_in: dict, max_seq: int):
+def start_decode(model, batch_in: dict, max_seq: int, mesh=None):
     """The prefill → decode handoff: prefill ``batch_in``, then splice its
     caches into zero-initialised decode caches sized ``max_seq``. Returns
     (last-position logits [B, 1, V], the ``DecodeState`` at the prompt's
-    length). The prefill caches are dropped on return."""
+    length). The prefill caches are dropped on return. On ``mesh`` the
+    prefill is the mesh's step, and the splice runs on the caches' full
+    values, which are then sharded as ``build_decode`` shards them."""
     cfg = model.cfg
-    logits, prefill_caches = prefill(model, batch_in)
+    if mesh is None:
+        logits, prefill_caches = prefill(model, batch_in)
+    else:
+        logits, prefill_caches = make_prefill_step(cfg, mesh)(model,
+                                                              batch_in)
+        prefill_caches = [tuple(None if t is None else shd.full(t)
+                                for t in layer) for layer in prefill_caches]
     b, s = next(iter(batch_in.values())).shape[:2]
-    caches = _splice(cfg, make_decode_caches(cfg, b, max_seq, logits.device),
+    dev = prefill_caches[0][0].device
+    caches = _splice(cfg, make_decode_caches(cfg, b, max_seq, dev),
                      prefill_caches, s)
+    if mesh is not None:
+        caches = shard_caches(mesh, cfg, caches, decode_seq_mode(b))
     return logits, DecodeState(caches=caches, pos=s)
 
 
@@ -173,9 +199,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
-    toks, stats = serve_batch(cfg, batch=args.batch,
-                              prompt_len=args.prompt_len, gen=args.gen,
-                              device=args.device)
+    with host_mesh(device=args.device) as mesh:
+        toks, stats = serve_batch(cfg, batch=args.batch,
+                                  prompt_len=args.prompt_len, gen=args.gen,
+                                  device=args.device, mesh=mesh)
     print(f"[serve] {cfg.name}: generated {tuple(toks.shape)} tokens; "
           f"prefill {stats['prefill_s']:.3f}s, "
           f"{stats['tok_per_s']:.1f} tok/s decode; logits finite "

@@ -43,6 +43,18 @@ def cell_is_runnable(arch: str, shape: str) -> tuple[bool, str]:
     return True, ""
 
 
+# the smoke configs cut the attention query chunk 1024 → 16: their cells
+# cut the sequence by as much, which keeps the full cells' chunk counts
+SMOKE_SEQ_DIVISOR = 256
+
+
+def smoke_cell(cell: ShapeCell) -> ShapeCell:
+    """``cell`` for the smoke configs: the same kind and batch, the
+    sequence / ``SMOKE_SEQ_DIVISOR``."""
+    return dataclasses.replace(cell, seq_len=cell.seq_len
+                               // SMOKE_SEQ_DIVISOR)
+
+
 def all_cells():
     for arch in ARCHS:
         for shape in SHAPES:

@@ -1,12 +1,17 @@
 """End-to-end training launcher (port of ``repro.launch.train``) with
 checkpoint/restart, watchdog retry and straggler accounting: one card,
-or the CPU when asked (``--device cpu``).
+or the CPU when asked (``--device cpu``). ``main`` trains under
+``launch.mesh.host_mesh()`` (on one card a 1×1 mesh over a process group
+of one rank), as the reference's does: the parameters, moments and
+batches are DTensors with the sharding policy's placements.
 
 The checkpoint holds the reference's leaves for the tuple (params, opt):
 ``0/<parameter path>`` (``0/blocks/scan/0/attn/wq``, stacked over
 periods), ``1/step``, ``1/m/<path>`` and ``1/v/<path>``, with the
 reference's config hash, so a run checkpointed by either package resumes
-in the other.
+in the other. The checkpoint holds full tensors, never DTensor shards: a
+sharded run gathers each leaf, rank 0 writes it, and every rank loads
+its own shard of it.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_1b \\
@@ -26,9 +31,11 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import synthetic_lm_batches
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import host_mesh
+from repro_torch.launch.steps import make_train_step, shard_batch, shard_opt
 from repro_torch.models import (as_numpy, init_params, load_flat_,
                                 stack_params, unstack_params)
+from repro_torch.models import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.runtime import StepWatchdog, WatchdogConfig
@@ -68,24 +75,33 @@ def restore_train_state(root, model, opt: AdamWState,
     load_flat_(params, unstack_params(tree[0], cfg))
     load_flat_(opt.m, unstack_params(tree[1]["m"], cfg), "moment")
     load_flat_(opt.v, unstack_params(tree[1]["v"], cfg), "moment")
-    return AdamWState(torch.tensor(int(tree[1]["step"]), dtype=torch.int32,
-                                   device=opt.step.device),
-                      opt.m, opt.v), step
+    stp = torch.tensor(int(tree[1]["step"]), dtype=torch.int32,
+                       device=shd.full(opt.step).device)
+    if shd._is_dt(opt.step):
+        stp = shd.distribute(stp, opt.step.device_mesh, shd.PSpec())
+    return AdamWState(stp, opt.m, opt.v), step
 
 
 def train_loop(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                ckpt_dir: str | None = None, ckpt_every: int = 10,
                seed: int = 0, log_every: int = 5, resume: bool = True,
-               device=None):
+               device=None, mesh=None):
     """Train ``init_params(cfg, seed)`` on ``synthetic_lm_batches`` up to
     step ``steps`` on ``device`` (default: the CUDA card), resuming from
     the newest checkpoint in ``ckpt_dir``; checkpoints every
-    ``ckpt_every`` steps and at the end. Returns (model, opt, the losses
-    of the steps this call ran)."""
+    ``ckpt_every`` steps and at the end. On ``mesh`` (a ``DeviceMesh``)
+    the parameters, moments and batches are sharded by the policy and the
+    step is ``make_train_step(cfg, mesh)``. Returns (model, opt, the
+    losses of the steps this call ran)."""
     dev = resolve_device(device)
     model = init_params(cfg, seed, dev).requires_grad_(True)
-    opt = adamw_init(dict(model.named_parameters()),
-                     moment_dtype=cfg.moment_dtype)
+    if mesh is None:
+        opt = adamw_init(dict(model.named_parameters()),
+                         moment_dtype=cfg.moment_dtype)
+    else:
+        shd.shard_model_(model, mesh)
+        opt = shard_opt(mesh, dict(model.named_parameters()),
+                        cfg.moment_dtype)
     start_step = 0
     fingerprint = ckpt.config_fingerprint(cfg)
     if ckpt_dir and resume and ckpt.latest_step(ckpt_dir) is not None:
@@ -93,13 +109,17 @@ def train_loop(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                                               config_hash=fingerprint)
         print(f"[train] resumed from step {start_step}")
 
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, mesh)
+    writer = mesh is None or mesh.get_rank() == 0
     watchdog = StepWatchdog(WatchdogConfig(min_deadline_s=60.0))
     batches = synthetic_lm_batches(cfg, batch, seq, seed=seed,
                                    start=start_step, device=dev)
     losses = []
     t0 = time.perf_counter()
     for step, data in zip(range(start_step, steps), batches):
+        if mesh is not None:
+            data = shard_batch(mesh, data)
+
         def do_step(data=data):
             nonlocal opt
             _, opt, metrics = step_fn(model, opt, data)
@@ -114,12 +134,16 @@ def train_loop(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                   f"gnorm {float(metrics['gnorm']):7.3f} "
                   f"({dt / max(len(losses), 1):.2f}s/step)")
         if ckpt_dir and (step + 1) % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step + 1, train_state(model, opt),
-                      config_hash=fingerprint)
+            _save(ckpt_dir, step + 1, model, opt, fingerprint, writer)
     if ckpt_dir:
-        ckpt.save(ckpt_dir, steps, train_state(model, opt),
-                  config_hash=fingerprint)
+        _save(ckpt_dir, steps, model, opt, fingerprint, writer)
     return model, opt, losses
+
+
+def _save(root, step: int, model, opt, fingerprint: str, writer: bool):
+    state = train_state(model, opt)  # every rank gathers
+    if writer:
+        ckpt.save(root, step, state, config_hash=fingerprint)
 
 
 def main(argv=None) -> int:
@@ -137,9 +161,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
-    _, _, losses = train_loop(cfg, steps=args.steps, batch=args.batch,
-                              seq=args.seq, ckpt_dir=args.ckpt_dir,
-                              seed=args.seed, device=args.device)
+    with host_mesh(device=args.device) as mesh:
+        _, _, losses = train_loop(cfg, steps=args.steps, batch=args.batch,
+                                  seq=args.seq, ckpt_dir=args.ckpt_dir,
+                                  seed=args.seed, device=args.device,
+                                  mesh=mesh)
     print(f"[train] first loss {losses[0]:.4f} → last {losses[-1]:.4f}")
     return 0
 

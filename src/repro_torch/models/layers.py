@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
+from .sharding import act, einsum, matmul, write_seq_slot_
 
 MASK_FILL = -1e30
 
@@ -107,9 +108,9 @@ class Attention(nn.Module):
 
     def qkv(self, x, positions):
         cfg = self.cfg
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq)
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk)
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv)
+        q = act(einsum("bsd,dhk->bshk", x, self.wq), "q_heads")
+        k = act(einsum("bsd,dhk->bshk", x, self.wk), "kv")
+        v = act(einsum("bsd,dhk->bshk", x, self.wv), "kv")
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         sin, cos = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
@@ -134,16 +135,16 @@ class Attention(nn.Module):
         for i in range(s // qc):
             qi = qg[:, i * qc:(i + 1) * qc]
             qpos = positions[..., i * qc:(i + 1) * qc]
-            logits = (torch.einsum("bqrgk,bsgk->brgqs", qi, k)
-                      * scale).float()
+            logits = act((einsum("bqrgk,bsgk->brgqs", qi, k)
+                          * scale).float(), "attn_logits")
             mask = qpos[..., :, None] >= kpos[..., None, :]  # [B, qc, S]
             if window:
                 mask &= (qpos[..., :, None] - kpos[..., None, :]) < window
             logits = torch.where(mask[:, None, None], logits, MASK_FILL)
             w = torch.softmax(logits, dim=-1).to(x.dtype)
-            outs.append(torch.einsum("brgqs,bsgk->bqrgk", w, v))
+            outs.append(act(einsum("brgqs,bsgk->bqrgk", w, v), "attn_out"))
         o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-        y = torch.einsum("bshk,hkd->bsd", o.reshape(b, s, h, dh), self.wo)
+        y = einsum("bshk,hkd->bsd", o.reshape(b, s, h, dh), self.wo)
         return y.to(x.dtype), (k, v)
 
     def decode(self, x, cache_k, cache_v, pos: int, window: int = 0):
@@ -156,22 +157,22 @@ class Attention(nn.Module):
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
         q, k, v = self.qkv(x, positions)
-        cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
-        cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
+        write_seq_slot_(cache_k, k, pos)
+        write_seq_slot_(cache_v, v, pos)
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         rep = h // hkv
         smax = cache_k.shape[1]
         qg = q.reshape(b, 1, rep, hkv, dh)
-        logits = (torch.einsum("bqrgk,bsgk->brgqs", qg, cache_k)
-                  * dh ** -0.5).float()
+        logits = act((einsum("bqrgk,bsgk->brgqs", qg, cache_k)
+                      * dh ** -0.5).float(), "attn_logits")
         kpos = torch.arange(smax, device=x.device)
         mask = kpos <= pos
         if window:
             mask &= kpos > pos - window
         logits = torch.where(mask, logits, MASK_FILL)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
-        o = torch.einsum("brgqs,bsgk->bqrgk", w, cache_v)
-        y = torch.einsum("bshk,hkd->bsd", o.reshape(b, 1, h, dh), self.wo)
+        o = einsum("brgqs,bsgk->bqrgk", w, cache_v)
+        y = einsum("bshk,hkd->bsd", o.reshape(b, 1, h, dh), self.wo)
         return y, cache_k, cache_v
 
 
@@ -208,7 +209,8 @@ class MLP(nn.Module):
 
     def forward(self, x):
         if self.cfg.mlp_variant == "swiglu":
-            h = activate(self.cfg, x @ self.wg, x @ self.wi)
+            h = activate(self.cfg, matmul(x, self.wg), matmul(x, self.wi))
         else:
-            h = activate(self.cfg, x @ self.wi)
-        return torch.einsum("bsf,fd->bsd", h, self.wo).to(x.dtype)
+            h = activate(self.cfg, matmul(x, self.wi))
+        return einsum("bsf,fd->bsd", act(h, "ffn_inner"),
+                      self.wo).to(x.dtype)

@@ -17,6 +17,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import normal_, param
+from .sharding import act, einsum, matmul
 
 
 class Mamba(nn.Module):
@@ -55,7 +56,7 @@ class Mamba(nn.Module):
         """x [B, L, din] post-conv/silu → (dt [B, L, din], B, C [B, L, st])
         in float32; dt is one projected scalar broadcast over din."""
         st = self.cfg.ssm_state
-        proj = x @ self.x_proj                               # [B, L, 2st+1]
+        proj = matmul(x, self.x_proj)                        # [B, L, 2st+1]
         dt = F.softplus(proj[..., 0:1].float() + self.dt_bias)
         return dt, proj[..., 1:1 + st].float(), proj[..., 1 + st:].float()
 
@@ -67,7 +68,7 @@ class Mamba(nn.Module):
         cfg = self.cfg
         bsz, seq, _ = x_in.shape
         din, st = cfg.d_inner, cfg.ssm_state
-        xz = x_in @ self.in_proj
+        xz = matmul(x_in, self.in_proj)
         x, z = xz.split(din, dim=-1)
         # causal depthwise conv over L
         pad = cfg.ssm_conv - 1
@@ -78,18 +79,19 @@ class Mamba(nn.Module):
         x = F.silu(x + self.conv_b)
         dt, bmat, cmat = self._project(x)
         a = -torch.exp(self.a_log)                           # [din, st]
-        abar = torch.exp(dt[..., None] * a)                  # [B, L, din, st]
-        bbar = (dt[..., None] * bmat[..., None, :]
-                * x.float()[..., None])
+        abar = act(torch.exp(dt[..., None] * a),             # [B, L, din, st]
+                   "mamba_state")
+        bbar = act(dt[..., None] * bmat[..., None, :] * x.float()[..., None],
+                   "mamba_state")
         if h0 is None:
             h0 = torch.zeros(bsz, din, st, dtype=torch.float32,
                              device=x_in.device)
         h_states, h_last = scan_chunked(abar, bbar, h0,
                                         min(cfg.mamba_chunk, seq))
-        y = torch.einsum("blds,bls->bld", h_states, cmat)
+        y = einsum("blds,bls->bld", h_states, cmat)
         y = y + x.float() * self.d_skip
         y = y.to(x_in.dtype) * F.silu(z)
-        out = y @ self.out_proj
+        out = matmul(y, self.out_proj)
         conv_tail = xz[:, -pad:, :din].clone() if pad > 0 else None
         return out, (h_last, conv_tail)
 
@@ -100,7 +102,7 @@ class Mamba(nn.Module):
         Returns (y [B, 1, D], h', conv_state')."""
         cfg = self.cfg
         din = cfg.d_inner
-        xz = x_in @ self.in_proj                             # [B, 1, 2din]
+        xz = matmul(x_in, self.in_proj)                      # [B, 1, 2din]
         x_raw, z = xz[..., :din], xz[..., din:]
         window = torch.cat([conv_state, x_raw], dim=1)       # [B, conv, din]
         x = F.silu((window * self.conv_w).sum(dim=1, keepdim=True)
@@ -111,10 +113,10 @@ class Mamba(nn.Module):
         bbar = (dt[:, 0, :, None] * bmat[:, 0, None, :]
                 * x.float()[:, 0, :, None])
         h = abar * h + bbar
-        y = torch.einsum("bds,bs->bd", h, cmat[:, 0])[:, None, :]
+        y = einsum("bds,bs->bd", h, cmat[:, 0])[:, None, :]
         y = y + x.float() * self.d_skip
         y = y.to(x_in.dtype) * F.silu(z)
-        out = y @ self.out_proj
+        out = matmul(y, self.out_proj)
         new_conv = torch.cat([conv_state[:, 1:], x_raw], dim=1)
         return out, h, new_conv
 

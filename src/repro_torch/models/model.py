@@ -26,6 +26,8 @@ from repro_torch.device import resolve_device
 
 from .config import ModelConfig
 from .layers import dtype_of, normal_, param, rms_norm
+from .sharding import (_is_dt, act, full, matmul, own_shard, pick_last,
+                       take_rows)
 from .transformer import Block, apply_stack
 
 AUX_LOSS_COEF = 0.01
@@ -103,8 +105,9 @@ def _as_tensor(a) -> torch.Tensor:
 def as_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array; bfloat16 as the 2-byte void that
     ``np.save`` writes for ml_dtypes' bfloat16 (numpy has no bfloat16 of
-    its own), so the bits round-trip through ``_as_tensor``."""
-    t = t.detach().cpu()
+    its own), so the bits round-trip through ``_as_tensor``. A DTensor
+    gives its full value (a collective: every rank calls it)."""
+    t = full(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -177,7 +180,7 @@ def load_flat_(tensors: dict[str, torch.Tensor], flat: dict[str, Any],
                what: str = "parameter") -> None:
     """Copy numpy leaves ``flat`` into ``tensors`` (the same names), each
     cast to its tensor's dtype and device; the names and shapes must
-    match."""
+    match. A DTensor takes its own shard of the leaf."""
     if set(flat) != set(tensors):
         raise ValueError(f"{what} trees differ: only in the tree "
                          f"{sorted(set(flat) - set(tensors))}, only in the "
@@ -188,7 +191,11 @@ def load_flat_(tensors: dict[str, torch.Tensor], flat: dict[str, Any],
             if t.shape != tensors[name].shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                                  f"{tuple(tensors[name].shape)}")
-            tensors[name].copy_(t)
+            dst = tensors[name]
+            if _is_dt(dst):
+                dst.to_local().copy_(own_shard(dst, t))
+            else:
+                dst.copy_(t)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
@@ -213,8 +220,9 @@ def params_to_numpy(model: LM, cfg: ModelConfig) -> dict:
 def embed_inputs(model: LM, batch: dict) -> torch.Tensor:
     dtype = dtype_of(model.cfg)
     if "embeddings" in batch:  # stubbed modality frontend
-        return batch["embeddings"].to(dtype)
-    return model.embed[batch["tokens"].long()].to(dtype)
+        return act(batch["embeddings"].to(dtype), "hidden")
+    return act(take_rows(model.embed, batch["tokens"].long()).to(dtype),
+               "hidden")
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -234,9 +242,10 @@ def chunked_ce_loss(h, lm_head, labels, chunk: int):
     for i in range(s // chunk):
         hc = h[:, i * chunk:(i + 1) * chunk]
         yc = labels[:, i * chunk:(i + 1) * chunk].long()
-        logits = (hc @ lm_head).float()                       # [B, c, V]
+        logits = act(matmul(hc, lm_head).float(),             # [B, c, V]
+                     "logits_chunk")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, yc[..., None])[..., 0]
+        gold = pick_last(logits, yc)
         total = total + torch.sum(lse - gold)
     return total / (b * s)
 
@@ -296,7 +305,7 @@ def prefill(model: LM, batch: dict):
     b, s = x.shape[:2]
     h, caches, _ = model(x, _positions(b, s, x.device), "prefill")
     h = rms_norm(h, model.final_norm)
-    logits = (h[:, -1:, :] @ model.lm_head).float()
+    logits = matmul(h[:, -1:, :], model.lm_head).float()
     return logits, caches
 
 
@@ -304,12 +313,12 @@ def prefill(model: LM, batch: dict):
 def decode_step(model: LM, tokens, state: DecodeState):
     """One serving step: tokens [B, 1] → (logits [B, 1, V], new state).
     The caches are updated in place."""
-    x = model.embed[tokens.long()].to(dtype_of(model.cfg))
+    x = take_rows(model.embed, tokens.long()).to(dtype_of(model.cfg))
     b = x.shape[0]
     positions = torch.full((b, 1), state.pos, dtype=torch.int32,
                            device=x.device)
     h, new_caches, _ = model(x, positions, "decode", caches=state.caches,
                              pos=state.pos)
     h = rms_norm(h, model.final_norm)
-    logits = (h @ model.lm_head).float()
+    logits = matmul(h, model.lm_head).float()
     return logits, DecodeState(caches=new_caches, pos=state.pos + 1)

@@ -16,6 +16,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import MLP, activate, normal_, param
+from .sharding import act, einsum, matmul
 
 
 class Experts(nn.Module):
@@ -40,13 +41,11 @@ class Experts(nn.Module):
     def forward(self, xe):
         """xe [G, E, C, D] → [G, E, C, D] through per-expert FFNs."""
         if self.cfg.mlp_variant == "swiglu":
-            h = activate(self.cfg,
-                         torch.einsum("gecd,edf->gecf", xe, self.wg),
-                         torch.einsum("gecd,edf->gecf", xe, self.wi))
+            h = activate(self.cfg, einsum("gecd,edf->gecf", xe, self.wg),
+                         einsum("gecd,edf->gecf", xe, self.wi))
         else:
-            h = activate(self.cfg,
-                         torch.einsum("gecd,edf->gecf", xe, self.wi))
-        return torch.einsum("gecf,efd->gecd", h, self.wo)
+            h = activate(self.cfg, einsum("gecd,edf->gecf", xe, self.wi))
+        return einsum("gecf,efd->gecd", h, self.wo)
 
 
 class MoE(nn.Module):
@@ -70,7 +69,7 @@ class MoE(nn.Module):
     def route(self, x):
         """x [G, S, D] → (gates [G, S, E] float32, top-k gates and expert
         ids [G, S, K], sorted by gate)."""
-        logits = x.float() @ self.router
+        logits = matmul(x.float(), self.router)
         gates = torch.softmax(logits, dim=-1)
         topv, topi = torch.topk(gates, self.cfg.top_k, dim=-1)
         return gates, topv, topi
@@ -94,15 +93,16 @@ class MoE(nn.Module):
         # combine[g,s,e,c]: gate weight of token s in slot c of expert e,
         # built in the model dtype as the reference's is
         dt = x.dtype
-        combine = torch.einsum(
+        combine = einsum(
             "gske,gskc->gsec",
             onehot.to(dt) * (topv * keep)[..., None].to(dt),
             one_hot(torch.where(keep, pos, 0), c, dt)
             * keep[..., None].to(dt))
+        combine = act(combine, "moe_dispatch")
         dispatch = combine > 0.0
-        xe = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), x)
-        h = self.experts(xe)                                   # [G, E, C, D]
-        y = torch.einsum("gsec,gecd->gsd", combine, h)
+        xe = act(einsum("gsec,gsd->gecd", dispatch.to(dt), x), "moe_inner")
+        h = act(self.experts(xe), "moe_inner")                # [G, E, C, D]
+        y = einsum("gsec,gecd->gsd", combine, h)
         if cfg.d_ff_shared:
             y = y + self.shared(x)
         return y, aux_loss(gates, topi, e)

@@ -22,6 +22,7 @@ from .config import ModelConfig
 from .layers import MLP, Attention, rms_norm
 from .mamba import Mamba
 from .moe import MoE
+from .sharding import act
 
 
 class Block(nn.Module):
@@ -63,6 +64,7 @@ class Block(nn.Module):
         """The reference's ``apply_block``; mode: "train" | "prefill" |
         "decode". Returns (x, new_cache or None, aux loss)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = act(x, "hidden")
         h = rms_norm(x, self.ln1)
         if self.kind == "attn":
             if mode == "decode":
@@ -79,15 +81,19 @@ class Block(nn.Module):
             else:
                 y, (hs, conv) = self.mamba(h)
                 new_cache = (hs, conv) if mode == "prefill" else None
-        x = x + y
+        # mixer/MLP outputs pinned to the residual sharding before the
+        # add; decode defers the reduction instead, as the reference does
+        pin = (lambda t: t) if mode == "decode" else (
+            lambda t: act(t, "hidden"))
+        x = x + pin(y)
         if self.cfg.family != "ssm":
             h2 = rms_norm(x, self.ln2)
             if self.is_moe:
                 y2, aux = self.moe(h2)
             else:
                 y2 = self.mlp(h2)
-            x = x + y2
-        return x, new_cache, aux
+            x = x + pin(y2)
+        return act(x, "hidden"), new_cache, aux
 
 
 def apply_stack(blocks, x, positions, mode: str, caches=None, pos=None):

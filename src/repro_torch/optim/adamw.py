@@ -32,8 +32,9 @@ def adamw_init(params: dict[str, torch.Tensor],
         moment_dtype = getattr(torch, moment_dtype)
     dev = next(iter(params.values())).device
 
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+    def zeros():  # like each parameter: a DTensor keeps its placements
+        return {n: torch.zeros_like(p, dtype=moment_dtype,
+                                    memory_format=torch.contiguous_format)
                 for n, p in params.items()}
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -84,6 +85,21 @@ def _f32(ts):
     return [t.float() for t in ts]
 
 
+def _copy_all_(dst, src) -> None:
+    """``torch._foreach_copy_(dst, src)``. DTensor has no strategy for
+    it: DTensor leaves copy shard to shard, each source brought to its
+    destination's placements first (the update keeps them, so this moves
+    nothing)."""
+    if type(dst[0]) in (torch.Tensor, torch.nn.Parameter):
+        torch._foreach_copy_(dst, src)
+        return
+    torch._foreach_copy_(
+        [d.to_local() for d in dst],
+        [(x if tuple(x.placements) == tuple(d.placements)
+          else x.redistribute(d.device_mesh, d.placements)).to_local()
+         for d, x in zip(dst, src)])
+
+
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor],
                  grads: dict[str, torch.Tensor], state: AdamWState, lr,
@@ -123,7 +139,7 @@ def adamw_update(params: dict[str, torch.Tensor],
         torch._foreach_div_(u, den)
         pn = torch._foreach_mul(_f32(ps), decay)        # p·(1-lr·wd) - lr·u
         torch._foreach_sub_(pn, torch._foreach_mul(u, lr))
-        torch._foreach_copy_(ps, pn)
-        torch._foreach_copy_(ms, mn)
-        torch._foreach_copy_(vs, vn)
+        _copy_all_(ps, pn)
+        _copy_all_(ms, mn)
+        _copy_all_(vs, vn)
     return params, AdamWState(step, state.m, state.v), gn

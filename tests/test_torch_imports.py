@@ -5,7 +5,8 @@ fresh interpreter: no import cycle between ``repro_torch.kernels`` and
 layout oracles, the model zoo, the serving launcher, the routing bridge
 (``telemetry``, which imports ``core.events``) and the chip-on-chip
 example, and the training modules (``optim``, ``data.tokens``,
-``launch.train``, ``runtime.compress``) import first too, and pull in
+``launch.train``, ``runtime.compress``) and the multi-card LM's
+(``models.sharding``, ``launch.dryrun``) import first too, and pull in
 neither JAX nor the reference package."""
 
 import os
@@ -38,7 +39,8 @@ def test_kernel_module_imports_first(module):
                                     "launch.serve", "launch.shapes",
                                     "telemetry", "examples.chip_on_chip",
                                     "optim", "data.tokens", "launch.train",
-                                    "runtime.compress"])
+                                    "runtime.compress", "models.sharding",
+                                    "launch.dryrun"])
 def test_module_imports_first(module):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

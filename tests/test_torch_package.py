@@ -65,6 +65,16 @@ def _tiny():
     return stream, eps
 
 
+def _host_mesh_on_cpu(mesh):
+    """A 1×1 mesh over a process group of one rank, which the block takes
+    down again."""
+    import torch.distributed as dist
+    with mesh.host_mesh(device="cpu") as m:
+        assert m.mesh_dim_names == ("data", "model") and m.shape == (1, 1)
+        assert dist.get_backend() == "gloo"
+    assert not dist.is_initialized()
+
+
 def _wire_load_on_cpu(tmp_path):
     """``run_load(verify=True)`` against a port server, both on the CPU."""
     from repro_torch.launch.wire_load import run_load
@@ -86,12 +96,13 @@ def _wire_load_on_cpu(tmp_path):
                                    "daemon", "wire_load", "init_params",
                                    "serve_batch", "launch_serve", "serve_lm",
                                    "chip_on_chip", "train_loop",
-                                   "launch_train", "train_lm"])
+                                   "launch_train", "train_lm",
+                                   "make_host_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            tmp_path, entry):
     from repro_torch.configs import get_smoke_config
     from repro_torch.examples import chip_on_chip, serve_lm, train_lm
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh, serve, train
     from repro_torch.launch.wire_load import run_load
     from repro_torch.models import init_params
     from repro_torch.service import (DaemonConfig, MiningDaemon,
@@ -123,6 +134,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "train_loop": lambda: train.train_loop(lm, steps=2, batch=1, seq=8),
         "launch_train": lambda: train.main(train_argv),
         "train_lm": lambda: train_lm.main(["--ckpt-dir", data]),
+        "make_host_mesh": lambda: mesh.make_host_mesh(),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -143,11 +155,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "train_loop": lambda: train.train_loop(lm, steps=2, batch=1, seq=8,
                                                device="cpu"),
         "launch_train": lambda: train.main(train_argv + ["--device", "cpu"]),
+        "make_host_mesh": lambda: _host_mesh_on_cpu(mesh),
     }
     if entry in on_cpu:
         on_cpu[entry]()
     else:
         assert count_a1(stream, eps, device="cpu").tolist() == [2]
+    # the launchers' host meshes leave no process group behind
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("engine", ["mapconcat_sharded"])
