@@ -107,7 +107,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      checkpoints' count and seconds (one session's checkpoint split into
      its state copy and its files);
    - path H, calibrated dispatch: the card's copy rate (``measure_hw``:
-     ``hbm_bw``, and ``ici_bw``, the same copy on one card), the
+     ``hbm_bw``, and ``ici_bw``, the same copy on one card) beside
+     ``launch.calibrate.hlo_traffic_probe()``'s counted traffic of the
+     plain A1 counter at the reference's probe point and its HBM-implied
+     seconds, the
      reference's full calibration grid (N 2, 3, 5 × M 16, 128, 512 × n
      1024, 4096 × q 1, 4, 8, 3 repeats, 1 warm-up) fitted on the card
      (fingerprint, engines, points, seconds, relative fit error); fig7's
@@ -181,8 +184,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      mesh at full width, in a process of its own started before path K
      (a fake process group of 256 ranks; it must end ``ok`` with no
      tensor on the card and CUDA never initialised; GiB per device beside
-     the card's 80); on ``launch.mesh.host_mesh()`` (NCCL, one rank, a
-     1x1 mesh), L-a trains gemma3_1b at full width through ``train_loop(...,
+     the card's 80), its record's ``hlo`` and ``cost`` from
+     ``launch.op_analysis`` counted in the same trace (FLOPs, traffic and
+     collective bytes a rank each > 0) and its ``launch.roofline`` row
+     (a bound from counted work, not a time); the same process then
+     counts the FLOPs of K-b's unsharded step on ``meta`` (traced bare
+     and counted, both timed), which path L holds against K-b's median
+     step as a share of the card's 989 TFLOP/s, beside 6·N·tokens; on
+     ``launch.mesh.host_mesh()`` (NCCL, one rank, a 1x1 mesh), L-a
+     trains gemma3_1b at full width through ``train_loop(...,
      mesh=...)`` for 3 steps at K-b's batch of 4 x 1,024 (the parameters'
      placements those of ``build_train``; the losses within 1e-6
      relative of K-b's first three; step time and peak memory beside
@@ -490,6 +500,7 @@ MESH_LOSS_TOL = 1e-6                       # L-a: losses against K-b's (rel)
 MESH_SERVE = SERVE_CACHE[0]                # L-b: path J's gemma3_1b serve
 DRYRUN_CELL = ("llama3_405b", "train_4k", "single")  # L-c, full width
 DRYRUN_TIMEOUT = 300
+KB_COUNT = "kb_count.json"     # L-c's count of K-b's step, in its directory
 CARD_GIB = 80
 
 
@@ -2440,7 +2451,9 @@ def calibrated_path(np, torch, tally, lcap, path_a, smi):
     from repro_torch.core import EpisodeBatch, calibrate, hybrid
     from repro_torch.data import sym26
     from repro_torch.launch import mine_serve
-    from repro_torch.launch.calibrate import fit_errors, measure_hw
+    from repro_torch.launch.calibrate import (fit_errors, hlo_traffic_probe,
+                                              measure_hw)
+    from repro_torch.launch.roofline import HBM_BW
     from repro_torch.obs import REGISTRY
 
     got = collections.Counter()
@@ -2455,6 +2468,19 @@ def calibrated_path(np, torch, tally, lcap, path_a, smi):
               f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s), ici_bw "
               f"{hw['ici_bw'] / 1e12:.4f} TB/s (one card: the same copy) "
               f"in {time.perf_counter() - t0:.2f} s on {smi}")
+        t0 = time.perf_counter()
+        probe = hlo_traffic_probe()
+        if not probe["traffic_bytes"] > 0:
+            fail(f"path H: the traffic probe counted nothing: {probe}")
+        print(f"[smoke] path H: hlo_traffic_probe at {probe['point']} (the "
+              f"plain A1 counter on the CPU under op_analysis): "
+              f"traffic_bytes {probe['traffic_bytes']:.0f}, dot_flops "
+              f"{probe['dot_flops']:.0f}, hbm_implied_s "
+              f"{probe['hbm_implied_s']:.6e} at the data sheet's "
+              f"{HBM_BW / 1e12:.2f} TB/s ("
+              f"{probe['traffic_bytes'] / hw['hbm_bw']:.6e} s at the "
+              f"measured hbm_bw {hw['hbm_bw'] / 1e12:.4f} TB/s) in "
+              f"{time.perf_counter() - t0:.2f} s on {smi}")
         spec = calibrate.GridSpec()
         t0 = time.perf_counter()
         table, path = calibrate.calibrate_and_save(
@@ -4245,24 +4271,72 @@ def train_path(torch, smi):
     return k_b
 
 
+def kb_step_count(cfg, batch: int, seq: int) -> dict:
+    """K-b's unsharded train step (``make_train_step(cfg)`` on a model,
+    AdamW state and batch of ``meta`` tensors) traced twice, bare and
+    under ``launch.op_analysis.OpCounter`` (the process is warm from the
+    dry run's trace): the counted summary and both traces' seconds."""
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.shapes import ShapeCell, batch_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init
+
+    def traced(counter=None):
+        model = LM(cfg, device="meta").requires_grad_(True)
+        opt = adamw_init(dict(model.named_parameters()),
+                         moment_dtype=cfg.moment_dtype)
+        data = batch_specs(cfg, ShapeCell("K-b", "train", seq, batch))
+        step = make_train_step(cfg)
+        t0 = time.perf_counter()
+        with counter or contextlib.nullcontext():
+            step(model, opt, data)
+        return time.perf_counter() - t0
+
+    bare_s = traced()
+    counter = OpCounter()
+    counted_s = traced(counter)
+    return {"summary": counter.summary().to_json(), "bare_s": bare_s,
+            "counted_s": counted_s}
+
+
+def dryrun_child(out_dir: str) -> int:
+    """L-c's process: ``launch.dryrun``'s CLI on ``DRYRUN_CELL`` into
+    ``out_dir``, then ``kb_step_count`` of ``TRAIN_FULL``'s step at full
+    width, written to ``KB_COUNT`` there."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    arch, shape, mesh = DRYRUN_CELL
+    rc = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                      "--force", "--out", out_dir])
+    if rc:
+        return rc
+    arch, batch, seq, _ = TRAIN_FULL
+    got = kb_step_count(get_config(arch), batch, seq)
+    (Path(out_dir) / KB_COUNT).write_text(json.dumps(got))
+    print(f"[K-b count] {arch} train step at batch {batch} x seq {seq} on "
+          f"meta: {got['summary']['dot_flops']:.6e} FLOPs; traced in "
+          f"{got['bare_s']:.2f} s bare, {got['counted_s']:.2f} s counted")
+    return 0
+
+
 @contextlib.contextmanager
 def dryrun_process():
-    """L-c: ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` at
-    full width, in a process of its own (its fake process group of 256
-    ranks lives there; it touches no card, so it traces beside path K).
-    Yields (process, output directory); the process is stopped and the
-    directory removed on exit."""
+    """L-c: ``dryrun_child`` in a process of its own (the dry run's fake
+    process group of 256 ranks lives there; it touches no card, so it
+    traces beside path K). Yields (process, output directory); the
+    process is stopped and the directory removed on exit."""
     import shutil
     import tempfile
 
-    arch, shape, mesh = DRYRUN_CELL
     out_dir = tempfile.mkdtemp()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+        [str(SRC), str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", mesh, "--force", "--out", out_dir],
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.dryrun_child(sys.argv[1]))", out_dir],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:
@@ -4344,9 +4418,14 @@ def mesh_serve(torch, mesh, dev):
              f"{stats_m['finite']}")
 
 
-def dryrun_check(proc, out_dir: str) -> None:
+def dryrun_check(proc, out_dir: str, smi: str) -> dict:
     """L-c: the dry run's process ends 0 and its cell ``ok``, with no
-    tensor on a CUDA device and CUDA never initialised in it."""
+    tensor on a CUDA device and CUDA never initialised in it, and with
+    ``hlo`` and ``cost``: FLOPs, traffic and collective bytes a rank each
+    > 0; prints the cell's roofline row. Returns ``kb_step_count``'s
+    numbers from the same process."""
+    from repro_torch.launch.roofline import cell_terms, to_markdown
+
     arch, shape, mesh = DRYRUN_CELL
     try:
         out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
@@ -4374,6 +4453,48 @@ def dryrun_check(proc, out_dir: str) -> None:
           f"{gib(mem['temp_size_in_bytes'])}); tensors on "
           f"{mem['device_types']}, CUDA initialised "
           f"{rec['cuda_initialized']}")
+    hlo = rec.get("hlo") or {}
+    if not all(hlo.get(k, 0) > 0 for k in ("dot_flops", "traffic_bytes",
+                                          "collective_bytes")) \
+            or rec["cost"] != {"flops": hlo["dot_flops"],
+                               "bytes accessed": hlo["traffic_bytes"]}:
+        fail(f"path L-c: op analysis {hlo}, cost {rec.get('cost')}")
+    print(f"[smoke] path L-c op analysis a rank: dot_flops "
+          f"{hlo['dot_flops']:.6e}, traffic_bytes "
+          f"{hlo['traffic_bytes']:.6e}, collective_bytes "
+          f"{hlo['collective_bytes']:.6e} {hlo['collective_breakdown']}; "
+          f"trace {rec['seconds']['trace']:.1f} s with the counter")
+    print(f"[smoke] path L-c roofline on {smi} (a bound from counted work "
+          f"at the data sheet's peaks, not a time):")
+    for line in to_markdown([cell_terms(rec)]).splitlines():
+        if line.startswith("|"):
+            print(f"[smoke] path L-c | {line}")
+    kb = Path(out_dir) / KB_COUNT
+    if not kb.exists():
+        fail("path L-c: K-b's step was not counted")
+    return json.loads(kb.read_text())
+
+
+def kb_share(k_b, kb, smi) -> None:
+    """K-b's share of the card's dense bfloat16 peak: the FLOPs counted on
+    its step (``kb_step_count``) over its median warm step, beside
+    6·N·tokens over the same step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import PEAK_FLOPS
+
+    arch, batch, seq, _ = TRAIN_FULL
+    flops = kb["summary"]["dot_flops"]
+    if not flops > 0:
+        fail(f"path L-c: K-b's step counted {flops} FLOPs")
+    model = 6.0 * get_config(arch).num_active_params_per_token() \
+        * batch * seq
+    step = k_b["step_s"]
+    print(f"[smoke] path L K-b share of the peak on {smi}: counted "
+          f"{flops:.6e} FLOPs / ({step:.4f} s x {PEAK_FLOPS:.3e}) = "
+          f"{flops / (step * PEAK_FLOPS):.4f}; 6*N*tokens {model:.6e} / "
+          f"the same = {model / (step * PEAK_FLOPS):.4f}; counted / "
+          f"6*N*tokens {flops / model:.4f}; meta trace {kb['bare_s']:.2f} s "
+          f"bare, {kb['counted_s']:.2f} s counted")
 
 
 def mesh_path(torch, smi, k_b, dryrun):
@@ -4381,7 +4502,7 @@ def mesh_path(torch, smi, k_b, dryrun):
     ``launch.mesh.host_mesh()`` (NCCL, one rank, a 1x1 mesh, taken down
     after), L-a (``mesh_train``) and L-b (``mesh_serve``); then L-c's
     ``dryrun_check`` on ``dryrun`` (``dryrun_process``'s, started before
-    path K)."""
+    path K) and ``kb_share`` of its count of K-b's step."""
     from repro_torch.launch.mesh import host_mesh
 
     dev = torch.device("cuda", 0)
@@ -4398,8 +4519,9 @@ def mesh_path(torch, smi, k_b, dryrun):
             mesh_serve(torch, mesh, dev)
             seconds["L-b"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dryrun_check(*dryrun)
+        kb = dryrun_check(*dryrun, smi)
         seconds["L-c wait"] = time.perf_counter() - t0
+        kb_share(k_b, kb, smi)
         print("[smoke] path L seconds: " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
     finally:

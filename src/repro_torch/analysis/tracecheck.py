@@ -24,6 +24,10 @@ they do.
          ``cuda.library`` at all (the plain versions run); on the card no
          library loaded twice and no file added under ``build/kernels/``.
 
+The summary's ``hlo_traffic`` holds ``launch.op_analysis``'s totals of
+the plain A1 and A2 counters on the small inputs, under the keys of the
+reference's ``audit_hlo``.
+
 Findings carry the source line of the code at fault where there is one
 (a synchronising call), so an ``# audit-ok:`` marker there waives them.
 Unlike Passes 1 and 3 this pass imports torch and the engines.
@@ -232,6 +236,27 @@ def audit_syncs() -> tuple[list[Finding], dict]:
     return findings, {"sync_commits_checked": checked}
 
 
+def audit_traffic() -> tuple[list[Finding], dict]:
+    """The op-analysis totals (``launch.op_analysis``) of the plain A1 and
+    A2 counters on ``_small_inputs`` at the first of ``SHAPES``, on the
+    CPU, keyed as the reference's ``audit_hlo`` keys its scan cores."""
+    from repro_torch.core.count_a1 import count_a1_vectorized
+    from repro_torch.core.count_a2 import count_single_slot
+    from repro_torch.launch.op_analysis import analyze
+
+    n, lcap = SHAPES[0]
+    eps, stream = _small_inputs(n, lcap, "cpu")
+    cases = {
+        "count_a1._a1_scan_core": (count_a1_vectorized, (stream, eps),
+                                   {"lcap": lcap, "device": "cpu"}),
+        "count_a2._a2_scan_core": (count_single_slot, (stream, eps),
+                                   {"device": "cpu"}),
+    }
+    traffic = {name: analyze(fn, args, kw).to_json()
+               for name, (fn, args, kw) in cases.items()}
+    return [], {"hlo_traffic": traffic}
+
+
 @contextlib.contextmanager
 def _library_log():
     """Count ``cuda.library`` calls, and the loads among them (a name not
@@ -316,7 +341,8 @@ def library_sentinel(n_windows: int = 10) -> tuple[list[Finding], dict]:
 def run(sentinel: bool = True):
     """All of Pass 2. Returns (findings, summary)."""
     findings, summary = audit_entry_points()
-    for fn in (audit_syncs,) + ((library_sentinel,) if sentinel else ()):
+    for fn in (audit_traffic, audit_syncs) + \
+            ((library_sentinel,) if sentinel else ()):
         f, s = fn()
         findings.extend(f)
         summary.update(s)

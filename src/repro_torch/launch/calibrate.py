@@ -10,13 +10,18 @@ dir — atomically, with the reference's versioned schema.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.calibrate            # card
   PYTHONPATH=src python -m repro_torch.launch.calibrate --smoke --device cpu
-      [--out PATH] [--data-dir DIR] [--repeats K] [--json-out P] [--quiet]
+      [--out PATH] [--data-dir DIR] [--repeats K] [--hlo] [--json-out P]
+      [--quiet]
 
 The table steers a process that asks for it: ``mine_serve
 --policy-table/--calibrate``, or anything through the
 ``REPRO_POLICY_TABLE`` / ``REPRO_CALIBRATION_DIR`` environment opt-ins.
-The reference's ``--hlo`` (its XLA traffic cross-check) has no
-counterpart here.
+``--hlo`` also steps the plain A1 counter (the counterpart of the
+reference's PTPE scan core) at one representative grid point on the CPU
+under ``launch.op_analysis`` and records its traffic next to the fit
+(``meta["hlo"]``): the counted-bytes cross-check for the analytic seed,
+printed beside the fit, which still seeds from ``measure_hw``'s
+measured rates.
 """
 
 from __future__ import annotations
@@ -30,6 +35,13 @@ import time
 from repro_torch.core.calibrate import (CalibrationTable, GridSpec,
                                         calibrate_and_save,
                                         device_fingerprint)
+
+from .roofline import HBM_BW, ICI_BW, PEAK_FLOPS
+
+# the H100's data-sheet envelope, shared with the roofline pass (the fit
+# itself seeds from the rates ``measure_hw`` measures on the device)
+ROOFLINE_HW = {"peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW,
+               "ici_bw": ICI_BW}
 
 # bytes of the buffer each copy moves: well past the H100's 50 MB L2 on
 # the card; small on the host, whose memory other processes share
@@ -93,10 +105,42 @@ def measure_hw(device=None) -> dict:
     return {"hbm_bw": float(hbm), "ici_bw": float(ici)}
 
 
+def hlo_traffic_probe(n_episode: int = 3, m: int = 64,
+                      n_events: int = 1024, lcap: int = 4) -> dict:
+    """Step the plain A1 counter (``count_a1_vectorized`` on the CPU, the
+    counterpart of the reference's ``_a1_scan_core``) at one grid point
+    under ``launch.op_analysis`` and return its traffic and FLOP totals
+    plus the HBM-implied seconds: the counted-bytes sanity check for
+    ``analytic_seconds``. The reference's inputs: every episode of type 0
+    with windows (5, 10], ``n_events`` events of type 0 one tick apart."""
+    import numpy as np
+
+    from repro_torch.core.count_a1 import count_a1_vectorized
+    from repro_torch.core.episodes import EpisodeBatch
+    from repro_torch.core.events import EventStream
+
+    from .op_analysis import analyze
+
+    eps = EpisodeBatch(np.zeros((m, n_episode), np.int32),
+                       np.full((m, n_episode - 1), 5, np.int32),
+                       np.full((m, n_episode - 1), 10, np.int32))
+    stream = EventStream(np.zeros(n_events, np.int32),
+                         np.arange(n_events, dtype=np.int32), 1)
+    summ = analyze(count_a1_vectorized, (stream, eps),
+                   {"lcap": lcap, "device": "cpu"})
+    return {"point": {"n_episode": n_episode, "m": m,
+                      "n_events": n_events, "lcap": lcap},
+            "traffic_bytes": summ.traffic_bytes,
+            "dot_flops": summ.dot_flops,
+            "hbm_implied_s": summ.traffic_bytes / HBM_BW}
+
+
 def run(spec: GridSpec, *, out_path: str | None, data_dir: str | None,
-        device=None, quiet: bool = False) -> tuple[CalibrationTable, str]:
+        device=None, hlo: bool = False,
+        quiet: bool = False) -> tuple[CalibrationTable, str]:
     """Build the kernels (on the card: no sample may include an ``nvcc``
-    run), measure the rates, then the grid; fit, save, install."""
+    run), measure the rates, then the grid; fit, save, install. With
+    ``hlo`` the table's ``meta["hlo"]`` holds ``hlo_traffic_probe()``."""
     from repro_torch.device import resolve_device
     device = resolve_device(device)
     if device.type == "cuda":
@@ -109,9 +153,13 @@ def run(spec: GridSpec, *, out_path: str | None, data_dir: str | None,
                   f"M={pt['m']:<4} n={pt['n_events']:<5} q={pt['q']:<2} "
                   f"-> {pt['seconds']*1e3:8.2f} ms")
     hw = measure_hw(device)
-    return calibrate_and_save(spec, hw=hw, out_path=out_path,
-                              data_dir=data_dir, progress=progress,
-                              device=device)
+    table, path = calibrate_and_save(spec, hw=hw, out_path=out_path,
+                                     data_dir=data_dir, progress=progress,
+                                     device=device)
+    if hlo:
+        table.meta["hlo"] = hlo_traffic_probe()
+        table.save(path)
+    return table, path
 
 
 def fit_errors(table: CalibrationTable) -> dict[str, float]:
@@ -147,6 +195,9 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=None,
                     help="timed samples per grid point (the warm-up "
                          "call is always discarded)")
+    ap.add_argument("--hlo", action="store_true",
+                    help="record the counted traffic of the plain A1 "
+                         "counter next to the fit (launch/op_analysis)")
     ap.add_argument("--json-out", default=None, metavar="PATH",
                     help="also dump the fitted table document here")
     ap.add_argument("--quiet", action="store_true")
@@ -165,11 +216,16 @@ def main(argv=None) -> int:
           f"({len(spec.points())} points)")
     t0 = time.perf_counter()
     table, path = run(spec, out_path=args.out, data_dir=args.data_dir,
-                      device=device, quiet=args.quiet)
+                      device=device, hlo=args.hlo, quiet=args.quiet)
     print(f"[calibrate] hw {table.hw}; fitted {sorted(table.coeffs)} over "
           f"{len(table.grid)} measured points in "
           f"{time.perf_counter() - t0:.1f} s; relative fit error "
           f"{fit_errors(table)}; cached at {path}")
+    if "hlo" in table.meta:
+        h = table.meta["hlo"]
+        print(f"[calibrate] HLO cross-check: {h['traffic_bytes']:.3e} B "
+              f"-> {h['hbm_implied_s']*1e6:.1f} us HBM-implied at the "
+              f"probe point")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(table.to_doc(), f, indent=1)

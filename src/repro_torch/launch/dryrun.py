@@ -25,7 +25,15 @@ and ``model``:
   whether CUDA was ever initialised in the process (never: no card is
   touched).
 
-The reference's ``hlo`` and ``cost`` keys wait for the op-analysis tools.
+``hlo`` is ``launch.op_analysis``'s summary of the same trace (one run,
+under ``LiveBytes`` and the op counter together): the FLOPs of the
+contractions, the operand bytes of the collectives and the traffic of
+the ops one rank runs on its local shards; ``cost`` holds its ``flops``
+and ``bytes accessed`` totals, the same numbers, since nothing is
+undercounted (the reference's ``cost_analysis`` visits a loop body once;
+here every layer and recompute runs). ``--keep-ops`` writes one line per
+counted op to ``{arch}__{shape}__{mesh}.ops.txt`` beside the JSON.
+
 The fake group lives in this process only, and the run touches no card:
 the trace's tensors are meta tensors (``torch.cuda.memory_allocated()``
 stays 0).
@@ -37,7 +45,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_405b \\
       --shape train_4k --mesh single --out experiments/dryrun_torch
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --smoke \\
-      --mesh both --out /tmp/dryrun
+      --mesh both --out /tmp/dryrun [--keep-ops]
+  PYTHONPATH=src python -m repro_torch.launch.roofline --dir /tmp/dryrun
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import torch
 from repro_torch.configs import ARCHS, canonical, get_config, \
     get_smoke_config
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.op_analysis import OpCounter
 from repro_torch.launch.shapes import SHAPES, cell_is_runnable, smoke_cell
 from repro_torch.launch.steps import build_cell
 
@@ -157,18 +167,22 @@ class LiveBytes:
         return self._mode.__exit__(*exc)
 
 
-def _trace(fn, args) -> LiveBytes:
+def _trace(fn, args, keep_ops: bool = False) -> tuple[LiveBytes,
+                                                      OpCounter]:
     """Run ``fn(*args)`` once under a ``LiveBytes`` that tracked the
-    arguments first."""
+    arguments first and an ``OpCounter`` (entered first, so ``LiveBytes``
+    sees the DTensor ops and the counter the local ones)."""
     tracker = LiveBytes()
     tracker.track(args)
-    with tracker:
+    counter = OpCounter(keep_ops=keep_ops)
+    with counter, tracker:
         fn(*args)
-    return tracker
+    return tracker, counter
 
 
 def run_cell(arch: str, shape: str, mesh_name: str, out_dir: Path,
-             force: bool = False, smoke: bool = False) -> dict:
+             force: bool = False, smoke: bool = False,
+             keep_ops: bool = False) -> dict:
     """Trace one cell under the current fake process group (of
     ``WORLD[mesh_name]`` ranks) and write its JSON record."""
     arch = canonical(arch)
@@ -197,8 +211,9 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: Path,
         args_bytes = local_bytes(args)
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
-        tracker = _trace(fn, args)
+        tracker, counter = _trace(fn, args, keep_ops)
         t_trace = time.perf_counter() - t0
+        summary = counter.summary()
         memory = {"argument_size_in_bytes": args_bytes,
                   "temp_size_in_bytes": tracker.peak - args_bytes,
                   "per_device_total_bytes": tracker.peak,
@@ -210,6 +225,9 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: Path,
             seconds={"build": round(t_build, 2),
                      "trace": round(t_trace, 2)},
             memory=memory,
+            cost={"flops": summary.dot_flops,
+                  "bytes accessed": summary.traffic_bytes},
+            hlo=summary.to_json(),
             tokens=cell.global_batch * (cell.seq_len
                                         if cell.kind != "decode" else 1),
             model={"params": cfg.num_params(),
@@ -221,7 +239,12 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: Path,
         print(f"[ok]     {arch} × {shape} × {mesh_name}: "
               f"{memory['per_device_total_bytes'] / 2**30:.2f} GiB/dev "
               f"(arguments {args_bytes / 2**30:.2f}), build {t_build:.1f}s"
-              f" trace {t_trace:.1f}s")
+              f" trace {t_trace:.1f}s; {summary.dot_flops:.3e} FLOPs, "
+              f"{summary.traffic_bytes:.3e} B traffic, "
+              f"{summary.collective_bytes:.3e} B collectives a rank")
+        if keep_ops:
+            (out_dir / f"{arch}__{shape}__{mesh_name}.ops.txt").write_text(
+                "\n".join(counter.lines) + "\n")
     except Exception as e:  # a failing cell is a bug — record it loudly
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-4000:])
@@ -240,6 +263,8 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced configs on cells cut by smoke_cell")
+    ap.add_argument("--keep-ops", action="store_true",
+                    help="write one line per counted op beside each JSON")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
@@ -256,7 +281,8 @@ def main(argv=None) -> int:
             for arch in archs:
                 for shape in shapes:
                     rec = run_cell(arch, shape, mesh_name, out_dir,
-                                   force=args.force, smoke=args.smoke)
+                                   force=args.force, smoke=args.smoke,
+                                   keep_ops=args.keep_ops)
                     n_err += rec["status"] == "error"
     if n_err:
         print(f"{n_err} cell(s) failed")

@@ -267,6 +267,24 @@ def test_entry_audit_flags_dtype_and_reallocated_state():
     assert rules == ["TR202", "TR204", "TR204"]
 
 
+def test_traffic_audit_totals_under_reference_keys():
+    """Pass 2's ``hlo_traffic``: the op-analysis totals of the plain A1 and
+    A2 counters under the keys of the reference's ``audit_hlo``, each with
+    the reference's five fields, traffic > 0 and no contraction."""
+    from repro_torch.analysis import tracecheck
+    findings, summary = tracecheck.audit_traffic()
+    assert findings == []
+    traffic = summary["hlo_traffic"]
+    assert set(traffic) == {"count_a1._a1_scan_core",
+                            "count_a2._a2_scan_core"}
+    for totals in traffic.values():
+        assert set(totals) == {"collective_bytes", "collective_breakdown",
+                               "dot_flops", "while_trip_counts",
+                               "traffic_bytes"}
+        assert totals["traffic_bytes"] > 0 and totals["dot_flops"] == 0
+        assert totals["collective_bytes"] == 0
+
+
 def test_library_sentinel_passes_on_the_cpu():
     from repro_torch.analysis import tracecheck
     findings, summary = tracecheck.library_sentinel(n_windows=4)
@@ -305,6 +323,8 @@ def test_cli_full_audit_clean_on_the_cpu(capsys):
     assert code == 0, data["findings"]
     assert data["summary"]["library_calls_cpu"] == 0
     assert len(data["summary"]["entry_points_run"]) >= 20
+    assert set(data["summary"]["hlo_traffic"]) == {
+        "count_a1._a1_scan_core", "count_a2._a2_scan_core"}
 
 
 def test_cli_budget_gates_the_launch_budget(capsys):

@@ -782,3 +782,80 @@ def test_daemon_takes_the_policy_table(tmp_path, monkeypatch):
     monkeypatch.setattr(daemon, "serve_foreground", got.append)
     daemon.main(["--policy-table", path, "--device", "cpu"])
     assert got[0].policy_table == path
+
+
+# ------------------------------------------- the traffic probe (--hlo)
+
+
+@pytest.fixture(scope="module")
+def probes():
+    """(port, reference) ``hlo_traffic_probe()`` at the default point."""
+    from repro.launch import calibrate as ref_cli
+    from repro_torch.launch import calibrate as cli
+    return cli.hlo_traffic_probe(), ref_cli.hlo_traffic_probe()
+
+
+def test_hlo_traffic_probe_matches_reference_keys(probes):
+    """The reference's keys and point; traffic > 0 in both packages (the
+    totals differ: XLA fuses the scan's body, the port counts eager ops);
+    the counter has no contraction, so both read 0 FLOPs."""
+    from repro_torch.launch.roofline import HBM_BW
+    got, want = probes
+    assert set(got) == set(want) == {"point", "traffic_bytes", "dot_flops",
+                                     "hbm_implied_s"}
+    assert got["point"] == want["point"] == {"n_episode": 3, "m": 64,
+                                             "n_events": 1024, "lcap": 4}
+    assert got["traffic_bytes"] > 0 and want["traffic_bytes"] > 0
+    assert got["dot_flops"] == want["dot_flops"] == 0
+    assert got["hbm_implied_s"] == got["traffic_bytes"] / HBM_BW
+
+
+def test_roofline_hw_is_the_roofline_constants():
+    from repro.launch import calibrate as ref_cli
+    from repro_torch.launch import calibrate as cli
+    from repro_torch.launch import roofline
+    assert set(cli.ROOFLINE_HW) == set(ref_cli.ROOFLINE_HW)
+    assert cli.ROOFLINE_HW == {"peak_flops": roofline.PEAK_FLOPS,
+                               "hbm_bw": roofline.HBM_BW,
+                               "ici_bw": roofline.ICI_BW}
+
+
+def _tiny_smoke(monkeypatch, cli):
+    """A 2-point smoke grid (too few points to fit an engine: the table
+    still saves, with its meta)."""
+    monkeypatch.setattr(cli.GridSpec, "smoke", classmethod(
+        lambda cls: cls(episode_sizes=(2,), episode_counts=(4, 8),
+                        event_counts=(64,), segment_counts=(1,),
+                        repeats=1, warmup=1, num_types=5)))
+
+
+def test_run_with_hlo_writes_meta(tmp_path, monkeypatch):
+    """``run(..., hlo=True, device="cpu")`` on a tiny smoke grid: the
+    saved table's ``meta["hlo"]`` is the probe's; the fit still seeds
+    from the measured rates."""
+    from repro_torch.launch import calibrate as cli
+    _tiny_smoke(monkeypatch, cli)
+    path = str(tmp_path / "t.json")
+    table, got_path = cli.run(cli.GridSpec.smoke(), out_path=path,
+                              data_dir=None, device="cpu", hlo=True,
+                              quiet=True)
+    assert got_path == path
+    assert set(table.hw) == {"hbm_bw", "ici_bw"}
+    assert table.meta["hlo"]["point"]["m"] == 64
+    assert table.meta["hlo"]["traffic_bytes"] > 0
+    assert load_table(path).meta["hlo"] == table.meta["hlo"]
+
+
+def test_calibrate_cli_hlo_prints_cross_check(tmp_path, monkeypatch, capsys,
+                                              probes):
+    from repro_torch.launch import calibrate as cli
+    _tiny_smoke(monkeypatch, cli)
+    monkeypatch.setattr(cli, "hlo_traffic_probe", lambda: probes[0])
+    out = tmp_path / "doc.json"
+    assert cli.main(["--smoke", "--device", "cpu", "--hlo", "--quiet",
+                     "--data-dir", str(tmp_path / "cal"), "--json-out",
+                     str(out)]) == 0
+    assert json.loads(out.read_text())["meta"]["hlo"] == probes[0]
+    text = capsys.readouterr().out
+    assert "[calibrate] HLO cross-check: " in text
+    assert "us HBM-implied at the probe point" in text
