@@ -77,6 +77,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      launch; every session equals a standalone miner on the card, the
      first 2 windows of sessions 0 and 1 the CPU plain path; ev/s, window
      latency, lanes per fused launch, gate decisions, retained windows;
+     the recompile listener (``obs.torchprof.ensure_recompile_listener``,
+     armed before the build, so it counts every build and load) must read
+     the same after the service's first step and its last (TR205), as in
+     every service path below;
    - path C′, the 8 Sym26 sessions for 30 s under the default fusion
      gate, then with the gate off, measured beside each other and path C,
      every session held against a standalone miner on the card;
@@ -1555,6 +1559,15 @@ def engine_table(miner) -> dict:
     return table
 
 
+def recompile_counts() -> dict[str, float]:
+    """The recompile listener's counts by library (``recompiles{kernel=
+    ...}``): builds and loads of the kernel libraries, and any
+    ``torch.compile``."""
+    from repro_torch.obs import REGISTRY
+    return {labels["kernel"]: m.value
+            for labels, m in REGISTRY.family_items("recompiles")}
+
+
 def span_totals(TRACER) -> dict[str, tuple[float, int, int]]:
     """{span name: (seconds, spans, episodes)} over the buffered spans."""
     out: dict[str, tuple[float, int, int]] = {}
@@ -1916,7 +1929,11 @@ def service_path(np, torch, tally, name, fleet, gate, history_limit, lcap,
     tally.reset_counts()
     t0 = time.perf_counter()
     with recorder or contextlib.nullcontext():
-        steps = svc.pump()
+        # the service armed the recompile listener; after the first step
+        # nothing may be built or loaded (TR205, by the listener)
+        steps = svc.pump(max_steps=1)
+        first = recompile_counts()
+        steps += svc.pump()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, lanes = tally.launch_counts(), tally.lane_counts()
@@ -1946,6 +1963,12 @@ def service_path(np, torch, tally, name, fleet, gate, history_limit, lcap,
           f"retries {retries}")
     if retries:
         fail(f"{name}: the scheduler's watchdog retried {retries} steps")
+    recompiles = stats["kernel"]["recompiles"]
+    print(f"[smoke] {name} recompile listener: {first} after the first "
+          f"step, {recompiles} after the last")
+    if recompiles != first:
+        fail(f"{name}: compiles after the first step: {first} -> "
+             f"{recompiles}")
     print(f"[smoke] {name} launches: {launches}; fused lanes {lanes}")
     print(f"[smoke] {name} host clock by span: " + ", ".join(
         f"{k} {v[0]:.3f} s ({v[1]})" for k, v in sorted(spans.items())
@@ -4549,6 +4572,7 @@ def main() -> int:
     from repro_torch.kernels import a1_count as k_a1
     from repro_torch.kernels import a2_count as k_a2
     from repro_torch.kernels import cuda, ops, tally
+    from repro_torch.obs.torchprof import ensure_recompile_listener
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -4556,9 +4580,14 @@ def main() -> int:
     print(f"[smoke] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    # armed before the build, so that the builds and this process's
+    # library loads are counted too (path C reads the count again)
+    if not ensure_recompile_listener():
+        fail("the recompile listener did not arm")
     t0 = time.perf_counter()
     log = cuda.build_all()
-    print(f"[smoke] kernels built in {time.perf_counter() - t0:.1f} s")
+    print(f"[smoke] kernels built in {time.perf_counter() - t0:.1f} s; "
+          f"recompile listener {recompile_counts()}")
     for src, rec in sorted(log.items()):
         print(f"[smoke]   {src}.cu: nvcc {rec['seconds']:.1f} s; "
               f"{ptxas_summary(rec['ptxas'])}")

@@ -7,7 +7,9 @@ repository root, and loaded with ``ctypes``. A library's file name carries
 a hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
 an edited source or header is rebuilt and a finished build is reused.
 Nothing here runs at import time: a module that holds a kernel imports this
-one and builds only when it first launches.
+one and builds only when it first launches. Each build and each load is
+logged on this module's logger (``Compiling <source>``, ``Loading
+<library>``), which ``obs.torchprof.ensure_recompile_listener`` counts.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -32,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source build record of this process: seconds and nvcc's ptxas report
 BUILD_LOG: dict[str, dict] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()  # builds and loads, one thread at a time
+_LOG = logging.getLogger(__name__)
 
 
 def _nvcc() -> str:
@@ -85,6 +89,7 @@ def build_all() -> dict[str, dict]:
             os.replace(tmp, out)
             BUILD_LOG[src.stem] = {"seconds": time.perf_counter() - t0,
                                    "ptxas": log}
+            _LOG.info("Compiling %s for sm_90a", src.stem)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return BUILD_LOG
@@ -95,15 +100,20 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
     use), with ``argtypes``/``restype`` set from ``signatures``:
     {function: (restype, [argtypes])}."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build_all()
-        lib = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:  # the service's worker threads may arrive together
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_target(CSRC / f"{name}.cu")))
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[name] = lib
+            _LOG.info("Loading %s", name)
     return lib
 
 

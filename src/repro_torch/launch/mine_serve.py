@@ -271,6 +271,8 @@ def main(argv=None):
     k = stats["kernel"]
     print(f"[serve] kernel launches {k['launches']} (fused lanes "
           f"{k['lanes']}); plain-version runs {k['plain']}")
+    if k["recompiles"]:
+        print(f"[serve] recompiles: {k['recompiles']}")
     if args.trace_out:
         n = TRACER.export_chrome(args.trace_out)
         TRACER.export_jsonl(args.trace_out + ".jsonl")

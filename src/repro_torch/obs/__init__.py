@@ -11,7 +11,9 @@ and its device-side hooks on ``torch.profiler``).
   ``annotate`` names each kernel entry point on the profiler's timeline
   (``record_function`` plus an NVTX range on the card), and
   ``capture_step`` records one ``torch.profiler`` trace of a block
-  (``mine_serve --profile-dir``). It imports torch only when used.
+  (``mine_serve --profile-dir``), and ``ensure_recompile_listener``
+  counts kernel library builds and loads (and any ``torch.compile``) into
+  ``recompiles{kernel=...}``. It imports torch only when used.
 """
 
 from . import registry, torchprof, trace

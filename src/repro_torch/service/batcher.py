@@ -63,9 +63,10 @@ on that and is asserted by tests/test_torch_service.py.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
-from collections import Counter
+from collections import Counter, deque
 
 from repro_torch.core.streaming import bucket_size
 from repro_torch.kernels import ops as kops
@@ -218,7 +219,10 @@ class CrossSessionBatcher:
     before its first submit). Counters inside the step call the seams
     ``a2_kernel_scan``/``a1_kernel_scan``/``mapc_kernel_scan``, which park
     until their group flushes; single-request groups fall through to the
-    single launch, so a lone tenant pays no batching tax."""
+    single launch, so a lone tenant pays no batching tax. Anonymous
+    ``begin_step()`` registers a wildcard step, and returns its id, that
+    the first unbound submitting thread claims: an all-wildcard fleet is
+    the all-parked global barrier."""
 
     def __init__(self, fusion_gate: bool = True,
                  flush_deadline_s: float = 0.5):
@@ -233,6 +237,8 @@ class CrossSessionBatcher:
         self._seen: dict[str, Counter] = {}  # submitted this step
         self._predicted: dict[str, Counter] = {}  # learned at end_step
         self._parked: Counter = Counter()  # parked requests per step
+        self._anon_pool: deque[str] = deque()  # anonymous steps unclaimed
+        self._anon_ids = itertools.count()
         self.cost_model = FusionCostModel(prior=_policy_prior)
         self.fusion_gate = fusion_gate
         # safety net for stale predictions: a parked group force-flushes
@@ -276,40 +282,53 @@ class CrossSessionBatcher:
 
     # --------------------------------------------------- step accounting
 
-    def begin_step(self, sid: str) -> None:
-        """Register session ``sid``'s step about to run. Its flush-group
-        membership is predicted from its previous step's request keys; a
-        session with no previous step is a wildcard — every group waits
-        for it to park or finish."""
+    def begin_step(self, session: str | None = None, expected=None) -> str:
+        """Register one session step about to run; returns its step id.
+        ``session`` names the tenant, so that its flush-group membership
+        is predicted from its previous step's request keys; ``expected``
+        (an iterable of request keys, duplicates meaning counts) declares
+        the membership and overrides the prediction. A step with neither
+        is a wildcard — every group waits for it to park or finish. An
+        anonymous step (no ``session``) gets the id ``anon-<n>``, and the
+        first unbound thread that submits claims it."""
         with self._lock:
+            sid = session
+            if sid is None:
+                sid = f"anon-{next(self._anon_ids)}"
+                self._anon_pool.append(sid)
             self._alive.add(sid)
             self._seen[sid] = Counter()
-            pred = self._predicted.get(sid)
+            pred = (Counter(expected) if expected is not None
+                    else self._predicted.get(sid))
             if pred is None:
                 self._wildcard.add(sid)
                 self._remaining[sid] = Counter()
             else:
                 self._wildcard.discard(sid)
                 self._remaining[sid] = Counter(pred)
+            return sid
 
     def bind_session(self, session: str) -> None:
         """Tie the calling thread's submissions to ``session``'s step."""
         self._local.sid = session
 
-    def end_step(self, sid: str) -> None:
-        """Retire a step: record its submitted keys as the session's next
-        prediction and re-check every pending group — a step that ends
-        without submitting (early error included) must release any group
-        that was waiting on it."""
+    def end_step(self, session: str | None = None) -> None:
+        """Retire a step (``session``, else the calling thread's): record
+        its submitted keys as the session's next prediction and re-check
+        every pending group — a step that ends without submitting (early
+        error included) must release any group that was waiting on it."""
         with self._lock:
+            sid = (session if session is not None
+                   else self._thread_sid_locked())
             self._local.sid = None
-            self._alive.discard(sid)
-            self._wildcard.discard(sid)
-            seen = self._seen.pop(sid, None)
-            if seen is not None:
-                self._predicted[sid] = seen
-            self._remaining.pop(sid, None)
-            self._parked.pop(sid, None)
+            if sid is not None:
+                self._alive.discard(sid)
+                self._wildcard.discard(sid)
+                seen = self._seen.pop(sid, None)
+                if seen is not None:
+                    self._predicted[sid] = seen
+                self._remaining.pop(sid, None)
+                self._parked.pop(sid, None)
             ready = self._collect_ready_locked()
         self._run_flushes(ready)
 
@@ -331,13 +350,18 @@ class CrossSessionBatcher:
 
     def _thread_sid_locked(self) -> str | None:
         sid = getattr(self._local, "sid", None)
-        return sid if sid in self._alive else None
+        if sid is not None and sid in self._alive:
+            return sid
+        if self._anon_pool:  # an unbound thread claims an anonymous step
+            sid = self._local.sid = self._anon_pool.popleft()
+            return sid
+        return None
 
     # ----------------------------------------------------------- engine
 
     def _submit(self, req: _Request):
         with self._lock:
-            sid = self._thread_sid_locked()
+            sid = self._thread_sid_locked() if self._alive else None
             if sid is not None:
                 req.sid = sid
                 self._seen[sid][req.key] += 1

@@ -162,22 +162,30 @@ class MiningDaemon:
 
     # --------------------------------------------------------- lifecycle
 
+    def _beat(self) -> None:
+        REGISTRY.gauge("daemon_heartbeat_ts").set(time.time())
+        REGISTRY.gauge("daemon_uptime_s").set(time.time() - self.started_at)
+
     def _heartbeat_loop(self) -> None:
-        while not self.server.stop_requested:
-            REGISTRY.gauge("daemon_heartbeat_ts").set(time.time())
-            REGISTRY.gauge("daemon_uptime_s").set(time.time() - self.started_at)
-            self.server.wait_stop(self.config.heartbeat_s)
+        while not self.server.wait_stop(self.config.heartbeat_s):
+            self._beat()
 
     def run(self) -> None:
         """Foreground daemon: start, serve, block until SIGTERM or a wire
-        ``shutdown`` op, then drain + checkpoint + exit."""
+        ``shutdown`` op, then drain + checkpoint + exit.
+
+        The pidfile is written last: whoever finds it may SIGTERM the
+        daemon (the handler is installed) and read its gauges (the first
+        heartbeat has been set). A daemon preempted between binding its
+        socket and those steps would otherwise die of the signal's
+        default action, or report a heartbeat of 0."""
         import threading
 
-        self.started_at = time.time()
-        addr = self.server.start()
-        self._write_pidfile()
         signal.signal(signal.SIGTERM, lambda *_: self.server._stop.set())
         signal.signal(signal.SIGINT, lambda *_: self.server._stop.set())
+        self.started_at = time.time()
+        addr = self.server.start()
+        self._beat()
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, daemon=True, name="daemon-hb"
         )
@@ -188,6 +196,7 @@ class MiningDaemon:
             f"device {self.service.device})",
             flush=True,
         )
+        self._write_pidfile()
         self.server.wait_stop()
         print("[daemon] draining...", flush=True)
         self.server.shutdown(drain=True)

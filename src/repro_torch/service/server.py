@@ -30,11 +30,12 @@ Usage::
     for delta in svc.poll("array-0"):
         ...                                # per-window episode deltas
 
-The reference counts XLA recompiles from the start of serving
-(``ensure_recompile_listener``); the port compiles nothing while it serves
-(its kernels are built once, before the first launch), so it has no
-counterpart. ``checkpoint_all`` (the wire server's and the daemon's
-durable cut) quiesces the scheduler first, then saves every session.
+Compiles are counted from the start of serving
+(``obs.torchprof.ensure_recompile_listener``: kernel library builds and
+loads, and any ``torch.compile``), in ``stats()["kernel"]["recompiles"]``;
+a service that has warmed up adds none. ``checkpoint_all`` (the wire
+server's and the daemon's durable cut) quiesces the scheduler first, then
+saves every session.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from repro_torch.core.mapconcat import shard_device_count
 from repro_torch.device import resolve_device
 from repro_torch.kernels import tally
 from repro_torch.obs import REGISTRY, span
+from repro_torch.obs.torchprof import ensure_recompile_listener
 from repro_torch.telemetry import MeterBank
 
 from .batcher import CrossSessionBatcher
@@ -71,6 +73,9 @@ class MiningService:
         self.scheduler = RoundRobinScheduler(policy, self.batcher,
                                              device=self.device)
         self._auto_ids = itertools.count()
+        # a library built or loaded mid-stream stalls every fused tenant;
+        # count every one from the start
+        ensure_recompile_listener()
 
     # --------------------------------------------------------- sessions
 
@@ -147,7 +152,8 @@ class MiningService:
         latency percentiles with the cross-session aggregate (the meters'
         exact rows), the scheduler's and the batcher's counters, and the
         kernel block — CUDA launches, plain-version runs and fused lanes
-        per kernel from ``kernels.tally``; the wire transport's, the
+        per kernel from ``kernels.tally``, and the recompile listener's
+        counts by library (``recompiles``); the wire transport's, the
         recovery plane's and the daemon's blocks carry the reference's
         registry counters. ``metrics`` is the full flat registry snapshot
         the structured fields are drawn from."""
@@ -232,6 +238,10 @@ class MiningService:
             "plain": tally.plain_counts(),
             "lanes": tally.lane_counts(),
             "plain_lanes": tally.plain_lane_counts(),
+            "recompiles": {
+                labels.get("kernel", "?"): m.value
+                for labels, m in REGISTRY.family_items("recompiles")
+            },
         }
         out["metrics"] = REGISTRY.snapshot()
         return out

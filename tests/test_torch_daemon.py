@@ -166,6 +166,42 @@ def test_daemon_lifecycle_pidfile_heartbeat_sigterm(tmp_path, sock_dir):
             proc.kill()
 
 
+def test_pidfile_written_once_ready(tmp_path, sock_dir, monkeypatch):
+    """The pidfile is the daemon's readiness signal: whoever reads it may
+    SIGTERM the daemon or read its gauges at once, so when it is written
+    the SIGTERM handler is installed and the first heartbeat is set;
+    otherwise a daemon preempted between binding its socket and those
+    steps dies of the signal's default action, or reports a heartbeat of
+    0. Run in this process, its signal handlers recorded rather than
+    installed."""
+    from repro_torch.obs import REGISTRY
+    from repro_torch.service.daemon import DaemonConfig
+
+    installed = {}
+    monkeypatch.setattr(signal, "signal",
+                        lambda sig, handler: installed.setdefault(sig, handler))
+    REGISTRY.gauge("daemon_heartbeat_ts").set(0.0)
+    d = MiningDaemon(DaemonConfig(address=f"unix:{sock_dir / 'r.sock'}",
+                                  data_dir=str(tmp_path / "data"),
+                                  device="cpu"))
+    seen = {}
+    write = d._write_pidfile
+
+    def write_then_stop():
+        seen["sigterm"] = signal.SIGTERM in installed
+        seen["heartbeat_ts"] = REGISTRY.gauge("daemon_heartbeat_ts").value
+        write()
+        seen["pidfile"] = MiningDaemon.read_pidfile(
+            tmp_path / "data" / "daemon.pid")
+        d.server._stop.set()  # then drain and return
+
+    monkeypatch.setattr(d, "_write_pidfile", write_then_stop)
+    d.run()
+    assert seen["sigterm"] and seen["heartbeat_ts"] > 0
+    assert seen["pidfile"]["address"] == f"unix:{sock_dir / 'r.sock'}"
+    assert not (tmp_path / "data" / "daemon.pid").exists()
+
+
 def test_stale_pidfile_detected_after_sigkill(tmp_path, sock_dir):
     proc, _ = spawn_daemon(tmp_path, sock_dir)
     pidfile = tmp_path / "data" / "daemon.pid"

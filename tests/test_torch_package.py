@@ -61,12 +61,24 @@ def test_port_imports_neither_jax_nor_reference():
 # reference modules whose counterpart in the port has another name
 COUNTERPARTS = {"obs/jaxprof.py": "obs/torchprof.py",
                 "launch/hlo_analysis.py": "launch/op_analysis.py"}
-# what the reference has and the port does not, with the reason
-WAITING = {"obs/jaxprof.py::ensure_recompile_listener":
-           "the port compiles nothing while it serves (TR205 checks it)"}
+# names that stood last on the port's list of what waits: each has its
+# counterpart, with the reference's signature
+NAMES = (("service.batcher", "CrossSessionBatcher.begin_step"),
+         ("obs.jaxprof", "obs.torchprof", "ensure_recompile_listener"))
+
+
+def _resolve(module: str, name: str):
+    import importlib
+    obj = importlib.import_module(module)
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
 
 
 def test_every_reference_module_has_a_counterpart():
+    """Every module of ``repro`` has its counterpart, and so have the
+    last names that waited: nothing of the reference is left to port."""
+    import inspect
     ref = ROOT / "src" / "repro"
     port = ROOT / "src" / "repro_torch"
     missing = []
@@ -77,10 +89,17 @@ def test_every_reference_module_has_a_counterpart():
     assert missing == []
     prof = (port / "obs" / "torchprof.py").read_text()
     assert all(name in prof for name in ("def annotate", "def capture_step"))
-    for what in WAITING:
-        path, name = what.split("::")
-        assert f"def {name}" in (ref / path).read_text()
-        assert f"def {name}" not in prof
+    for *mods, name in NAMES:
+        ref_mod, port_mod = mods[0], mods[-1]
+        want = inspect.signature(_resolve(f"repro.{ref_mod}", name))
+        got = inspect.signature(_resolve(f"repro_torch.{port_mod}", name))
+        assert str(got) == str(want), name
+    from repro_torch.service import CrossSessionBatcher
+    b = CrossSessionBatcher()
+    assert b.begin_step() == "anon-0"
+    assert b.begin_step("s") == "s"
+    from repro_torch.obs.torchprof import ensure_recompile_listener
+    assert ensure_recompile_listener() is True
 
 
 def _tiny():
